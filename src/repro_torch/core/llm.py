@@ -1,0 +1,201 @@
+"""LLM backends for Lumina.
+
+The paper's framework treats the LLM as a swappable reasoning engine that is
+(a) benchmarked by the DSE Benchmark and (b) constrained by the Strategy
+Engine's corrective rules.  The default backend is a deterministic rule
+engine (:class:`RuleOracle`) encoding exactly the architectural reasoning
+the paper prompts for; :class:`DegradedOracle` injects calibrated error to
+emulate weaker models (Table 3 structure) and to exercise the Refinement
+Loop's error recovery.
+
+Every interaction is a multiple-choice :class:`MCQuery` carrying BOTH the
+human/LLM-facing prompt text and a structured ``payload`` (the same facts,
+machine-readable).  The oracle reasons over the payload — the analogue of the
+LLM parsing the prompt.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Protocol
+
+import numpy as np
+
+TASK_BOTTLENECK = "bottleneck_analysis"
+TASK_PREDICTION = "perf_area_prediction"
+TASK_TUNING = "parameter_tuning"
+
+
+def _default_primary_map() -> Dict[str, str]:
+    """AHK primary edges (stall class -> most-correlated parameter), from
+    the influence graph extracted from the perfmodel source (the port's
+    copy of the artifact, :mod:`repro_torch.analysis`)."""
+    from repro_torch.analysis import primary_resources
+    return primary_resources()
+
+
+@dataclasses.dataclass
+class MCQuery:
+    task: str                       # one of the three benchmark task families
+    prompt: str                     # full natural-language prompt
+    options: List[str]              # formatted answer options
+    payload: Dict[str, Any]         # structured facts backing the prompt
+    answer: Optional[int] = None    # ground truth (benchmark only)
+
+    def render(self) -> str:
+        opts = "\n".join(f"  ({chr(65 + i)}) {o}" for i, o in enumerate(self.options))
+        return f"[task={self.task}]\n{self.prompt}\nOptions:\n{opts}"
+
+
+class LLMBackend(Protocol):
+    name: str
+
+    def choose(self, q: MCQuery) -> int:   # returns option index
+        ...
+
+
+# ---------------------------------------------------------------------------
+# Rule oracle: the deterministic reasoning engine
+# ---------------------------------------------------------------------------
+
+class RuleOracle:
+    """Answers the three task families by explicit architectural reasoning.
+
+    ``enhanced=True`` applies the paper's three corrective rules (§5.2):
+      1. bottleneck analysis: target ONLY the resource most correlated with
+         the dominant stall (never multi-resource options), and respect the
+         under-utilization pitfall of enlarging the systolic array;
+      2. perf/area prediction: compute deltas against the *sensitivity
+         reference*, never against a zero baseline;
+      3. parameter tuning: mitigate the dominant stall by adjusting the
+         least-critical resource only.
+    ``enhanced=False`` disables the guards, reproducing the failure patterns
+    the paper reports for un-prompt-hardened models.
+
+    ``primary_map`` (stall class -> parameter) defaults to the AHK edges
+    of the extracted influence graph (:mod:`repro_torch.analysis`); inject
+    an alternative for ablations.
+    """
+
+    def __init__(self, enhanced: bool = True, name: str = "rule-oracle",
+                 primary_map: Optional[Dict[str, str]] = None):
+        self.enhanced = enhanced
+        self.name = name + ("-enhanced" if enhanced else "")
+        self._primary_map = primary_map
+
+    @property
+    def primary_map(self) -> Dict[str, str]:
+        if self._primary_map is None:
+            self._primary_map = _default_primary_map()
+        return self._primary_map
+
+    # -- task dispatch ------------------------------------------------
+    def choose(self, q: MCQuery) -> int:
+        if q.task == TASK_BOTTLENECK:
+            return self._bottleneck(q)
+        if q.task == TASK_PREDICTION:
+            return self._prediction(q)
+        if q.task == TASK_TUNING:
+            return self._tuning(q)
+        raise ValueError(f"unknown task {q.task}")
+
+    # -- bottleneck analysis -------------------------------------------
+    def _bottleneck(self, q: MCQuery) -> int:
+        p = q.payload
+        dominant = p["dominant_stall"]
+        # AHK: stall class -> the single most-correlated resource parameter
+        primary = self.primary_map[dominant]
+        candidates = p["option_params"]       # list[list[(param, direction)]]
+        scores = []
+        for opt in candidates:
+            s = 0.0
+            for param, direction in opt:
+                if param == primary and direction > 0:
+                    s += 10.0
+                elif direction > 0 and param in p.get("relevant", {}).get(dominant, ()):
+                    s += 3.0
+                else:
+                    s -= 2.0                  # irrelevant param => penalty
+            if self.enhanced and len(opt) > 1:
+                s -= 5.0                      # corrective rule 1: single-resource focus
+            if self.enhanced:
+                # under-utilization guard: growing sa_dim without SRAM headroom
+                for param, direction in opt:
+                    if param == "sa_dim" and direction > 0 and not p.get("sa_headroom", True):
+                        s -= 20.0
+            scores.append(s)
+        return int(np.argmax(scores))
+
+    # -- perf/area prediction -------------------------------------------
+    def _prediction(self, q: MCQuery) -> int:
+        p = q.payload
+        base = np.asarray(p["reference_metric"], dtype=np.float64)
+        sens = {k: float(v) for k, v in p["sensitivity"].items()}
+        steps = {k: float(v) for k, v in p["delta_steps"].items()}
+        delta = sum(sens[k] * steps[k] for k in steps)
+        if self.enhanced:
+            # corrective rule 2: delta vs the sensitivity reference
+            pred = float(base) + delta
+        else:
+            # failure mode the paper reports ("models frequently computed
+            # deltas against a zero baseline"): the unhardened oracle falls
+            # into it on a deterministic ~half of the questions
+            fails = (hash(q.prompt) & 0xFF) < 128
+            pred = delta if fails else float(base) + delta
+        vals = np.asarray(p["option_values"], dtype=np.float64)
+        return int(np.argmin(np.abs(vals - pred)))
+
+    # -- parameter tuning -------------------------------------------
+    def _tuning(self, q: MCQuery) -> int:
+        p = q.payload
+        dominant = p["dominant_stall"]
+        primary = self.primary_map[dominant]
+        crit = p["criticality"]               # param -> criticality score
+        sens = p.get("sensitivity")           # param -> metric -> delta/step
+        ok = p.get("constraints_ok", [True] * len(p["option_params"]))
+        scores = []
+        for oi, opt in enumerate(p["option_params"]):
+            if self.enhanced and sens is not None:
+                # enhanced reasoning: linear latency prediction from the
+                # sensitivity reference (corrective rule 2), constraints are
+                # hard, and ties prefer trading the least-critical resource
+                # (corrective rule 3)
+                pred = sum(sens[param]["ttft"] * d for param, d in opt)
+                s = -pred * 1e6
+                for param, d in opt:
+                    if d < 0:
+                        s += 0.5 * (1.0 - crit.get(param, 0.5))
+                if not ok[oi]:
+                    s -= 1e12                 # never violate design constraints
+            else:
+                # unhardened failure pattern the paper reports: compensate
+                # for an unresolved bottleneck by touching many non-critical
+                # resources, and under-weight the constraints
+                s = 0.0
+                ups = [param for param, d in opt if d > 0]
+                downs = [param for param, d in opt if d < 0]
+                if primary in ups:
+                    s += 2.0
+                s += len(ups) + len(downs)    # prefers busier adjustments
+                if not ok[oi]:
+                    s -= 1.0                  # constraint barely registers
+            scores.append(s)
+        return int(np.argmax(scores))
+
+
+class DegradedOracle:
+    """RuleOracle with calibrated error injection (emulates weaker LLMs)."""
+
+    def __init__(self, p_err: float, seed: int = 0, enhanced: bool = True,
+                 name: str = "degraded",
+                 primary_map: Optional[Dict[str, str]] = None):
+        self._inner = RuleOracle(enhanced=enhanced, primary_map=primary_map)
+        self._p = float(p_err)
+        self._rng = np.random.default_rng(seed)
+        self.name = f"{name}(p={p_err:.2f})"
+
+    def choose(self, q: MCQuery) -> int:
+        good = self._inner.choose(q)
+        if self._rng.random() < self._p and len(q.options) > 1:
+            wrong = [i for i in range(len(q.options)) if i != good]
+            return int(self._rng.choice(wrong))
+        return good

@@ -1,0 +1,92 @@
+"""The streaming sweep: the port against the reference SweepEngine, and the
+kernel backend (its plain version on the CPU) against the torch path."""
+import numpy as np
+import pytest
+import torch
+
+from repro.perfmodel import get_evaluator as j_get_evaluator
+from repro.perfmodel.sweep import SweepEngine as JSweepEngine
+from repro_torch.core.pareto import pareto_front
+from repro_torch.perfmodel import (RooflineModel, SweepEngine, get_evaluator,
+                                   gpt3_layer_prefill)
+from repro_torch.perfmodel.designspace import SPACE
+
+torch.set_num_threads(1)
+
+STOP = 300_000
+
+
+@pytest.fixture(scope="module")
+def port_and_ref():
+    port = SweepEngine(get_evaluator("proxy", device="cpu"),
+                       chunk_size=16_384, stall_topk=8).run(0, STOP)
+    ref = JSweepEngine(j_get_evaluator("proxy"), chunk_size=16_384,
+                       stall_topk=8).run(0, STOP)
+    return port, ref
+
+
+def test_counts_match_reference(port_and_ref):
+    port, ref = port_and_ref
+    assert port.n_evaluated == ref.n_evaluated == STOP
+    assert port.n_superior == ref.n_superior
+    np.testing.assert_allclose(port.ref_point, ref.ref_point, rtol=1e-6)
+
+
+def test_topk_and_stall_seeds_match_reference(port_and_ref):
+    port, ref = port_and_ref
+    assert np.array_equal(port.topk_ids, ref.topk_ids)
+    np.testing.assert_allclose(port.topk_val, ref.topk_val, rtol=1e-6)
+    assert np.array_equal(port.stall_topk_ids, ref.stall_topk_ids)
+    ps, rs = port.stall_seeds(), ref.stall_seeds()
+    assert list(ps) == list(rs)
+    for cls in rs:
+        assert np.array_equal(ps[cls], rs[cls])
+
+
+def test_front_matches_reference(port_and_ref):
+    port, ref = port_and_ref
+    assert not port.archive_truncated
+    assert np.array_equal(port.pareto_ids, ref.pareto_ids)
+    np.testing.assert_allclose(port.pareto_y, ref.pareto_y, rtol=1e-6)
+    assert np.array_equal(port.pareto_idx(), ref.pareto_idx())
+
+
+def test_kernel_backend_equals_torch_path_and_brute_force():
+    """backend="cuda" (the kernel's plain version on the CPU) finds the
+    torch path's result bit for bit; both equal a brute-force front."""
+    stop = 40_000
+    ev_k = get_evaluator("proxy", backend="cuda", device="cpu")
+    eng_k = SweepEngine(ev_k, chunk_size=5_000, stall_topk=4,
+                        stall_rank="ref")
+    assert eng_k.backend == "cuda" and eng_k.chunk_size == 5_120
+    eng_r = SweepEngine(get_evaluator("proxy", device="cpu"),
+                        chunk_size=5_000, stall_topk=4, stall_rank="ref")
+    a, b = eng_k.run(0, stop), eng_r.run(0, stop)
+    assert a.n_superior == b.n_superior and a.n_evaluated == stop
+    for f in ("pareto_ids", "pareto_y", "topk_ids", "topk_val",
+              "stall_topk_ids", "stall_topk_val"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    y = get_evaluator("proxy", device="cpu").objectives(
+        SPACE.flat_to_idx(np.arange(stop)))
+    brute = pareto_front(y.astype(np.float64))
+    assert np.array_equal(np.unique(brute, axis=0),
+                          np.unique(a.pareto_y, axis=0))
+    assert a.n_superior == int((y < a.ref_point[None, :]).all(axis=1).sum())
+
+
+def test_engine_identity_and_guards():
+    ev = get_evaluator("proxy", device="cpu")
+    eng = SweepEngine(ev, chunk_size=1_000)
+    ref = JSweepEngine(j_get_evaluator("proxy"), chunk_size=1_000)
+    assert eng.fingerprint() == ref.fingerprint()
+    np.testing.assert_allclose(eng.ref_point, ref.ref_point, rtol=1e-6)
+    with pytest.raises(TypeError):
+        SweepEngine(RooflineModel(gpt3_layer_prefill()))
+    with pytest.raises(ValueError, match="compass-tier knobs"):
+        SweepEngine(get_evaluator("target", device="cpu"), backend="cuda")
+    with pytest.raises(NotImplementedError):
+        SweepEngine(ev, chunk_size="auto")
+    with pytest.raises(ValueError):
+        SweepEngine(ev, stall_rank="area")
+    with pytest.raises(ValueError, match="stall_topk"):
+        eng.run(0, 2_000).stall_seeds()
