@@ -25,11 +25,35 @@ line is printed:
 6. kernel timings at the sweep's chunk shape against their bounds (the
    timed outputs held against the plain version once more), and a short
    profiler window over the kernel sweep: device time by kernel and
-   the device's idle share.
+   the device's idle share;
+7. the LM kernels against their plain versions on the card: flash_attention
+   at the reference's test shapes and at (B 2, S 4096, H 32, hd 64), MHA
+   and GQA, causal and not, fp32 and bf16 (2e-5 / 2e-2), rwkv6_scan at the
+   test shapes and at (B 1, T 4096, H 64, hd 64) (5e-5 / 5e-2), and one
+   ragged length each;
+8. the prefill step at full width in fp32, weights from a seeded
+   ``torch.Generator``, prompts from ``np.random.default_rng(0)``:
+   llama3.2-1b at B 2, S 4096 must launch flash_attention 16 times and
+   rwkv6-7b at B 1, S 4096 rwkv6_scan 32 times; logits finite; the first
+   64 positions decoded step by step must match the prefill at rtol = atol
+   = 2e-3: llama3.2-1b's logits; for rwkv6-7b, ``decode_step``'s logits and
+   each layer's output with every layer given the prefill's input to it,
+   and the free-running logits unless one rounding of the embeddings moves
+   the prefill's own logits further (the random-weight 32-layer stack
+   amplifies rounding geometrically; the gaps and the drift by depth are
+   printed); one profiled rwkv6-7b decode step;
+9. ``serve`` at full width for both models (batch 4, prompt 32, gen 16):
+   token shape, TTFT and TPOT (it prefills by decode steps, as the
+   reference does, so it launches neither LM kernel);
+10. LM kernel timings at phase 8's shapes (queue pre-filled, CUDA events)
+   against their bounds, the plain versions and, for attention, one
+   ``F.scaled_dot_product_attention`` call (timed only, never used by the
+   port), the prefill wall times, and profiler windows over one
+   llama3.2-1b prefill and one decode step.
 
 Kernel launch counters are zeroed just before each part of the main path
-and read just after; every kernel must have launched there.  The second to
-last line is ``{"kernels": [...]}``; the last line is
+and read just after; every kernel of that part must have launched there.
+The second to last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports torch, numpy and ``repro_torch``
 only.
 """
@@ -54,6 +78,9 @@ TOL_AREA_RTOL = 1e-5
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bandwidth and fp32 rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+
+# NVIDIA H100 SXM data-sheet peak (dense) of the bf16 tensor cores
+PEAK_BF16_PER_S = 989e12
 
 SWEEP_CHUNK = 131_072   # SweepEngine's default chunk, the main path's shape
 PHASE2_BATCHES = (1, 255, 256, 65_553, SWEEP_CHUNK)
@@ -121,33 +148,40 @@ def kernel_ms(torch, fn, warm: int = 3, iters: int = 50) -> float:
     """Mean device time of one fn() launch (CUDA events).  A device sleep
     queued first keeps the card busy while the host enqueues all `iters`
     launches, so they run back to back and the host's per-launch cost
-    does not leak into the time; fails if the sleep ran out first."""
+    does not leak into the time.  If the sleep ran out first (a busy
+    host), it is measured again behind a sleep four times as long; fails
+    if the longest sleep still runs out."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    ev[0].record()
-    torch.cuda._sleep(100_000_000)          # ~50 ms at the H100's clock
-    ev[1].record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    ev[2].record()
-    torch.cuda.synchronize()
-    check(host_ms < ev[0].elapsed_time(ev[1]),
-          f"enqueue took {host_ms:.2f} ms, longer than the device sleep")
-    return ev[1].elapsed_time(ev[2]) / iters
+    for cycles in (100_000_000, 400_000_000, 1_600_000_000):  # ~50 ms up
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / iters
+    raise SmokeFailure(f"enqueue took {host_ms:.2f} ms, longer than the "
+                       f"longest device sleep")
 
 
-def profile_sweep(torch, eng, n_chunks: int = 4) -> None:
-    """Device time by kernel name over `n_chunks` chunk steps of `eng`."""
+def profile_device(torch, fn, tag: str, what: str, keep: str = None) -> None:
+    """Device time by kernel name over one call of fn(), and the device's
+    idle share of the profiled window; kernels whose name holds `keep` are
+    listed even outside the top ten."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run(0, n_chunks * eng.chunk_size)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict = {}
@@ -157,16 +191,379 @@ def profile_sweep(torch, eng, n_chunks: int = 4) -> None:
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy = sum(us for _, us in by_name.values())
     if not by_name:
-        log("[6] profile: the profiler saw no device events; device time "
-            "not measured")
+        log(f"[{tag}] profile: the profiler saw no device events; device "
+            f"time not measured")
         return
-    log(f"[6] profile {n_chunks} sweep chunks: wall {wall_us / 1e3:.3f} ms "
-        f"(profiled), device busy {busy / 1e3:.3f} ms, idle share "
+    log(f"[{tag}] profile {what}: wall {wall_us / 1e3:.3f} ms (profiled), "
+        f"device busy {busy / 1e3:.3f} ms, idle share "
         f"{1.0 - busy / wall_us:.3f}")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    shown = ranked[:10] + [kv for kv in ranked[10:] if "ppa_eval" in kv[0]]
+    shown = ranked[:10] + [kv for kv in ranked[10:]
+                           if keep is not None and keep in kv[0]]
     for name, (n, us) in shown:
-        log(f"[6]   {us / busy:6.1%} {us / 1e3:8.3f} ms x{n:<4d} {name[:90]}")
+        log(f"[{tag}]   {us / busy:6.1%} {us / 1e3:8.3f} ms x{n:<4d} "
+            f"{name[:90]}")
+
+
+# ---------------------------------------------------------------- LM slice
+FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}       # tests/test_kernels.py
+RWKV_TOL = {"float32": 5e-5, "bfloat16": 5e-2}
+DECODE_TOL = 2e-3                                   # tests/test_models.py
+# (B, S, H, KVH, hd, causal): the reference's test shapes, the llama3.2-1b
+# prefill shape (MHA and GQA), and one ragged length
+FA_SHAPES = [(2, 128, 2, 2, 64, True), (1, 256, 4, 4, 128, True),
+             (2, 64, 2, 2, 32, False), (1, 128, 1, 1, 64, True),
+             (2, 4096, 32, 32, 64, True), (2, 4096, 32, 32, 64, False),
+             (2, 4096, 32, 8, 64, True), (2, 4096, 32, 8, 64, False),
+             (2, 333, 8, 2, 64, True)]
+# (B, T, H, hd): the test shapes, the rwkv6-7b prefill shape, one ragged T
+RWKV_SHAPES = [(2, 64, 2, 16), (1, 128, 4, 32), (2, 32, 1, 64),
+               (1, 4096, 64, 64), (2, 333, 3, 64)]
+LLAMA = ("llama3.2-1b", 2, 4096)                    # arch, batch, seq
+RWKV = ("rwkv6-7b", 1, 4096)
+N_DECODE = 64
+
+
+def _dtypes(torch):
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def fa_inputs(torch, b, s, h, kvh, hd, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, s, h, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, s, kvh, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, s, kvh, hd), generator=g, device=dev).to(dtype)
+    return q, k, v
+
+
+def rwkv_inputs(torch, b, t, h, hd, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (0.5 * torch.randn((b, t, h, hd), generator=g, device=dev)
+               for _ in range(3))
+    w = 0.3 + 0.69 * torch.rand((b, t, h, hd), generator=g, device=dev)
+    u = 0.1 * torch.randn((h, hd), generator=g, device=dev)
+    return [x.to(dtype).contiguous() for x in (r, k, v, w)] + [u]
+
+
+def hold(got, want, tol: float, what: str) -> float:
+    """Fail unless |got - want| <= tol + tol |want|; returns max abs err."""
+    g = got.float().cpu().numpy()
+    w = want.float().cpu().numpy()
+    check(bool(np.isfinite(g).all()), f"{what}: non-finite output")
+    np.testing.assert_allclose(g, w, rtol=tol, atol=tol, err_msg=what)
+    return float(np.max(np.abs(g - w)))
+
+
+def phase7_lm_kernels(torch, dev) -> dict:
+    """Each LM kernel against its plain version; max abs error per kernel
+    over the fp32 checks (the main path's dtype)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
+    err = {"flash_attention": 0.0, "rwkv6_scan": 0.0}
+    saved = (flash_attention.launches, rwkv6_scan.launches)
+    for dn, dt in _dtypes(torch).items():
+        for b, s, h, kvh, hd, causal in FA_SHAPES:
+            q, k, v = fa_inputs(torch, b, s, h, kvh, hd, dt, dev)
+            got = flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            e = hold(got, flash_attention_plain(q, k, v, causal=causal),
+                     FA_TOL[dn], f"flash_attention {dn} {(b, s, h, kvh, hd)} "
+                     f"causal={causal}")
+            if dn == "float32":
+                err["flash_attention"] = max(err["flash_attention"], e)
+            log(f"[7] flash_attention {dn} B={b} S={s} H={h} KVH={kvh} "
+                f"hd={hd} causal={causal}: max abs err {e:.3g} "
+                f"(tol {FA_TOL[dn]})")
+        for b, t, h, hd in RWKV_SHAPES:
+            args = rwkv_inputs(torch, b, t, h, hd, dt, dev)
+            got = rwkv6_scan(*args)
+            torch.cuda.synchronize()
+            e = hold(got, rwkv6_scan_plain(*args), RWKV_TOL[dn],
+                     f"rwkv6_scan {dn} {(b, t, h, hd)}")
+            if dn == "float32":
+                err["rwkv6_scan"] = max(err["rwkv6_scan"], e)
+            log(f"[7] rwkv6_scan {dn} B={b} T={t} H={h} hd={hd}: max abs "
+                f"err {e:.3g} (tol {RWKV_TOL[dn]})")
+    flash_attention.launches, rwkv6_scan.launches = saved
+    return err
+
+
+def build_full_width(torch, arch: str, dev, seed: int = 0):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    model = build_model(get_arch(arch), dtype=torch.float32, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log(f"[8] {arch}: {n / 1e9:.3f} B parameters fp32 "
+        f"({n * 4 / 2**30:.1f} GiB), seeded init "
+        f"{time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def phase8_prefill(torch, model, batch: int, seq: int, dev,
+                   check_logits: bool = True) -> dict:
+    """One counted prefill step, a timed second one, and the first
+    N_DECODE positions decoded step by step against it: their logits are
+    held to the prefill's at DECODE_TOL when `check_logits`, else only
+    reported (see rwkv_decode_tie)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    cfg = model.cfg
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (batch, seq)), device=dev)
+    prefill = make_prefill_step(model)
+    torch.cuda.synchronize()
+    flash_attention.launches = rwkv6_scan.launches = 0
+    t0 = time.perf_counter()
+    logits = prefill({"tokens": toks})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = {"flash_attention": flash_attention.launches,
+              "rwkv6_scan": rwkv6_scan.launches}
+    check(logits.shape == (batch, seq, cfg.vocab),
+          f"{cfg.name} logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), f"{cfg.name}: non-finite logits")
+    head = logits[:, :N_DECODE].cpu().numpy()
+    stats = (float(logits.float().abs().max()), float(logits.float().std()))
+    del logits
+    saved = dict(counts)
+    t0 = time.perf_counter()
+    prefill({"tokens": toks})
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    flash_attention.launches = saved["flash_attention"]
+    rwkv6_scan.launches = saved["rwkv6_scan"]
+    log(f"[8] {cfg.name} prefill B={batch} S={seq}: logits "
+        f"{(batch, seq, cfg.vocab)} finite, max |logit| {stats[0]:.4g} std "
+        f"{stats[1]:.4g}; wall {first_s:.3f} s (first), {second_s:.3f} s "
+        f"(second); launches {counts}")
+
+    step = make_serve_step(model)
+    cache = model.init_cache(batch, N_DECODE)
+    worst = 0.0
+    t0 = time.perf_counter()
+    for t in range(N_DECODE):
+        lg, cache = step(cache, toks[:, t])
+        got = lg.cpu().numpy()
+        if check_logits:
+            np.testing.assert_allclose(
+                got, head[:, t], rtol=DECODE_TOL, atol=DECODE_TOL,
+                err_msg=f"{cfg.name}: decode step {t} vs prefill")
+        worst = max(worst, float(np.max(np.abs(got - head[:, t]))))
+    decode_s = time.perf_counter() - t0
+    log(f"[8] {cfg.name} decode {N_DECODE} positions step by step vs "
+        f"prefill logits: max abs diff {worst:.3g} "
+        + (f"(held to rtol = atol = {DECODE_TOL})" if check_logits
+           else "(reported; held in rwkv_decode_tie)")
+        + f"; {decode_s / N_DECODE * 1e3:.2f} ms per step")
+    return {"counts": counts, "prefill_s": second_s, "first_s": first_s,
+            "decode_diff": worst, "toks": toks}
+
+
+def rwkv_decode_tie(torch, model, toks, free_gap: float) -> float:
+    """rwkv6-7b's decode_step against its forward over the first N_DECODE
+    positions, through decode_step, its cache and every layer.
+
+    Teacher-forced: a wrapper around ``model.rwkv_layer`` hands each layer
+    of each decode step the forward's own input to that layer at that
+    position; the layer's output and the step's logits are held to the
+    forward's at DECODE_TOL.  Free-running (as the server decodes), the
+    decode path's output of each layer is set against the forward's by
+    depth, and its logits gap (`free_gap`, from phase 8) is held at
+    DECODE_TOL unless the forward itself moves further than that when its
+    embeddings are perturbed by one rounding (2^-24 relative; the move at
+    the size of decode's own gap after layer 1 is printed beside it): with
+    random weights the 32-layer stack amplifies rounding geometrically
+    (tests/test_torch_models.py::test_rwkv_decode_gap_at_depth_is_rounding
+    shows in fp64 that no fault needs depth).  Returns that sensitivity."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    cfg, n, b = model.cfg, N_DECODE, toks.shape[0]
+    layer = model.rwkv_layer                    # the bound method
+    saved = rwkv6_scan.launches
+    fwd_in, fwd_out = [], []
+
+    def record(i, h, state=None):
+        out = layer(i, h, state)
+        fwd_in.append(h[:, :n].clone())
+        fwd_out.append(out[0][:, :n].clone())
+        return out
+
+    def decode(wrapper):
+        model.rwkv_layer = wrapper
+        try:
+            step, cache, logits = make_serve_step(model), \
+                model.init_cache(b, n), []
+            for t in range(n):
+                pos[0] = t
+                lg, cache = step(cache, toks[:, t])
+                logits.append(lg)
+            return torch.stack(logits, dim=1)
+        finally:
+            del model.rwkv_layer
+
+    pos = [0]
+    model.rwkv_layer = record
+    try:
+        want = make_prefill_step(model)({"tokens": toks})[:, :n].clone()
+    finally:
+        del model.rwkv_layer
+    forced_out = [[] for _ in range(cfg.n_layers)]
+
+    def forced(i, h, state=None):
+        out = layer(i, fwd_in[i][:, pos[0]:pos[0] + 1], state)
+        forced_out[i].append(out[0])
+        return out
+
+    e_logits = hold(decode(forced), want, DECODE_TOL,
+                    "rwkv6-7b teacher-forced decode_step logits vs prefill")
+    per_layer = [hold(torch.cat(o, dim=1), fwd_out[i], DECODE_TOL,
+                      f"rwkv6-7b layer {i}: teacher-forced decode_step vs "
+                      f"forward") for i, o in enumerate(forced_out)]
+    free_out = [[] for _ in range(cfg.n_layers)]
+
+    def free(i, h, state=None):
+        out = layer(i, h, state)
+        free_out[i].append(out[0])
+        return out
+
+    decode(free)
+    drift = [float((torch.cat(o, dim=1) - fwd_out[i]).abs().max()
+                   / fwd_out[i].abs().max()) for i, o in enumerate(free_out)]
+    emb = model.embed.detach().clone()
+    prefill = make_prefill_step(model)
+    base = prefill({"tokens": toks[:, :n]})
+
+    def moved(eps):
+        """max |logit change| of the prefill with embeddings * (1 + eps z)"""
+        g = torch.Generator(device=toks.device).manual_seed(2)
+        model.embed.mul_(1 + eps * torch.randn(emb.shape, generator=g,
+                                               device=toks.device))
+        out = float((prefill({"tokens": toks[:, :n]}) - base).abs().max())
+        model.embed.copy_(emb)
+        return out
+
+    sens, sens_drift = moved(2.0 ** -24), moved(drift[0])
+    del emb
+    rwkv6_scan.launches = saved
+    log(f"[8] rwkv6-7b teacher-forced decode_step, {cfg.n_layers} layers x "
+        f"{n} positions, held at rtol = atol = {DECODE_TOL}: logits max "
+        f"abs diff {e_logits:.3g}; by layer "
+        f"{[float(f'{e:.2g}') for e in per_layer]}")
+    depths = [d for d in (1, 2, 4, 8, 16, 32) if d <= len(drift)]
+    log(f"[8] rwkv6-7b free-running decode vs forward, max |diff| / max |h| "
+        f"after layer {depths}: "
+        f"{[float(f'{drift[d - 1]:.2g}') for d in depths]}")
+    log(f"[8] rwkv6-7b prefill's logits moved by a relative perturbation "
+        f"of the embeddings: max abs {sens:.3g} at 2^-24 (one rounding), "
+        f"{sens_drift:.3g} at {drift[0]:.2g} (decode's own gap after layer "
+        f"1); free-running decode's logits gap {free_gap:.3g}")
+    check(free_gap <= DECODE_TOL or sens > DECODE_TOL,
+          f"rwkv6-7b free-running decode leaves the prefill by {free_gap:.3g}"
+          f" > {DECODE_TOL}, while one rounding moves the forward by only "
+          f"{sens:.3g}")
+    return sens
+
+
+def profile_decode_step(torch, model, batch: int, tag: str) -> None:
+    """A profiler window over one decode step after 32 (the serve path's
+    unit of work), random tokens from a seeded generator."""
+    from repro_torch.launch.steps import make_serve_step
+    step = make_serve_step(model)
+    g = torch.Generator(device=model.device).manual_seed(1)
+    toks = torch.randint(0, model.cfg.vocab, (batch, 33), generator=g,
+                         device=model.device)
+    cache = model.init_cache(batch, 40)
+    for t in range(32):
+        _, cache = step(cache, toks[:, t])
+    profile_device(torch, lambda: step(cache, toks[:, 32]), tag,
+                   f"one {model.cfg.name} decode step (B {batch}, after 32)")
+
+
+def phase9_serve(torch, dev) -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.launch.serve import serve
+    out = {}
+    for arch in (LLAMA[0], RWKV[0]):
+        flash_attention.launches = rwkv6_scan.launches = 0
+        r = serve(arch, 4, 32, 16, smoke=False, seed=0, device=dev)
+        counts = (flash_attention.launches, rwkv6_scan.launches)
+        check(r["tokens"].shape == (4, 16), f"{arch} serve tokens "
+              f"{r['tokens'].shape}")
+        torch.cuda.empty_cache()
+        log(f"[9] serve {arch} batch 4 prompt 32 gen 16: tokens "
+            f"{r['tokens'].shape}, TTFT {r['ttft_s'] * 1e3:.1f} ms, TPOT "
+            f"{r['tpot_s'] * 1e3:.2f} ms; launches (flash, rwkv6) {counts} "
+            f"(prefill by decode steps); first row "
+            f"{r['tokens'][0][:8].tolist()}")
+        out[arch] = r
+    return out
+
+
+def phase10_lm_timings(torch, dev) -> dict:
+    """ms per launch at phase 8's shapes for each LM kernel and dtype."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_cost,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.rwkv6_scan import (rwkv6_scan, rwkv6_scan_cost,
+                                                rwkv6_scan_plain)
+    peak = {"float32": PEAK_FP32_PER_S, "bfloat16": PEAK_BF16_PER_S}
+    out = {}
+    saved = (flash_attention.launches, rwkv6_scan.launches)
+    b, s, h, kvh, hd = LLAMA[1], LLAMA[2], 32, 8, 64
+    for dn, dt in _dtypes(torch).items():
+        q, k, v = fa_inputs(torch, b, s, h, kvh, hd, dt, dev, seed=1)
+        k_ms = kernel_ms(torch, lambda: flash_attention(q, k, v), iters=20)
+        e = hold(flash_attention(q, k, v), flash_attention_plain(q, k, v),
+                 FA_TOL[dn], f"flash_attention {dn} (timed)")
+        p_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v),
+                       warm=1, iters=3)
+        qh, kh, vh = (x.permute(0, 2, 1, 3).repeat_interleave(
+            h // x.shape[2], dim=1).contiguous() for x in (q, k, v))
+        lib_ms = kernel_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), iters=20)
+        ops, nbytes = flash_attention_cost(b, s, s, h, kvh, hd, True,
+                                           q.element_size())
+        t_ops, t_bytes = ops / peak[dn] * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        out[("flash_attention", dn)] = {
+            "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+            "bound_ms": max(t_ops, t_bytes), "max_abs_err": e,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        log(f"[10] flash_attention {dn} B={b} S={s} H={h} KVH={kvh} hd={hd} "
+            f"causal: kernel {k_ms:.3f} ms ({ops / k_ms / 1e9:.1f} TFLOP/s), "
+            f"plain {p_ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound "
+            f"{max(t_ops, t_bytes):.4f} ms ({ops / 1e9:.1f} GFLOP at "
+            f"{peak[dn] / 1e12:.0f} TFLOP/s; {nbytes / 1e6:.1f} MB at "
+            f"3.35 TB/s)")
+        del q, k, v, qh, kh, vh
+    b, t, h, hd = RWKV[1], RWKV[2], 64, 64
+    for dn, dt in _dtypes(torch).items():
+        args = rwkv_inputs(torch, b, t, h, hd, dt, dev, seed=1)
+        k_ms = kernel_ms(torch, lambda: rwkv6_scan(*args), iters=20)
+        e = hold(rwkv6_scan(*args), rwkv6_scan_plain(*args), RWKV_TOL[dn],
+                 f"rwkv6_scan {dn} (timed)")
+        p_ms = time_ms(torch, lambda: rwkv6_scan_plain(*args), warm=1,
+                       iters=1)
+        ops, nbytes = rwkv6_scan_cost(b, t, h, hd, args[0].element_size())
+        t_ops = ops / PEAK_FP32_PER_S * 1e3     # the recurrence is fp32 math
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        out[("rwkv6_scan", dn)] = {
+            "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+            "bound_ms": max(t_ops, t_bytes), "max_abs_err": e,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        log(f"[10] rwkv6_scan {dn} B={b} T={t} H={h} hd={hd}: kernel "
+            f"{k_ms:.3f} ms ({k_ms / t * 1e6:.1f} ns per step), plain "
+            f"{p_ms:.1f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+            f"({ops / 1e9:.2f} GFLOP at 67 TFLOP/s; {nbytes / 1e6:.1f} MB "
+            f"at 3.35 TB/s); no single PyTorch call computes it")
+    flash_attention.launches, rwkv6_scan.launches = saved
+    return out
 
 
 def main() -> int:
@@ -178,7 +575,9 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     from repro_torch.core.loop import LuminaDSE
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ppa_eval import ops as ppa_ops
+    from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
     from repro_torch.kernels.ppa_eval import (op_table, op_table_tensor,
                                               ppa_eval, ppa_eval_op_count,
                                               ppa_eval_plain)
@@ -197,12 +596,21 @@ def main() -> int:
     log(f"[1] card: {smi}")
     log(f"[1] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False     # fp32 means fp32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     t0 = time.perf_counter()
-    _build.load_library("ppa_eval", ppa_ops.SOURCE)
-    log(f"[1] build ppa_eval: {time.perf_counter() - t0:.2f} s")
-    for line in _build.BUILD_LOGS.get("ppa_eval", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[1]   {line.strip()}")
+    kernel_mods = (ppa_ops, fa_ops, rwkv_ops)
+    _build.build([(m.SOURCE, m.FLAGS) for m in kernel_mods])
+    for m in kernel_mods:
+        m._library()                      # loads what build() compiled
+    log(f"[1] build ppa_eval, flash_attention, rwkv6_scan (nvcc in "
+        f"parallel): {time.perf_counter() - t0:.2f} s")
+    for name in ("ppa_eval", "flash_attention", "rwkv6_scan"):
+        for line in _build.BUILD_LOGS.get(name, "").splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                log(f"[1]   {name}: {line.strip()}")
 
     # ---- 2. kernel vs plain on the card -----------------------------------
     wls = {"ttft": gpt3_layer_prefill(), "tpot": gpt3_layer_decode()}
@@ -352,8 +760,50 @@ def main() -> int:
     log(f"[6] ppa_eval per full sweep: {2 * n_chunks} launches, "
         f"~{full:.3f} ms of kernel time")
     saved = ppa_eval.launches
-    profile_sweep(torch, eng_k)
+    profile_device(torch, lambda: eng_k.run(0, 4 * eng_k.chunk_size), "6",
+                   "4 sweep chunks", "ppa_eval")
     ppa_eval.launches = saved               # profiled launches likewise
+
+    # ---- 7. LM kernels vs plain on the card --------------------------------
+    lm_err = phase7_lm_kernels(torch, dev)
+
+    # ---- 8. prefill step at full width --------------------------------------
+    llama = build_full_width(torch, LLAMA[0], dev)
+    pre_llama = phase8_prefill(torch, llama, LLAMA[1], LLAMA[2], dev)
+    check(pre_llama["counts"] == {"flash_attention": 16, "rwkv6_scan": 0},
+          f"llama3.2-1b prefill launches {pre_llama['counts']}, want 16 "
+          f"flash_attention")
+    rwkv = build_full_width(torch, RWKV[0], dev)
+    pre_rwkv = phase8_prefill(torch, rwkv, RWKV[1], RWKV[2], dev,
+                              check_logits=False)
+    check(pre_rwkv["counts"] == {"flash_attention": 0, "rwkv6_scan": 32},
+          f"rwkv6-7b prefill launches {pre_rwkv['counts']}, want 32 "
+          f"rwkv6_scan")
+    rwkv_decode_tie(torch, rwkv, pre_rwkv["toks"], pre_rwkv["decode_diff"])
+    profile_decode_step(torch, rwkv, 4, "8")
+    del rwkv
+    torch.cuda.empty_cache()
+
+    # ---- 9. serve at full width --------------------------------------------
+    phase9_serve(torch, dev)
+
+    # ---- 10. LM kernel timings and a profiled prefill -----------------------
+    lm_times = phase10_lm_timings(torch, dev)
+    log(f"[10] prefill wall (second call): llama3.2-1b B=2 S=4096 "
+        f"{pre_llama['prefill_s']:.3f} s, rwkv6-7b B=1 S=4096 "
+        f"{pre_rwkv['prefill_s']:.3f} s")
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.steps import make_prefill_step
+    saved = flash_attention.launches
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, llama.cfg.vocab, (LLAMA[1], LLAMA[2])), device=dev)
+    step = make_prefill_step(llama)
+    profile_device(torch, lambda: step({"tokens": toks}), "10",
+                   "one llama3.2-1b prefill (B 2, S 4096)", "fa_fwd")
+    flash_attention.launches = saved
+    profile_decode_step(torch, llama, 4, "10")
+    del llama, step
+    torch.cuda.empty_cache()
 
     kt = times["ttft"]
     kernels = [{
@@ -366,7 +816,23 @@ def main() -> int:
         "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],
         "library_ms": None,
     }]
-    log(f"[7] total {time.perf_counter() - t_all:.1f} s")
+    for name, src, replaces, launches in (
+            ("flash_attention",
+             "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:25",
+             pre_llama["counts"]["flash_attention"]),
+            ("rwkv6_scan", "src/repro_torch/kernels/rwkv6_scan/rwkv6_scan.cu",
+             "src/repro/kernels/rwkv6_scan/kernel.py:25",
+             pre_rwkv["counts"]["rwkv6_scan"])):
+        t32 = lm_times[(name, "float32")]     # the main path runs fp32
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(lm_err[name], t32["max_abs_err"]),
+            "ms": t32["ms"], "plain_ms": t32["plain_ms"],
+            "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
+            "library_ms": t32["library_ms"]})
+    log(f"[11] total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

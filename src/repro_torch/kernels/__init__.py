@@ -8,6 +8,13 @@ Each kernel package has:
               function, which the wrapper runs for CPU tensors
 
 Kernels:
-  ppa_eval — batched design-point PPA evaluation (the DSE substrate's hot
-             loop; replaces the Pallas ``ppa_eval`` TPU kernel)
+  ppa_eval        — batched design-point PPA evaluation (the DSE
+                    substrate's hot loop; replaces the Pallas ``ppa_eval``
+                    TPU kernel)
+  flash_attention — attention forward with online softmax (the LM stack's
+                    long causal self-attention; replaces the Pallas
+                    ``flash_attention`` TPU kernel)
+  rwkv6_scan      — the RWKV6 WKV recurrence from a zero state (the RWKV
+                    time-mix in a forward pass; replaces the Pallas
+                    ``rwkv6_scan`` TPU kernel)
 """

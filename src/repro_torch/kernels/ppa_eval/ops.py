@@ -20,7 +20,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels._build import load_library
+from repro_torch.kernels._build import NVCC_FLAGS, load_library
 from repro_torch.perfmodel import workload as W
 from repro_torch.perfmodel.hardware import (
     AREA_BASE, AREA_CORE_BASE, AREA_PER_CHANNEL, AREA_PER_GBUF_MB,
@@ -29,6 +29,7 @@ from repro_torch.perfmodel.hardware import (
 from repro_torch.perfmodel.roofline import SRAM_FEED_WORDS_PER_KB
 
 SOURCE = Path(__file__).with_name("ppa_eval.cu")
+FLAGS = NVCC_FLAGS      # bit-exact agreement with the torch path
 BLOCK = 256             # threads per block (one design each)
 MAX_OPS = 1536          # op table must fit the 48 KB static shared-memory cap
 
@@ -133,7 +134,7 @@ ppa_eval.launches = 0
 
 
 def _library() -> ctypes.CDLL:
-    lib = load_library("ppa_eval", SOURCE)
+    lib = load_library(SOURCE, FLAGS)
     if not getattr(lib, "_repro_typed", False):
         lib.ppa_eval_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,

@@ -1,0 +1,57 @@
+"""Carry a reference parameter pytree into the port's :class:`Model`.
+
+The reference keeps its parameters as a nested dict of arrays with the
+layer stack stacked on a leading dim (``params["layers"]["attn"]["q"]["w"]``
+is ``(n_layers, d_in, d_out)``).  The port's modules use the same names and
+the same ``(d_in, d_out)`` linear layout, one module per layer, so the map
+is: flatten with dots, split the layer dim into ``layers.<i>.``, and move
+the RWKV layer's flat ``rwkv_<name>`` keys under its ``rwkv`` submodule.
+No array is transposed.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.transformer import FAMILIES
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)      # exact; load_state_dict casts back
+    return torch.from_numpy(np.array(a))     # a writable copy
+
+
+def params_from_jax(cfg: ArchConfig, tree: Mapping[str, Any]
+                    ) -> Dict[str, torch.Tensor]:
+    """Reference pytree (numpy or jax arrays) -> the port's state dict, to
+    pass to ``Model.load_state_dict`` (which casts to the model's dtype and
+    device)."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    out: Dict[str, torch.Tensor] = {}
+    for key, leaf in _flatten({k: v for k, v in tree.items()
+                               if k != "layers"}):
+        out[key] = _tensor(leaf)
+    for key, leaf in _flatten(tree["layers"]):
+        stacked = _tensor(leaf)
+        if stacked.shape[0] != cfg.n_layers:
+            raise ValueError(f"layers.{key}: leading dim {stacked.shape[0]} "
+                             f"!= n_layers {cfg.n_layers}")
+        if key.startswith("rwkv_"):
+            key = "rwkv." + key[len("rwkv_"):]
+        for i in range(cfg.n_layers):
+            out[f"layers.{i}.{key}"] = stacked[i]
+    return out

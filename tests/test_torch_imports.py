@@ -17,7 +17,10 @@ PORT = SRC / "repro_torch"
 
 SUBPACKAGES = ("repro_torch", "repro_torch.perfmodel", "repro_torch.core",
                "repro_torch.kernels", "repro_torch.kernels.ppa_eval",
-               "repro_torch.analysis")
+               "repro_torch.analysis", "repro_torch.configs",
+               "repro_torch.models", "repro_torch.launch",
+               "repro_torch.kernels.flash_attention",
+               "repro_torch.kernels.rwkv6_scan")
 
 
 def _forbidden(name: str) -> bool:
@@ -29,6 +32,7 @@ def test_import_leaves_jax_and_reference_out():
     code = ("import json, sys\n"
             + "".join(f"import {m}\n" for m in SUBPACKAGES)
             + "import repro_torch.core.loop, repro_torch.perfmodel.sweep\n"
+            + "import repro_torch.models.convert, repro_torch.launch.serve\n"
             + "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
               "or m.startswith('jax.') or m == 'repro' "
               "or m.startswith('repro.'))))")
@@ -88,3 +92,37 @@ def test_ppa_eval_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="rows"):
         ppa_eval(dv, torch.ones((0, 8)), 8.0)
     assert np.isfinite(ppa_eval(dv, tab, 8.0).numpy()).all()
+
+
+def test_lm_entry_points_default_to_the_card():
+    """serve and Model take the CUDA device unless asked for the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model, build_model
+    cfg = get_arch("llama3.2-1b").smoke()
+    calls = [lambda: Model(cfg), lambda: build_model(cfg),
+             lambda: serve("llama3.2-1b", 1, 2, 1, smoke=True)]
+    if torch.cuda.is_available():
+        assert Model(cfg).device.type == "cuda"
+        assert build_model(cfg).embed.device.type == "cuda"
+    else:
+        for call in calls:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+    assert Model(cfg, device="cpu").embed.device.type == "cpu"
+
+
+def test_kernel_libraries_are_keyed_by_their_own_flags():
+    """Each kernel module states its nvcc flags once (``ops.FLAGS``), and a
+    library's path hashes source and flags, so no caller can load a kernel
+    built with another module's flags; ppa_eval keeps its bit-exact set."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ppa_eval import ops as ppa
+    from repro_torch.kernels.rwkv6_scan import ops as rwkv
+    assert ppa.FLAGS == _build.NVCC_FLAGS and "-fmad=false" in ppa.FLAGS
+    assert fa.FLAGS == rwkv.FLAGS == _build.TOLERANCE_FLAGS
+    paths = {_build.library_path(m.SOURCE, f) for m in (ppa, fa, rwkv)
+             for f in (_build.NVCC_FLAGS, _build.TOLERANCE_FLAGS)}
+    assert len(paths) == 6
+    assert all(p.parent == _build.BUILD_DIR for p in paths)
