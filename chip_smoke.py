@@ -27,10 +27,11 @@ line is printed:
    profiler window over the kernel sweep: device time by kernel and
    the device's idle share;
 7. the LM kernels against their plain versions on the card: flash_attention
-   at the reference's test shapes and at (B 2, S 4096, H 32, hd 64), MHA
-   and GQA, causal and not, fp32 and bf16 (2e-5 / 2e-2), rwkv6_scan at the
-   test shapes and at (B 1, T 4096, H 64, hd 64) (5e-5 / 5e-2), and one
-   ragged length each;
+   at the reference's test shapes, at (B 2, S 4096, H 32, hd 64), MHA and
+   GQA, causal and not, and at jamba's (B 1, S 4096, H 64, KVH 8, hd 128,
+   causal), fp32 and bf16 (2e-5 / 2e-2); rwkv6_scan at the test shapes and
+   at (B 1, T 4096, H 64, hd 64), ssm_scan at the test shapes and at (B 1,
+   T 4096, D 16384, N 16) (both 5e-5 / 5e-2); one ragged shape each;
 8. the prefill step at full width in fp32, weights from a seeded
    ``torch.Generator``, prompts from ``np.random.default_rng(0)``:
    llama3.2-1b at B 2, S 4096 must launch flash_attention 16 times and
@@ -49,7 +50,16 @@ line is printed:
    against their bounds, the plain versions and, for attention, one
    ``F.scaled_dot_product_attention`` call (timed only, never used by the
    port), the prefill wall times, and profiler windows over one
-   llama3.2-1b prefill and one decode step.
+   llama3.2-1b prefill and one decode step;
+11. the hybrid path: jamba-1.5-large-398b cut to one attention and one
+   Mamba sub-layer (n_layers 2, attn_every 2; every published width, 11.90
+   B parameters) in fp32 from a seeded generator.  Its prefill at B 1,
+   S 4096 must launch flash_attention and ssm_scan once each; 64 decode
+   steps at batch 1 must match the prefill's logits at rtol = atol = 2e-3
+   (MoE routings of both paths printed where they differ); greedy serving
+   at batch 4 (prompt 32, gen 16): TTFT and TPOT; ssm_scan timed at the
+   prefill shape against its bound, flash_attention at hd 128 against
+   SDPA; a profiler window over one prefill.
 
 Kernel launch counters are zeroed just before each part of the main path
 and read just after; every kernel of that part must have launched there.
@@ -215,12 +225,18 @@ FA_SHAPES = [(2, 128, 2, 2, 64, True), (1, 256, 4, 4, 128, True),
              (2, 64, 2, 2, 32, False), (1, 128, 1, 1, 64, True),
              (2, 4096, 32, 32, 64, True), (2, 4096, 32, 32, 64, False),
              (2, 4096, 32, 8, 64, True), (2, 4096, 32, 8, 64, False),
-             (2, 333, 8, 2, 64, True)]
+             (2, 333, 8, 2, 64, True), (1, 4096, 64, 8, 128, True)]
 # (B, T, H, hd): the test shapes, the rwkv6-7b prefill shape, one ragged T
 RWKV_SHAPES = [(2, 64, 2, 16), (1, 128, 4, 32), (2, 32, 1, 64),
                (1, 4096, 64, 64), (2, 333, 3, 64)]
 LLAMA = ("llama3.2-1b", 2, 4096)                    # arch, batch, seq
 RWKV = ("rwkv6-7b", 1, 4096)
+SSM_TOL = {"float32": 5e-5, "bfloat16": 5e-2}      # tests/test_kernels.py
+# (B, T, D, N): the test shapes, the jamba prefill shape, one ragged shape
+SSM_SHAPES = [(2, 64, 32, 8), (1, 128, 64, 16), (2, 32, 16, 4),
+              (1, 4096, 16384, 16), (2, 333, 1000, 16)]
+JAMBA = ("jamba-1.5-large-398b", 1, 4096)
+JAMBA_FA = (1, 4096, 64, 8, 128)                    # B, S, H, KVH, hd
 N_DECODE = 64
 
 
@@ -245,6 +261,17 @@ def rwkv_inputs(torch, b, t, h, hd, dtype, dev, seed=0):
     return [x.to(dtype).contiguous() for x in (r, k, v, w)] + [u]
 
 
+def ssm_inputs(torch, b, t, d, n, dtype, dev, seed=0):
+    """As the reference test draws them: dt ~ U(0.001, 0.1), A = -U(0.5, 2)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.randn((b, t, d), generator=g, device=dev)
+    dt = 0.001 + 0.099 * torch.rand((b, t, d), generator=g, device=dev)
+    a = -(0.5 + 1.5 * torch.rand((d, n), generator=g, device=dev))
+    bm, cm = (torch.randn((b, t, n), generator=g, device=dev)
+              for _ in range(2))
+    return u.to(dtype), dt.to(dtype), a, bm.to(dtype), cm.to(dtype)
+
+
 def hold(got, want, tol: float, what: str) -> float:
     """Fail unless |got - want| <= tol + tol |want|; returns max abs err."""
     g = got.float().cpu().numpy()
@@ -260,8 +287,10 @@ def phase7_lm_kernels(torch, dev) -> dict:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
-    err = {"flash_attention": 0.0, "rwkv6_scan": 0.0}
-    saved = (flash_attention.launches, rwkv6_scan.launches)
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
+    err = {"flash_attention": 0.0, "rwkv6_scan": 0.0, "ssm_scan": 0.0}
+    saved = (flash_attention.launches, rwkv6_scan.launches,
+             ssm_scan.launches)
     for dn, dt in _dtypes(torch).items():
         for b, s, h, kvh, hd, causal in FA_SHAPES:
             q, k, v = fa_inputs(torch, b, s, h, kvh, hd, dt, dev)
@@ -285,45 +314,61 @@ def phase7_lm_kernels(torch, dev) -> dict:
                 err["rwkv6_scan"] = max(err["rwkv6_scan"], e)
             log(f"[7] rwkv6_scan {dn} B={b} T={t} H={h} hd={hd}: max abs "
                 f"err {e:.3g} (tol {RWKV_TOL[dn]})")
-    flash_attention.launches, rwkv6_scan.launches = saved
+        for b, t, d, n in SSM_SHAPES:
+            args = ssm_inputs(torch, b, t, d, n, dt, dev)
+            got = ssm_scan(*args)
+            torch.cuda.synchronize()
+            e = hold(got, ssm_scan_plain(*args), SSM_TOL[dn],
+                     f"ssm_scan {dn} {(b, t, d, n)}")
+            if dn == "float32":
+                err["ssm_scan"] = max(err["ssm_scan"], e)
+            log(f"[7] ssm_scan {dn} B={b} T={t} D={d} N={n}: max abs err "
+                f"{e:.3g} (tol {SSM_TOL[dn]})")
+            del args, got
+    flash_attention.launches, rwkv6_scan.launches, ssm_scan.launches = saved
     return err
 
 
-def build_full_width(torch, arch: str, dev, seed: int = 0):
+def build_full_width(torch, arch, dev, seed: int = 0, tag: str = "8"):
+    """`arch` (a name, or an ArchConfig) in fp32 on `dev`, weights drawn
+    from a generator on the device seeded with `seed`."""
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
+    cfg = get_arch(arch) if isinstance(arch, str) else arch
     t0 = time.perf_counter()
-    model = build_model(get_arch(arch), dtype=torch.float32, device=dev)
+    model = build_model(cfg, dtype=torch.float32, device=dev)
     model.init_weights(torch.Generator(device=dev).manual_seed(seed))
     torch.cuda.synchronize()
     n = sum(p.numel() for p in model.parameters())
-    log(f"[8] {arch}: {n / 1e9:.3f} B parameters fp32 "
+    log(f"[{tag}] {cfg.name}: {n / 1e9:.3f} B parameters fp32 "
         f"({n * 4 / 2**30:.1f} GiB), seeded init "
         f"{time.perf_counter() - t0:.2f} s")
     return model
 
 
 def phase8_prefill(torch, model, batch: int, seq: int, dev,
-                   check_logits: bool = True) -> dict:
+                   check_logits: bool = True, tag: str = "8") -> dict:
     """One counted prefill step, a timed second one, and the first
     N_DECODE positions decoded step by step against it: their logits are
     held to the prefill's at DECODE_TOL when `check_logits`, else only
-    reported (see rwkv_decode_tie)."""
+    reported (rwkv_decode_tie and phase 11 hold them)."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.kernels.ssm_scan import ssm_scan
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     cfg = model.cfg
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab, (batch, seq)), device=dev)
     prefill = make_prefill_step(model)
     torch.cuda.synchronize()
-    flash_attention.launches = rwkv6_scan.launches = 0
+    flash_attention.launches = rwkv6_scan.launches = ssm_scan.launches = 0
     t0 = time.perf_counter()
     logits = prefill({"tokens": toks})
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     counts = {"flash_attention": flash_attention.launches,
-              "rwkv6_scan": rwkv6_scan.launches}
+              "rwkv6_scan": rwkv6_scan.launches,
+              "ssm_scan": ssm_scan.launches}
     check(logits.shape == (batch, seq, cfg.vocab),
           f"{cfg.name} logits shape {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), f"{cfg.name}: non-finite logits")
@@ -337,7 +382,8 @@ def phase8_prefill(torch, model, batch: int, seq: int, dev,
     second_s = time.perf_counter() - t0
     flash_attention.launches = saved["flash_attention"]
     rwkv6_scan.launches = saved["rwkv6_scan"]
-    log(f"[8] {cfg.name} prefill B={batch} S={seq}: logits "
+    ssm_scan.launches = saved["ssm_scan"]
+    log(f"[{tag}] {cfg.name} prefill B={batch} S={seq}: logits "
         f"{(batch, seq, cfg.vocab)} finite, max |logit| {stats[0]:.4g} std "
         f"{stats[1]:.4g}; wall {first_s:.3f} s (first), {second_s:.3f} s "
         f"(second); launches {counts}")
@@ -345,23 +391,26 @@ def phase8_prefill(torch, model, batch: int, seq: int, dev,
     step = make_serve_step(model)
     cache = model.init_cache(batch, N_DECODE)
     worst = 0.0
+    decoded = []
     t0 = time.perf_counter()
     for t in range(N_DECODE):
         lg, cache = step(cache, toks[:, t])
         got = lg.cpu().numpy()
+        decoded.append(got)
         if check_logits:
             np.testing.assert_allclose(
                 got, head[:, t], rtol=DECODE_TOL, atol=DECODE_TOL,
                 err_msg=f"{cfg.name}: decode step {t} vs prefill")
         worst = max(worst, float(np.max(np.abs(got - head[:, t]))))
     decode_s = time.perf_counter() - t0
-    log(f"[8] {cfg.name} decode {N_DECODE} positions step by step vs "
+    log(f"[{tag}] {cfg.name} decode {N_DECODE} positions step by step vs "
         f"prefill logits: max abs diff {worst:.3g} "
         + (f"(held to rtol = atol = {DECODE_TOL})" if check_logits
-           else "(reported; held in rwkv_decode_tie)")
+           else "(reported here, held below)")
         + f"; {decode_s / N_DECODE * 1e3:.2f} ms per step")
     return {"counts": counts, "prefill_s": second_s, "first_s": first_s,
-            "decode_diff": worst, "toks": toks}
+            "decode_diff": worst, "toks": toks, "head": head,
+            "decoded": np.stack(decoded, axis=1)}
 
 
 def rwkv_decode_tie(torch, model, toks, free_gap: float) -> float:
@@ -566,6 +615,157 @@ def phase10_lm_timings(torch, dev) -> dict:
     return out
 
 
+def _routings(moe_mod):
+    """Wrap ``moe.route`` (which ``moe_block`` calls) to record each call's
+    gate_idx and probs; returns (records, restore)."""
+    orig, records = moe_mod.route, []
+
+    def recording(*args, **kw):
+        r = orig(*args, **kw)
+        records.append((r["gate_idx"].cpu(), r["probs"].cpu()))
+        return r
+
+    moe_mod.route = recording
+
+    def restore():
+        moe_mod.route = orig
+    return records, restore
+
+
+def phase11_jamba(torch, dev) -> dict:
+    """The hybrid path at full width, cut in depth: prefill (counted),
+    decode tied to it, greedy serving, timings and a profiled prefill."""
+    import dataclasses
+
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_cost,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.kernels.ssm_scan import (ssm_scan, ssm_scan_cost,
+                                              ssm_scan_plain)
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import moe as moe_mod
+    arch, batch, seq = JAMBA
+    cfg = dataclasses.replace(get_arch(arch), n_layers=2, attn_every=2)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_full_width(torch, cfg, dev, tag="11")
+
+    # ---- prefill (counted) and 64 decode steps tied to it
+    records, restore = _routings(moe_mod)
+    try:
+        pre = phase8_prefill(torch, model, batch, seq, dev,
+                             check_logits=False, tag="11")
+    finally:
+        restore()
+    check(pre["counts"] == {"flash_attention": 1, "rwkv6_scan": 0,
+                            "ssm_scan": 1},
+          f"{arch} prefill launches {pre['counts']}, want flash_attention "
+          f"x1 and ssm_scan x1")
+    # records: the counted prefill, the timed one, then one per decode step
+    check(len(records) == 2 + N_DECODE, f"{len(records)} MoE calls recorded")
+    pre_idx, pre_probs = records[0]
+    flips = []
+    for t, (idx, probs) in enumerate(records[2:2 + N_DECODE]):
+        a = sorted(pre_idx[0, t].tolist())
+        b = sorted(idx[0, 0].tolist())
+        if a != b:
+            flips.append(t)
+            log(f"[11] MoE routing differs at position {t}: prefill experts "
+                f"{a} (probs {pre_probs[0, t].tolist()}), decode {b} (probs "
+                f"{probs[0, 0].tolist()})")
+    log(f"[11] MoE top-2 routing, prefill vs decode over {N_DECODE} "
+        f"positions: {len(flips)} positions differ")
+    e_dec = hold(torch.as_tensor(pre["decoded"]),
+                 torch.as_tensor(pre["head"]), DECODE_TOL,
+                 f"{arch}: decode vs prefill logits")
+
+    # ---- greedy serving at batch 4 (prefills by decode steps)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 32)), device=dev)
+    flash_attention.launches = rwkv6_scan.launches = ssm_scan.launches = 0
+    srv = greedy_generate(model, prompts, 16)
+    srv_counts = (flash_attention.launches, ssm_scan.launches)
+    check(srv["tokens"].shape == (4, 16),
+          f"serve tokens {srv['tokens'].shape}")
+    log(f"[11] serve {arch} cut batch 4 prompt 32 gen 16: tokens "
+        f"{srv['tokens'].shape}, TTFT {srv['ttft_s'] * 1e3:.1f} ms, TPOT "
+        f"{srv['tpot_s'] * 1e3:.2f} ms; launches (flash, ssm) {srv_counts} "
+        f"(prefill by decode steps); first row "
+        f"{srv['tokens'][0][:8].tolist()}")
+
+    # ---- profiled prefill
+    saved = (flash_attention.launches, ssm_scan.launches)
+    toks = pre["toks"]
+    step = make_prefill_step(model)
+    profile_device(torch, lambda: step({"tokens": toks}), "11",
+                   f"one {arch} cut prefill (B {batch}, S {seq})", "_fwd")
+    flash_attention.launches, ssm_scan.launches = saved
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[11] peak device memory over the phase: {peak:.1f} GiB")
+    del model, step, toks
+    torch.cuda.empty_cache()
+
+    # ---- kernel timings at the prefill's shapes
+    saved = (flash_attention.launches, ssm_scan.launches)
+    out = {"prefill": pre, "decode_err": e_dec, "serve": srv}
+    b, t, d, n = batch, seq, 2 * cfg.d_model, cfg.d_state
+    for dn, dt in _dtypes(torch).items():
+        args = ssm_inputs(torch, b, t, d, n, dt, dev, seed=1)
+        k_ms = kernel_ms(torch, lambda: ssm_scan(*args), iters=20)
+        e = hold(ssm_scan(*args), ssm_scan_plain(*args), SSM_TOL[dn],
+                 f"ssm_scan {dn} (timed)")
+        p_ms = time_ms(torch, lambda: ssm_scan_plain(*args), warm=1,
+                       iters=1)
+        ops, nbytes, exps = ssm_scan_cost(b, t, d, n, args[0].element_size())
+        t_ops = ops / PEAK_FP32_PER_S * 1e3     # the recurrence is fp32 math
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_exp = exps / (16 * 132 * 1.98e9) * 1e3     # SFU: 16/clock/SM
+        out[("ssm_scan", dn)] = {
+            "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+            "bound_ms": max(t_ops, t_bytes), "max_abs_err": e,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        log(f"[11] ssm_scan {dn} B={b} T={t} D={d} N={n}: kernel "
+            f"{k_ms:.3f} ms ({k_ms / t * 1e6:.1f} ns per step), plain "
+            f"{p_ms:.1f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+            f"({nbytes / 1e6:.1f} MB at 3.35 TB/s; {ops / 1e9:.2f} GFLOP at "
+            f"67 TFLOP/s: {t_ops:.4f} ms); {exps / 1e9:.3f} G exps on the "
+            f"SFU at 16/clock/SM, 1.98 GHz: {t_exp:.4f} ms; no single "
+            f"PyTorch call computes it")
+        del args
+    b, s_, h, kvh, hd = JAMBA_FA
+    peak_rate = {"float32": PEAK_FP32_PER_S, "bfloat16": PEAK_BF16_PER_S}
+    for dn, dt in _dtypes(torch).items():
+        q, k, v = fa_inputs(torch, b, s_, h, kvh, hd, dt, dev, seed=1)
+        k_ms = kernel_ms(torch, lambda: flash_attention(q, k, v), iters=10)
+        e = hold(flash_attention(q, k, v), flash_attention_plain(q, k, v),
+                 FA_TOL[dn], f"flash_attention hd 128 {dn} (timed)")
+        p_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v),
+                       warm=1, iters=3)
+        qh, kh, vh = (x.permute(0, 2, 1, 3).repeat_interleave(
+            h // x.shape[2], dim=1).contiguous() for x in (q, k, v))
+        lib_ms = kernel_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), iters=10)
+        ops, nbytes = flash_attention_cost(b, s_, s_, h, kvh, hd, True,
+                                           q.element_size())
+        t_ops = ops / peak_rate[dn] * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        out[("flash_attention_hd128", dn)] = {
+            "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+            "max_abs_err": e, "bound_ms": max(t_ops, t_bytes)}
+        log(f"[11] flash_attention {dn} B={b} S={s_} H={h} KVH={kvh} "
+            f"hd={hd} causal: kernel {k_ms:.3f} ms ({ops / k_ms / 1e9:.1f} "
+            f"TFLOP/s), plain {p_ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound "
+            f"{max(t_ops, t_bytes):.4f} ms ({ops / 1e9:.1f} GFLOP at "
+            f"{peak_rate[dn] / 1e12:.0f} TFLOP/s); max abs err {e:.3g}")
+        del q, k, v, qh, kh, vh
+    flash_attention.launches, ssm_scan.launches = saved
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -578,6 +778,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ppa_eval import ops as ppa_ops
     from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
     from repro_torch.kernels.ppa_eval import (op_table, op_table_tensor,
                                               ppa_eval, ppa_eval_op_count,
                                               ppa_eval_plain)
@@ -600,13 +801,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     t0 = time.perf_counter()
-    kernel_mods = (ppa_ops, fa_ops, rwkv_ops)
+    kernel_mods = (ppa_ops, fa_ops, rwkv_ops, ssm_ops)
     _build.build([(m.SOURCE, m.FLAGS) for m in kernel_mods])
     for m in kernel_mods:
         m._library()                      # loads what build() compiled
-    log(f"[1] build ppa_eval, flash_attention, rwkv6_scan (nvcc in "
-        f"parallel): {time.perf_counter() - t0:.2f} s")
-    for name in ("ppa_eval", "flash_attention", "rwkv6_scan"):
+    log(f"[1] build ppa_eval, flash_attention, rwkv6_scan, ssm_scan (nvcc "
+        f"in parallel): {time.perf_counter() - t0:.2f} s")
+    for name in ("ppa_eval", "flash_attention", "rwkv6_scan", "ssm_scan"):
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if "Compiling entry" in line or "registers" in line \
                     or "spill" in line:
@@ -770,13 +971,15 @@ def main() -> int:
     # ---- 8. prefill step at full width --------------------------------------
     llama = build_full_width(torch, LLAMA[0], dev)
     pre_llama = phase8_prefill(torch, llama, LLAMA[1], LLAMA[2], dev)
-    check(pre_llama["counts"] == {"flash_attention": 16, "rwkv6_scan": 0},
+    check(pre_llama["counts"] == {"flash_attention": 16, "rwkv6_scan": 0,
+                                  "ssm_scan": 0},
           f"llama3.2-1b prefill launches {pre_llama['counts']}, want 16 "
           f"flash_attention")
     rwkv = build_full_width(torch, RWKV[0], dev)
     pre_rwkv = phase8_prefill(torch, rwkv, RWKV[1], RWKV[2], dev,
                               check_logits=False)
-    check(pre_rwkv["counts"] == {"flash_attention": 0, "rwkv6_scan": 32},
+    check(pre_rwkv["counts"] == {"flash_attention": 0, "rwkv6_scan": 32,
+                                 "ssm_scan": 0},
           f"rwkv6-7b prefill launches {pre_rwkv['counts']}, want 32 "
           f"rwkv6_scan")
     rwkv_decode_tie(torch, rwkv, pre_rwkv["toks"], pre_rwkv["decode_diff"])
@@ -805,6 +1008,11 @@ def main() -> int:
     del llama, step
     torch.cuda.empty_cache()
 
+    # ---- 11. the hybrid path: jamba cut to n_layers 2, full width -----------
+    jamba = phase11_jamba(torch, dev)
+    log(f"[11] prefill wall (second call): {JAMBA[0]} cut B={JAMBA[1]} "
+        f"S={JAMBA[2]} {jamba['prefill']['prefill_s']:.3f} s")
+
     kt = times["ttft"]
     kernels = [{
         "name": "ppa_eval", "route": "cuda",
@@ -816,14 +1024,18 @@ def main() -> int:
         "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],
         "library_ms": None,
     }]
+    lm_times.update({k: v for k, v in jamba.items() if isinstance(k, tuple)})
+    jc = jamba["prefill"]["counts"]
     for name, src, replaces, launches in (
             ("flash_attention",
              "src/repro_torch/kernels/flash_attention/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:25",
-             pre_llama["counts"]["flash_attention"]),
+             pre_llama["counts"]["flash_attention"] + jc["flash_attention"]),
             ("rwkv6_scan", "src/repro_torch/kernels/rwkv6_scan/rwkv6_scan.cu",
              "src/repro/kernels/rwkv6_scan/kernel.py:25",
-             pre_rwkv["counts"]["rwkv6_scan"])):
+             pre_rwkv["counts"]["rwkv6_scan"]),
+            ("ssm_scan", "src/repro_torch/kernels/ssm_scan/ssm_scan.cu",
+             "src/repro/kernels/ssm_scan/kernel.py:24", jc["ssm_scan"])):
         t32 = lm_times[(name, "float32")]     # the main path runs fp32
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -832,7 +1044,7 @@ def main() -> int:
             "ms": t32["ms"], "plain_ms": t32["plain_ms"],
             "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
             "library_ms": t32["library_ms"]})
-    log(f"[11] total {time.perf_counter() - t_all:.1f} s")
+    log(f"[12] total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

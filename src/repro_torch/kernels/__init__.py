@@ -14,6 +14,9 @@ Kernels:
   flash_attention — attention forward with online softmax (the LM stack's
                     long causal self-attention; replaces the Pallas
                     ``flash_attention`` TPU kernel)
+  ssm_scan        — the Mamba selective scan from a zero state (the
+                    Mamba block in a forward pass; replaces the Pallas
+                    ``ssm_scan`` TPU kernel)
   rwkv6_scan      — the RWKV6 WKV recurrence from a zero state (the RWKV
                     time-mix in a forward pass; replaces the Pallas
                     ``rwkv6_scan`` TPU kernel)

@@ -6,7 +6,11 @@ is ``(n_layers, d_in, d_out)``).  The port's modules use the same names and
 the same ``(d_in, d_out)`` linear layout, one module per layer, so the map
 is: flatten with dots, split the layer dim into ``layers.<i>.``, and move
 the RWKV layer's flat ``rwkv_<name>`` keys under its ``rwkv`` submodule.
-No array is transposed.
+The hybrid family stacks Jamba blocks (``n_layers // attn_every``) on the
+leading dim, and inside a block its Mamba sub-layers, MoE FFNs and dense
+FFNs on a second dim: those split further into ``layers.<i>.mamba.<j>.``
+(and ``moe``, ``mlp``), while ``mamba_ln`` and ``ffn_ln`` stay stacked
+within the block.  No array is transposed.
 """
 from __future__ import annotations
 
@@ -17,6 +21,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.transformer import FAMILIES
+
+# sub-layer lists inside a Jamba block, stacked on the block's second dim
+_BLOCK_LISTS = ("mamba.", "moe.", "mlp.")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):
@@ -45,13 +52,20 @@ def params_from_jax(cfg: ArchConfig, tree: Mapping[str, Any]
     for key, leaf in _flatten({k: v for k, v in tree.items()
                                if k != "layers"}):
         out[key] = _tensor(leaf)
+    hybrid = cfg.family == "hybrid"
+    n = cfg.n_layers // cfg.attn_every if hybrid else cfg.n_layers
     for key, leaf in _flatten(tree["layers"]):
         stacked = _tensor(leaf)
-        if stacked.shape[0] != cfg.n_layers:
+        if stacked.shape[0] != n:
             raise ValueError(f"layers.{key}: leading dim {stacked.shape[0]} "
-                             f"!= n_layers {cfg.n_layers}")
+                             f"!= {'blocks' if hybrid else 'n_layers'} {n}")
         if key.startswith("rwkv_"):
             key = "rwkv." + key[len("rwkv_"):]
-        for i in range(cfg.n_layers):
-            out[f"layers.{i}.{key}"] = stacked[i]
+        for i in range(n):
+            if hybrid and key.startswith(_BLOCK_LISTS):
+                head, rest = key.split(".", 1)
+                for j, sub in enumerate(stacked[i]):
+                    out[f"layers.{i}.{head}.{j}.{rest}"] = sub
+            else:
+                out[f"layers.{i}.{key}"] = stacked[i]
     return out

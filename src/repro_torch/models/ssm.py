@@ -1,14 +1,16 @@
-"""RWKV6 ("Finch") time-mix with data-dependent decay, and channel-mix.
+"""State-space / linear-recurrence layers: the Mamba selective scan and
+the RWKV6 ("Finch") time-mix with data-dependent decay, and channel-mix.
 
-The port's counterpart of the RWKV6 half of ``repro.models.ssm`` (the
-Mamba half comes with the hybrid family).  In a forward pass (no carried
-state) the WKV recurrence goes through the ``rwkv6_scan`` kernel on a CUDA
-tensor and its plain version on a CPU tensor; in decode (a carried state)
-:func:`wkv6_scan` runs it in torch ops, since the kernel starts from a
-zero state and returns none.
+The port's counterpart of ``repro.models.ssm``.  In a forward pass (no
+carried state) the Mamba scan goes through the ``ssm_scan`` kernel and the
+RWKV6 WKV recurrence through the ``rwkv6_scan`` kernel on a CUDA tensor,
+and through their plain versions on a CPU tensor; in decode (a carried
+state) :func:`_selective_scan` and :func:`wkv6_scan` run them in torch
+ops, since the kernels start from a zero state and return none.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -16,8 +18,129 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.models.layers import Linear, empty_param, linear, upcast
 
+
+# =====================================================================
+# Mamba (selective scan), expansion factor 2
+# =====================================================================
+
+class Mamba(nn.Module):
+    """One Mamba block's parameters, under the reference's names
+    (``init_mamba``)."""
+
+    def __init__(self, d_model: int, d_state: int, d_conv: int, *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        d_in = 2 * d_model
+        kw = dict(dtype=dtype, device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.in_proj = Linear(d_model, 2 * d_in, **kw)
+        self.conv_w = empty_param((d_conv, d_in), **kw)
+        self.conv_b = empty_param((d_in,), **kw)
+        self.x_proj = Linear(d_in, d_state * 2 + 1, **kw)
+        self.dt_bias = empty_param((d_in,), **f32)
+        self.A_log = empty_param((d_in, d_state), **f32)
+        self.D = empty_param((d_in,), **f32)
+        self.out_proj = Linear(d_in, d_model, **kw)
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        init_mamba(self, gen)
+
+
+def init_mamba(p: Mamba, gen: torch.Generator) -> None:
+    d_conv, d_in = p.conv_w.shape
+    p.in_proj.init_weights(gen)
+    p.conv_w.normal_(0.0, 1.0 / math.sqrt(d_conv), generator=gen)
+    p.conv_b.zero_()
+    p.x_proj.init_weights(gen)
+    p.dt_bias.zero_()
+    n = p.A_log.shape[1]
+    states = torch.arange(1, n + 1, dtype=torch.float32,
+                          device=p.A_log.device)
+    p.A_log.copy_(torch.log(states).expand(d_in, n))
+    p.D.fill_(1.0)
+    p.out_proj.init_weights(gen)
+
+
+def _selective_scan(u, dt, A, B, C, D, h0=None):
+    """u: (B, L, d_in); dt: (B, L, d_in); A: (d_in, N); B, C: (B, L, N).
+
+    h_t = exp(dt*A) h_{t-1} + dt * B_t * u_t ;  y_t = C_t . h_t + D*u_t
+    Loop over time, state (B, d_in, N) fp32 (fp64 for fp64 inputs).
+    Returns (y fp32, h)."""
+    bsz, L, d_in = u.shape
+    uf, dtf, Bf, Cf = (upcast(x) for x in (u, dt, B, C))
+    h = (h0 if h0 is not None
+         else torch.zeros((bsz, d_in, A.shape[1]), dtype=uf.dtype,
+                          device=u.device))
+    ys = []
+    for t in range(L):
+        dA = torch.exp(dtf[:, t, :, None] * A[None])          # (B, d, N)
+        dBu = dtf[:, t, :, None] * Bf[:, t, None, :] * uf[:, t, :, None]
+        h = dA * h + dBu
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1) + D[None, None, :] * uf
+    return y, h
+
+
+def mamba_block(p: Mamba, x: torch.Tensor, state: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+    """x: (B, L, d).  state (decode): {"h": (B, d_in, N), "conv": (B,
+    d_conv-1, d_in)}.  Returns (y, new_state).  Without a carried state
+    the scan is the ``ssm_scan`` kernel, which returns no state: ``h`` is
+    then None."""
+    b, L, _ = x.shape
+    d_conv, d_in = p.conv_w.shape
+    n = p.A_log.shape[1]
+
+    xz = linear(p.in_proj, x)                              # (B, L, 2*d_in)
+    u, z = xz.chunk(2, dim=-1)
+
+    # causal depthwise conv1d
+    prev = (state["conv"] if state is not None
+            else torch.zeros((b, d_conv - 1, d_in), dtype=u.dtype,
+                             device=x.device))
+    upad = torch.cat([prev, u], dim=1)                     # (B, L+dc-1, d_in)
+    new_conv = upad[:, -(d_conv - 1):, :] if d_conv > 1 else prev
+    conv = sum(upad[:, i:i + L, :] * p.conv_w[i][None, None]
+               for i in range(d_conv)) + p.conv_b
+    u = F.silu(upcast(conv)).to(x.dtype)
+
+    proj = linear(p.x_proj, u)                             # (B, L, 2N+1)
+    Bm, Cm, dt_raw = proj[..., :n], proj[..., n:2 * n], proj[..., 2 * n:]
+    # (B, L, 1) + (d_in,): dt is (B, L, d_in), contiguous
+    dt = F.softplus(upcast(dt_raw) + p.dt_bias[None, None])
+    A = -torch.exp(p.A_log)
+
+    if state is None:
+        # fp32 in, fp32 out, as the reference's scan casts its inputs
+        uf = upcast(u)
+        y = ssm_scan(uf.contiguous(), dt.to(uf.dtype), A,
+                     upcast(Bm).contiguous(), upcast(Cm).contiguous())
+        y = y + p.D[None, None, :] * uf
+        h = None
+    else:
+        y, h = _selective_scan(u, dt, A, Bm, Cm, p.D, state["h"])
+    y = y.to(x.dtype) * F.silu(upcast(z)).to(x.dtype)
+    out = linear(p.out_proj, y)
+    return out, {"h": h, "conv": new_conv}
+
+
+def mamba_init_state(b: int, d_model: int, d_state: int, d_conv: int,
+                     dtype=torch.float32, device=None) -> Dict:
+    d_in = 2 * d_model
+    return {"h": torch.zeros((b, d_in, d_state),
+                             dtype=torch.promote_types(dtype, torch.float32),
+                             device=device),
+            "conv": torch.zeros((b, d_conv - 1, d_in), dtype=dtype,
+                                device=device)}
+
+
+# =====================================================================
+# RWKV6 "Finch": time-mix with data-dependent decay + channel-mix
+# =====================================================================
 
 class RWKV(nn.Module):
     """One RWKV6 layer's time-mix and channel-mix parameters, under the

@@ -1,18 +1,19 @@
-"""Model assembly for the ``dense`` and ``ssm`` (RWKV6) families.
+"""Model assembly for the ``dense``, ``ssm`` (RWKV6) and ``hybrid`` (Jamba)
+families.
 
 The port's counterpart of ``repro.models.transformer``.  :func:`build_model`
 -> :class:`Model`, an ``nn.Module`` exposing
 
 * ``init_weights(generator)``       -> fills every parameter (seeded)
-* ``forward(batch)``                -> logits (prefill)
+* ``forward(batch, collect_aux)``   -> logits (prefill) [, MoE aux loss]
 * ``init_cache(batch, max_len)``    -> decode cache
 * ``decode_step(cache, tokens)``    -> (logits, cache)
 
 Layers are an ``nn.ModuleList`` (the reference scans over stacked
 parameters); :func:`repro_torch.models.convert.params_from_jax` unstacks a
-reference pytree into this layout.  The ``moe``, ``hybrid``, ``vlm`` and
-``audio`` families, and the training loss, are not ported yet: building
-one of those families raises ``NotImplementedError``.
+reference pytree into this layout.  The ``moe``, ``vlm`` and ``audio``
+families, and the training loss, are not ported yet: building one of those
+families raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,11 +25,12 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import (MLP, Linear, empty_param, linear, mlp,
                                        rms_norm)
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 class DecoderLayer(nn.Module):
@@ -63,12 +65,47 @@ class RWKVLayer(nn.Module):
         self.rwkv.init_weights(gen)
 
 
+class JambaBlock(nn.Module):
+    """One Jamba period of ``attn_every`` sub-layers (``_init_jamba_block``):
+    sub-layer 0 is attention, the rest are Mamba; the FFN after sub-layer
+    i is MoE for even i and a gated MLP for odd i.  ``mamba_ln`` (per-1, d)
+    and ``ffn_ln`` (per, d) stay stacked, as the reference keeps them."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__()
+        d, per = cfg.d_model, cfg.attn_every
+        self.attn = A.Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                cfg.qkv_bias, dtype=dtype, device=device)
+        self.attn_ln = empty_param((d,), torch.float32, device)
+        self.mamba = nn.ModuleList(
+            S.Mamba(d, cfg.d_state, cfg.d_conv, dtype=dtype, device=device)
+            for _ in range(per - 1))
+        self.mamba_ln = empty_param((per - 1, d), torch.float32, device)
+        self.moe = nn.ModuleList(
+            M.MoE(d, cfg.expert_ff, cfg.n_experts, expert_pad=cfg.expert_pad,
+                  dtype=dtype, device=device)
+            for _ in range(per // 2))
+        self.mlp = nn.ModuleList(
+            MLP(d, cfg.d_ff, gated=True, dtype=dtype, device=device)
+            for _ in range(per - per // 2))
+        self.ffn_ln = empty_param((per, d), torch.float32, device)
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        self.attn.init_weights(gen)
+        for ln in (self.attn_ln, self.mamba_ln, self.ffn_ln):
+            ln.fill_(1.0)
+        for sub in (*self.mamba, *self.moe, *self.mlp):
+            sub.init_weights(gen)
+
+
 class Model(nn.Module):
     """One architecture's LM, parameters empty until :meth:`init_weights`
-    or ``load_state_dict``.  ``device=None`` means the CUDA device."""
+    or ``load_state_dict``.  ``device=None`` means the CUDA device.
+    ``moe_capacity`` is the MoE token-dropping capacity factor; set it to
+    ``n_experts`` to disable drops."""
 
     def __init__(self, cfg: ArchConfig, dtype=torch.float32,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, moe_capacity: float = 1.25):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
@@ -76,6 +113,7 @@ class Model(nn.Module):
                 f"port builds {FAMILIES}")
         self.cfg = cfg
         self.dtype = dtype
+        self.moe_capacity = moe_capacity
         self.device = resolve_device(device)
         dev = self.device
         self.embed = empty_param((cfg.vocab, cfg.d_model), dtype, dev)
@@ -83,9 +121,12 @@ class Model(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings
                         else Linear(cfg.d_model, cfg.vocab, dtype=dtype,
                                     device=dev))
-        layer = RWKVLayer if cfg.family == "ssm" else DecoderLayer
-        self.layers = nn.ModuleList(layer(cfg, dtype, dev)
-                                    for _ in range(cfg.n_layers))
+        if cfg.family == "hybrid":
+            layer, n = JambaBlock, cfg.n_layers // cfg.attn_every
+        else:
+            layer = RWKVLayer if cfg.family == "ssm" else DecoderLayer
+            n = cfg.n_layers
+        self.layers = nn.ModuleList(layer(cfg, dtype, dev) for _ in range(n))
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> None:
@@ -101,16 +142,29 @@ class Model(nn.Module):
     # ==================================================================
     # forward (prefill)
     # ==================================================================
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """batch["tokens"]: (B, S) integer -> logits (B, S, vocab)."""
+    def forward(self, batch: Dict[str, torch.Tensor],
+                collect_aux: bool = False):
+        """batch["tokens"]: (B, S) integer -> logits (B, S, vocab), and the
+        summed MoE aux loss (fp32 scalar) with `collect_aux`."""
         cfg = self.cfg
         x = self.embed[batch["tokens"]]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "ssm":
             x = self._rwkv_stack(x)
+        elif cfg.family == "hybrid":
+            x, aux = self._jamba_stack(x)
         else:
             x = self._decoder_stack(x)
         x = rms_norm(self.final_norm, x, cfg.norm_eps)
-        return self._logits(x)
+        logits = self._logits(x)
+        if collect_aux:
+            return logits, aux
+        return logits
+
+    def _moe(self, p: M.MoE, hin: torch.Tensor):
+        cfg = self.cfg
+        return M.moe_block(p, hin, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                           capacity_factor=self.moe_capacity)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -133,6 +187,35 @@ class Model(nn.Module):
             h, _ = self.rwkv_layer(i, h)
         return h
 
+    def _jamba_stack(self, h: torch.Tensor):
+        cfg = self.cfg
+        per = cfg.attn_every
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for bp in self.layers:
+            mi = di = 0
+            for i in range(per):
+                if i == 0:
+                    a = A.attention_block(
+                        bp.attn, rms_norm(bp.attn_ln, h, cfg.norm_eps),
+                        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
+                    h = h + a
+                else:
+                    m, _ = S.mamba_block(
+                        bp.mamba[i - 1],
+                        rms_norm(bp.mamba_ln[i - 1], h, cfg.norm_eps))
+                    h = h + m
+                hin = rms_norm(bp.ffn_ln[i], h, cfg.norm_eps)
+                if i % 2 == 0:
+                    f, al = self._moe(bp.moe[mi], hin)
+                    aux = aux + al
+                    mi += 1
+                else:
+                    f = mlp(bp.mlp[di], hin)
+                    di += 1
+                h = h + f
+        return h, aux
+
     def rwkv_layer(self, i: int, h: torch.Tensor,
                    state: Optional[Dict] = None
                    ) -> Tuple[torch.Tensor, Dict]:
@@ -154,7 +237,9 @@ class Model(nn.Module):
     # ==================================================================
     def init_cache(self, batch_size: int, max_len: int) -> Dict:
         """dense: {"k", "v": (L, B, max_len, kvH, hd), "len": 0};
-        ssm: {"layers": [per-layer RWKV state], "len": 0}."""
+        ssm: {"layers": [per-layer RWKV state], "len": 0};
+        hybrid: {"k", "v": (blocks, B, max_len, kvH, hd), "mamba":
+        [per-block [per-Mamba-sub-layer state]], "len": 0}."""
         cfg = self.cfg
         dev = self.device
         if cfg.family == "ssm":
@@ -163,11 +248,18 @@ class Model(nn.Module):
                                                  self.dtype, dev)
                                for _ in range(cfg.n_layers)],
                     "len": 0}
-        shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads,
+        shape = (len(self.layers), batch_size, max_len, cfg.n_kv_heads,
                  cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=self.dtype, device=dev),
-                "v": torch.zeros(shape, dtype=self.dtype, device=dev),
-                "len": 0}
+        cache = {"k": torch.zeros(shape, dtype=self.dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=self.dtype, device=dev),
+                 "len": 0}
+        if cfg.family == "hybrid":
+            cache["mamba"] = [[S.mamba_init_state(batch_size, cfg.d_model,
+                                                  cfg.d_state, cfg.d_conv,
+                                                  self.dtype, dev)
+                               for _ in range(cfg.attn_every - 1)]
+                              for _ in self.layers]
+        return cache
 
     def decode_step(self, cache: Dict, tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Dict]:
@@ -177,6 +269,8 @@ class Model(nn.Module):
         x = self.embed[tokens][:, None, :]                # (B, 1, d)
         if cfg.family == "ssm":
             x, cache = self._rwkv_decode(cache, x)
+        elif cfg.family == "hybrid":
+            x, cache = self._jamba_decode(cache, x)
         else:
             x, cache = self._decoder_decode(cache, x)
         x = rms_norm(self.final_norm, x, cfg.norm_eps)
@@ -201,8 +295,40 @@ class Model(nn.Module):
             states.append(st)
         return h, {"layers": states, "len": cache["len"] + 1}
 
+    def _jamba_decode(self, cache: Dict, h: torch.Tensor):
+        cfg = self.cfg
+        per = cfg.attn_every
+        new_m: List[List[Dict]] = []
+        for bi, bp in enumerate(self.layers):
+            states = []
+            for i in range(per):
+                if i == 0:
+                    a, _ = A.cached_attention_step(
+                        bp.attn, rms_norm(bp.attn_ln, h, cfg.norm_eps),
+                        {"k": cache["k"][bi], "v": cache["v"][bi],
+                         "len": cache["len"]},
+                        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
+                    h = h + a
+                else:
+                    m, st = S.mamba_block(
+                        bp.mamba[i - 1],
+                        rms_norm(bp.mamba_ln[i - 1], h, cfg.norm_eps),
+                        state=cache["mamba"][bi][i - 1])
+                    states.append(st)
+                    h = h + m
+                hin = rms_norm(bp.ffn_ln[i], h, cfg.norm_eps)
+                if i % 2 == 0:
+                    f, _ = self._moe(bp.moe[i // 2], hin)
+                else:
+                    f = mlp(bp.mlp[i // 2], hin)
+                h = h + f
+            new_m.append(states)
+        return h, dict(cache, mamba=new_m, len=cache["len"] + 1)
+
 
 def build_model(cfg: ArchConfig, dtype=torch.float32,
-                device: DeviceLike = None) -> Model:
+                device: DeviceLike = None,
+                moe_capacity: float = 1.25) -> Model:
     """An unfilled :class:`Model` on `device` (None: the CUDA device)."""
-    return Model(cfg, dtype=dtype, device=device)
+    return Model(cfg, dtype=dtype, device=device, moe_capacity=moe_capacity)

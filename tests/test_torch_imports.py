@@ -20,7 +20,8 @@ SUBPACKAGES = ("repro_torch", "repro_torch.perfmodel", "repro_torch.core",
                "repro_torch.analysis", "repro_torch.configs",
                "repro_torch.models", "repro_torch.launch",
                "repro_torch.kernels.flash_attention",
-               "repro_torch.kernels.rwkv6_scan")
+               "repro_torch.kernels.rwkv6_scan",
+               "repro_torch.kernels.ssm_scan", "repro_torch.models.moe")
 
 
 def _forbidden(name: str) -> bool:

@@ -230,7 +230,7 @@ def test_serve_greedy_tokens_equal_reference(arch):
 
 @pytest.mark.parametrize("arch", sorted(a for a in ARCHS
                                         if ARCHS[a].family
-                                        not in ("dense", "ssm")))
+                                        not in ("dense", "ssm", "hybrid")))
 def test_unported_families_raise(arch):
     cfg = get_arch(arch).smoke()
     with pytest.raises(NotImplementedError, match=cfg.family):
