@@ -10,7 +10,10 @@ Builds every CUDA kernel of the port from ``src/repro_torch`` (nvcc, at
 first use) and runs, in order — any failure exits non-zero before the last
 line is printed:
 
-1. card: name and power limit (nvidia-smi), torch/CUDA versions, build time;
+1. card: name and power limit (nvidia-smi), torch/CUDA versions, build
+   time; each flash_attention instantiation's registers, spills (ptxas)
+   and shared memory, and its tensor-core (HMMA) instructions in the
+   built library's SASS (cuobjdump, where the toolkit has it; none fails);
 2. each kernel against its plain PyTorch version on the card, at the
    reference's own kernel tolerances, at small and ragged batches and at
    the sweep's chunk shape;
@@ -47,7 +50,9 @@ line is printed:
    token shape, TTFT and TPOT (it prefills by decode steps, as the
    reference does, so it launches neither LM kernel);
 10. LM kernel timings at phase 8's shapes (queue pre-filled, CUDA events)
-   against their bounds, the plain versions and, for attention, one
+   against their bounds (attention on its route: fp32 as three TF32
+   products at 495 TFLOP/s, the 67 TFLOP/s SIMT figure printed beside
+   it; bf16 at 989 TFLOP/s), the plain versions and, for attention, one
    ``F.scaled_dot_product_attention`` call (timed only, never used by the
    port), the prefill wall times, and profiler windows over one
    llama3.2-1b prefill and one decode step;
@@ -89,8 +94,13 @@ TOL_AREA_RTOL = 1e-5
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 
-# NVIDIA H100 SXM data-sheet peak (dense) of the bf16 tensor cores
+# NVIDIA H100 SXM data-sheet peaks (dense) of the tensor cores
 PEAK_BF16_PER_S = 989e12
+PEAK_TF32_PER_S = 495e12
+# flash_attention's route per dtype: tensor-core products per product of
+# the function, and their peak rate (fp32 is split into three TF32 ones)
+FA_ROUTE = {"float32": (3, PEAK_TF32_PER_S, "3xTF32"),
+            "bfloat16": (1, PEAK_BF16_PER_S, "bf16")}
 
 SWEEP_CHUNK = 131_072   # SweepEngine's default chunk, the main path's shape
 PHASE2_BATCHES = (1, 255, 256, 65_553, SWEEP_CHUNK)
@@ -279,6 +289,74 @@ def hold(got, want, tol: float, what: str) -> float:
     check(bool(np.isfinite(g).all()), f"{what}: non-finite output")
     np.testing.assert_allclose(g, w, rtol=tol, atol=tol, err_msg=what)
     return float(np.max(np.abs(g - w)))
+
+
+def fa_bound(ops: int, nbytes: int, dn: str) -> dict:
+    """The least time for flash_attention's work on its route: the larger
+    of its bytes at the HBM rate and its tensor-core operations at their
+    peak; with the SIMT fp32 figure for comparison."""
+    mult, rate, route = FA_ROUTE[dn]
+    t_ops = mult * ops / rate * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "text": f"{mult} x {ops / 1e9:.1f} GFLOP {route} at "
+                    f"{rate / 1e12:.0f} TFLOP/s: {t_ops:.4f} ms; "
+                    f"{nbytes / 1e6:.1f} MB at 3.35 TB/s: {t_bytes:.4f} ms"
+                    + (f"; SIMT fp32 at 67 TFLOP/s: "
+                       f"{ops / PEAK_FP32_PER_S * 1e3:.4f} ms"
+                       if dn == "float32" else "")}
+
+
+def report_fa_build(torch, build_mod, fa_ops) -> None:
+    """Registers and spills (ptxas) and shared memory of each fa_fwd
+    instantiation, and the tensor-core instructions in its SASS; fails if
+    cuobjdump is there and an instantiation has none."""
+    import re
+    name = re.compile(r"fa_fwdI(f|13__nv_bfloat16)Li(\d+)E")
+
+    def inst(line):
+        m = name.search(line)
+        return m and ("float32" if m.group(1) == "f" else "bfloat16",
+                      int(m.group(2)))
+    info, cur = {}, None
+    for line in build_mod.BUILD_LOGS.get("flash_attention", "").splitlines():
+        if "Compiling entry" in line:
+            cur = inst(line)
+        elif cur and "spill stores" in line:
+            info.setdefault(cur, {})["spills"] = line.strip()
+        elif cur and "registers" in line:
+            info.setdefault(cur, {})["regs"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    hmma = {}
+    cob = os.path.join(os.path.dirname(build_mod.find_nvcc()), "cuobjdump")
+    if os.path.exists(cob):
+        lib = build_mod.library_path(fa_ops.SOURCE, fa_ops.FLAGS)
+        sass = subprocess.run([cob, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        cur = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                cur = inst(line)
+                hmma[cur] = 0
+            elif cur and re.search(r"\bHMMA\b", line):
+                hmma[cur] += 1
+    if "flash_attention" not in build_mod.BUILD_LOGS:
+        log("[1]   flash_attention was built by an earlier run: ptxas "
+            "not reported")
+        info = {key: {} for key in hmma}
+    dts = _dtypes(torch)
+    for dn, hd in sorted(info):
+        i = info[(dn, hd)]
+        h = hmma.get((dn, hd))
+        log(f"[1]   fa_fwd<{dn}, {hd}>: {i.get('regs')} registers, "
+            f"{i.get('spills')}; shared memory "
+            f"{fa_ops.smem_bytes(hd, dts[dn])} B; "
+            + (f"{h} HMMA in SASS" if h is not None else
+               "SASS not read (no cuobjdump)"))
+        check(h is None or h > 0, f"fa_fwd<{dn}, {hd}> has no HMMA")
+    check(len(info) == 8 or not info, f"{len(info)} fa_fwd "
+          f"instantiations reported, want 8")
 
 
 def phase7_lm_kernels(torch, dev) -> dict:
@@ -562,7 +640,6 @@ def phase10_lm_timings(torch, dev) -> dict:
                                                      flash_attention_plain)
     from repro_torch.kernels.rwkv6_scan import (rwkv6_scan, rwkv6_scan_cost,
                                                 rwkv6_scan_plain)
-    peak = {"float32": PEAK_FP32_PER_S, "bfloat16": PEAK_BF16_PER_S}
     out = {}
     saved = (flash_attention.launches, rwkv6_scan.launches)
     b, s, h, kvh, hd = LLAMA[1], LLAMA[2], 32, 8, 64
@@ -579,17 +656,15 @@ def phase10_lm_timings(torch, dev) -> dict:
             qh, kh, vh, is_causal=True), iters=20)
         ops, nbytes = flash_attention_cost(b, s, s, h, kvh, hd, True,
                                            q.element_size())
-        t_ops, t_bytes = ops / peak[dn] * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        bd = fa_bound(ops, nbytes, dn)
         out[("flash_attention", dn)] = {
             "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-            "bound_ms": max(t_ops, t_bytes), "max_abs_err": e,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_ms": bd["bound_ms"], "max_abs_err": e,
+            "bound_by": bd["bound_by"]}
         log(f"[10] flash_attention {dn} B={b} S={s} H={h} KVH={kvh} hd={hd} "
             f"causal: kernel {k_ms:.3f} ms ({ops / k_ms / 1e9:.1f} TFLOP/s), "
             f"plain {p_ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound "
-            f"{max(t_ops, t_bytes):.4f} ms ({ops / 1e9:.1f} GFLOP at "
-            f"{peak[dn] / 1e12:.0f} TFLOP/s; {nbytes / 1e6:.1f} MB at "
-            f"3.35 TB/s)")
+            f"{bd['bound_ms']:.4f} ms ({bd['text']}); max abs err {e:.3g}")
         del q, k, v, qh, kh, vh
     b, t, h, hd = RWKV[1], RWKV[2], 64, 64
     for dn, dt in _dtypes(torch).items():
@@ -736,7 +811,6 @@ def phase11_jamba(torch, dev) -> dict:
             f"PyTorch call computes it")
         del args
     b, s_, h, kvh, hd = JAMBA_FA
-    peak_rate = {"float32": PEAK_FP32_PER_S, "bfloat16": PEAK_BF16_PER_S}
     for dn, dt in _dtypes(torch).items():
         q, k, v = fa_inputs(torch, b, s_, h, kvh, hd, dt, dev, seed=1)
         k_ms = kernel_ms(torch, lambda: flash_attention(q, k, v), iters=10)
@@ -750,16 +824,15 @@ def phase11_jamba(torch, dev) -> dict:
             qh, kh, vh, is_causal=True), iters=10)
         ops, nbytes = flash_attention_cost(b, s_, s_, h, kvh, hd, True,
                                            q.element_size())
-        t_ops = ops / peak_rate[dn] * 1e3
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        bd = fa_bound(ops, nbytes, dn)
         out[("flash_attention_hd128", dn)] = {
             "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-            "max_abs_err": e, "bound_ms": max(t_ops, t_bytes)}
+            "max_abs_err": e, "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"]}
         log(f"[11] flash_attention {dn} B={b} S={s_} H={h} KVH={kvh} "
             f"hd={hd} causal: kernel {k_ms:.3f} ms ({ops / k_ms / 1e9:.1f} "
             f"TFLOP/s), plain {p_ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound "
-            f"{max(t_ops, t_bytes):.4f} ms ({ops / 1e9:.1f} GFLOP at "
-            f"{peak_rate[dn] / 1e12:.0f} TFLOP/s); max abs err {e:.3g}")
+            f"{bd['bound_ms']:.4f} ms ({bd['text']}); max abs err {e:.3g}")
         del q, k, v, qh, kh, vh
     flash_attention.launches, ssm_scan.launches = saved
     torch.cuda.empty_cache()
@@ -808,10 +881,13 @@ def main() -> int:
     log(f"[1] build ppa_eval, flash_attention, rwkv6_scan, ssm_scan (nvcc "
         f"in parallel): {time.perf_counter() - t0:.2f} s")
     for name in ("ppa_eval", "flash_attention", "rwkv6_scan", "ssm_scan"):
+        if name == "flash_attention":
+            continue                      # per instantiation, below
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if "Compiling entry" in line or "registers" in line \
                     or "spill" in line:
                 log(f"[1]   {name}: {line.strip()}")
+    report_fa_build(torch, _build, fa_ops)
 
     # ---- 2. kernel vs plain on the card -----------------------------------
     wls = {"ttft": gpt3_layer_prefill(), "tpot": gpt3_layer_decode()}

@@ -1,37 +1,55 @@
-// Flash-attention forward (online softmax) on Hopper (sm_90a).
+// Flash-attention forward (online softmax) on Hopper (sm_90a), on the
+// tensor cores through warp-level mma.sync.
 //
 // Replaces the TPU Pallas kernel `_fa_kernel` / `flash_attention_fwd` in
 // src/repro/kernels/flash_attention/kernel.py.  Same function: for each
 // (batch, head) and query row, o = softmax(q k^T * scale [causal mask]) v,
 // computed tile by tile with a running max m, running sum l and an fp32
 // accumulator, masked scores set to NEG_INF = -1e30 and the result divided
-// by max(l, 1e-30).  Inputs fp32 or bf16, head dim 16, 32, 64 or 128; all
-// arithmetic is fp32 (plain FMA, no tensor cores: TF32's 10-bit mantissa
-// would miss the fp32 tolerance), the output is written in the input type.
+// by max(l, 1e-30).  Inputs fp32 or bf16, head dim 16, 32, 64 or 128; the
+// output is written in the input type.
 //
 // Layout: q, o are (B, Sq, H, hd) and k, v are (B, Sk, KVH, hd), contiguous,
 // as the model's projections leave them: the kernel computes its own
-// offsets, so no transpose to (BH, S, hd) is needed, and for grouped-query
-// attention query head h reads KV head h / (H / KVH) in place of the
-// repeated tensor the reference builds.  Ragged Sq and Sk are masked.
+// offsets, and for grouped-query attention query head h reads KV head
+// h / (H / KVH) in place.  Ragged Sq and Sk are masked.
 //
 // What bounds it on an H100: at the llama3.2-1b prefill shape (B 2, S 4096,
-// H 32, hd 64, causal) it does ~137 GFLOP against ~170 MB of traffic, so
-// it is bound by operations; without tensor cores that is the 67 TFLOP/s
-// fp32 rate (~2 ms).  The design keeps the S x S scores out of device
-// memory and feeds the FMA units from shared memory with as few loads as
-// it can: one block of 256 threads per (64-query tile, batch x head); the
-// Q tile (transposed) and each 64-key K tile (transposed) and V tile are
-// staged in shared memory as fp32.  Each thread owns a 4 x 4 tile of the
-// scores (4 query rows x 4 keys): per head-dim step two float4 loads feed
-// 16 FMAs.  The row max is reduced over the 16 threads of a row with four
-// shuffles per tile; each thread keeps its own partial row sums, rescaled
-// with the row's max, and sums them once at the end.  The probabilities go
-// through shared memory to the P.V product, where each thread owns 4 rows
-// x hd/16 output columns in registers (four broadcast loads of P and
-// hd/64 float4s of V per 4 x hd/16 FMAs).  Causal blocks stop at the diagonal, and the
-// grid is walked from the last query tile down so that the longest blocks
-// start first.
+// H 32, hd 64, causal) the function is ~137 GFLOP against ~170 MB of
+// traffic, so it is bound by operations, and only the tensor cores give
+// the rate.  bf16 runs one m16n8k16 bf16 product per tile (989 TFLOP/s
+// peak).  fp32 must stay within 2e-5 of fp32 arithmetic, which one TF32
+// product (10-bit mantissa) misses by ~80x; so each fp32 operand x is split
+// into big = x rounded to TF32 and small = (x - big) truncated to TF32, and
+// each product is three m16n8k8 TF32 products, small*big + big*small +
+// big*big, accumulated in fp32: 3x the operations at the 495 TFLOP/s TF32
+// peak (0.83 ms at that shape), still 2.5x the 67 TFLOP/s of fp32 FMA.
+//
+// Design (FA2 on mma.sync): a block is 4 warps and 64 query rows, 16 rows
+// a warp; K and V tiles of BK keys are staged in shared memory by 16-byte
+// cp.async copies, double-buffered so that the next tile's copy is in
+// flight while the current one computes.  The scores stay in the mma
+// accumulators: each thread holds 2 rows of its warp's 16, so a row's max
+// and sum take two quad shuffles.  Because the contraction index of a
+// product may be permuted as long as both operands are permuted alike,
+// the kernel picks the order that makes every fragment a plain load:
+// - Q k^T: head-dim index d is read in the order that puts a thread's A
+//   and B elements next to each other, so Q fragments (in registers, or
+//   at fp32 hd 128 in shared memory) and K fragments are 8-byte loads;
+// - P V: in fp32 the key order k8 index t <-> key 2t, t + 4 <-> key 2t + 1
+//   makes the score accumulator (c0, c1, c2, c3) the A fragment
+//   (c0, c2, c1, c3) as it stands, with V read at those keys; in bf16 two
+//   adjacent n8 score tiles packed to bf16x2 are the k16 A fragment as
+//   they stand, and V's B fragments come from ldmatrix.trans.
+// The split is done with integer operations: cvt.rna.tf32.f32 compiles to
+// a long emulated sequence on sm_90a (compare, select and multiply-add
+// instructions in the SASS).
+// fp32 P V sums each tile in an accumulator of its own (see add_pv).  Row
+// strides are padded so that each fragment load hits 32 distinct banks.
+// Causal tiles above the diagonal are skipped, masking is applied only in
+// tiles that cross the diagonal or the end of the keys, and the grid is
+// walked from the last query tile down so that the longest blocks start
+// first.  exp is ex2.approx on scores pre-scaled by log2(e).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -39,59 +57,316 @@
 namespace {
 
 constexpr int kBQ = 64;                   // query rows per block
-constexpr int kBK = 64;                   // keys per tile
-constexpr int kThreads = 256;             // 16 x 16 threads
-constexpr int kPS = kBK + 4;              // P row stride (floats)
+constexpr int kThreads = 128;             // 4 warps x 16 rows
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
+// Per-dtype tile shape.  BK: keys per tile (32 at fp32 hd 128, where 64
+// would leave one block per SM for lack of shared memory).  KST / VST:
+// row strides (elements) of the K and V tiles, padded so that the K
+// fragment loads (8 bytes: 4 rows x 4 lanes a half-warp) and the V loads
+// (fp32: 8 rows x 4 lanes, bf16: ldmatrix, 8 rows of 16 bytes) are free of
+// bank conflicts; every row stays 16-byte aligned for cp.async.
+template <typename T, int HD> struct Tile;
+template <int HD> struct Tile<float, HD> {
+  static constexpr int BK = HD == 128 ? 32 : 64;
+  static constexpr int KST = HD + 8;      // stride = 8 (mod 32) words
+  static constexpr int VST = HD + 4;      // stride = 4 (mod 32) words
+  // Q's fragments live in registers (the compiler keeps their split there
+  // too, HD registers) up to hd 64; at hd 128 that and the output's two
+  // accumulators would spill, so Q is staged raw in shared memory (row
+  // stride KST) and split per use.
+  static constexpr bool kQSmem = HD == 128;
+};
+template <int HD> struct Tile<__nv_bfloat16, HD> {
+  static constexpr int BK = 64;
+  static constexpr int KST = HD == 16 ? 16 : HD + 16;  // 8 or 24 (mod 32)
+  static constexpr int VST = HD + 8;      // odd multiple of 16 bytes
+  static constexpr bool kQSmem = false;
+};
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float get(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-// Output column n (0 <= n < hd/16) of thread column tx: 4-wide groups of
-// adjacent columns, 64 apart, for hd >= 64; adjacent columns below.
-template <int HD>
-__device__ __forceinline__ int out_col(int tx, int n) {
-  constexpr int NC = HD / 16;
-  if constexpr (NC >= 4) return (n / 4) * 64 + tx * 4 + (n % 4);
-  else return tx * NC + n;
-}
-
-template <int HD>
+template <typename T, int HD>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (3 * HD * kBQ + kBQ * kPS);
+  using C = Tile<T, HD>;
+  return sizeof(T) * (2 * C::BK * (C::KST + C::VST)
+                      + (C::kQSmem ? kBQ * C::KST : 0));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; zero-fills when `ok` is false.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x = big + small + O(2^-21 |x|): big is x rounded to TF32 (to nearest,
+// ties away, as cvt.rna.tf32.f32, which the compiler would emulate with
+// many more instructions), small the remainder truncated to TF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
+}
+
+// d += a b: m16n8k8, A row-major tf32, B col-major tf32, fp32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b: m16n8k16, A row-major bf16, B col-major bf16, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four transposed 8x8 b16 matrices; lane l gives the row address of
+// matrix l / 8, row l % 8.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// Stage rows [k0, k0 + R) of one head into a tile of row stride ST; rows
+// at or past n are zero (a key's score is masked, a zero V row times a
+// zero probability stays 0, a query row is never stored).
+template <typename T, int HD, int R, int ST>
+__device__ __forceinline__ void load_tile(T* dst, const T* src,
+                                          size_t row_stride, int k0, int n,
+                                          int tid) {
+  constexpr int kEPC = 16 / sizeof(T);    // elements per 16-byte chunk
+  constexpr int kCPR = HD / kEPC;         // chunks per row
+#pragma unroll
+  for (int i = tid; i < R * kCPR; i += kThreads) {
+    const int r = i / kCPR, c = i % kCPR;
+    const bool ok = k0 + r < n;
+    const T* g = ok ? src + static_cast<size_t>(k0 + r) * row_stride
+                          + c * kEPC
+                    : src;
+    cp_async16(dst + r * ST + c * kEPC, g, ok);
+  }
+}
+
+// Q fragments for the block's lifetime.  fp32: q[s] is the m16n8k8 A
+// fragment of head-dim step s with k index t <-> d 8s + 2t and t + 4 <->
+// d 8s + 2t + 1 (raw fp32, split per use).  bf16: q[s] is the m16n8k16 A
+// fragment of step s with k indices 2t, 2t+1, 2t+8, 2t+9 <-> d 16s + 4t ..
+// 16s + 4t + 3.  K fragments below use the same orders.
+template <typename T, int HD> struct QFrag;
+template <int HD> struct QFrag<float, HD> {
+  static constexpr bool kSmem = Tile<float, HD>::kQSmem;
+  float q[kSmem ? 1 : HD / 8][4];
+  const float* qs;                        // the thread's row g (kSmem)
+  __device__ __forceinline__ void load(const float* row0, const float* row1,
+                                       int t) {
+    if constexpr (!kSmem) {
+#pragma unroll
+      for (int s = 0; s < HD / 8; ++s) {
+        const float2 a = row0 ? *reinterpret_cast<const float2*>(
+                                    row0 + 8 * s + 2 * t)
+                              : make_float2(0.f, 0.f);
+        const float2 b = row1 ? *reinterpret_cast<const float2*>(
+                                    row1 + 8 * s + 2 * t)
+                              : make_float2(0.f, 0.f);
+        q[s][0] = a.x; q[s][1] = b.x; q[s][2] = a.y; q[s][3] = b.y;
+      }
+    }
+  }
+  __device__ __forceinline__ void fragment(int s, float (&x)[4]) const {
+    if constexpr (kSmem) {
+      constexpr int KST = Tile<float, HD>::KST;
+      const float2 a = *reinterpret_cast<const float2*>(qs + 8 * s);
+      const float2 b = *reinterpret_cast<const float2*>(qs + 8 * KST + 8 * s);
+      x[0] = a.x; x[1] = b.x; x[2] = a.y; x[3] = b.y;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] = q[s][i];
+    }
+  }
+};
+template <int HD> struct QFrag<__nv_bfloat16, HD> {
+  uint32_t q[HD / 16][4];
+  __device__ __forceinline__ void load(const __nv_bfloat16* row0,
+                                       const __nv_bfloat16* row1, int t) {
+#pragma unroll
+    for (int s = 0; s < HD / 16; ++s) {
+      const uint2 a = row0 ? *reinterpret_cast<const uint2*>(
+                                 row0 + 16 * s + 4 * t)
+                           : make_uint2(0u, 0u);
+      const uint2 b = row1 ? *reinterpret_cast<const uint2*>(
+                                 row1 + 16 * s + 4 * t)
+                           : make_uint2(0u, 0u);
+      q[s][0] = a.x; q[s][1] = b.x; q[s][2] = a.y; q[s][3] = b.y;
+    }
+  }
+};
+
+// sc[j] += Q K^T for keys 8j .. 8j + 7 of the tile (C fragment: c0, c1 =
+// row g, keys 2t, 2t + 1; c2, c3 = row g + 8).
+template <int HD, int BK>
+__device__ __forceinline__ void scores(const QFrag<float, HD>& qf,
+                                       const float* kt, float (&sc)[BK / 8][4],
+                                       int g, int t) {
+  constexpr int KST = Tile<float, HD>::KST;
+#pragma unroll
+  for (int s = 0; s < HD / 8; ++s) {
+    float x[4];
+    qf.fragment(s, x);
+    uint32_t ab[4], as[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(x[i], ab[i], as[i]);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float2 kk = *reinterpret_cast<const float2*>(
+          kt + (8 * j + g) * KST + 8 * s + 2 * t);
+      uint32_t bb0, bs0, bb1, bs1;
+      split_tf32(kk.x, bb0, bs0);
+      split_tf32(kk.y, bb1, bs1);
+      mma_tf32(sc[j], as, bb0, bb1);      // the small terms first
+      mma_tf32(sc[j], ab, bs0, bs1);
+      mma_tf32(sc[j], ab, bb0, bb1);
+    }
+  }
+}
+
+template <int HD, int BK>
+__device__ __forceinline__ void scores(const QFrag<__nv_bfloat16, HD>& qf,
+                                       const __nv_bfloat16* kt,
+                                       float (&sc)[BK / 8][4], int g, int t) {
+  constexpr int KST = Tile<__nv_bfloat16, HD>::KST;
+#pragma unroll
+  for (int s = 0; s < HD / 16; ++s) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const uint2 kk = *reinterpret_cast<const uint2*>(
+          kt + (8 * j + g) * KST + 16 * s + 4 * t);
+      mma_bf16(sc[j], qf.q[s], kk.x, kk.y);
+    }
+  }
+}
+
+// acc[n] += P V for head-dim columns 8n .. 8n + 7; p holds the tile's
+// probabilities in the score layout.  The tile's products are summed in an
+// accumulator of their own and added to acc once: the tensor cores do not
+// round their fp32 sums to nearest, and a running sum fed to every mma of
+// the row gathers that bias over the whole row.
+template <int HD, int BK>
+__device__ __forceinline__ void add_pv(const float (&p)[BK / 8][4],
+                                       const float* vt, float (&acc)[HD / 8][4],
+                                       int lane) {
+  constexpr int VST = Tile<float, HD>::VST;
+  const int g = lane >> 2, t = lane & 3;
+  float tile[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tile[n][i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    uint32_t ab[4], as[4];
+    split_tf32(p[j][0], ab[0], as[0]);
+    split_tf32(p[j][2], ab[1], as[1]);
+    split_tf32(p[j][1], ab[2], as[2]);
+    split_tf32(p[j][3], ab[3], as[3]);
+    const float* v0 = vt + (8 * j + 2 * t) * VST + g;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      uint32_t bb0, bs0, bb1, bs1;
+      split_tf32(v0[8 * n], bb0, bs0);
+      split_tf32(v0[VST + 8 * n], bb1, bs1);
+      mma_tf32(tile[n], as, bb0, bb1);
+      mma_tf32(tile[n], ab, bs0, bs1);
+      mma_tf32(tile[n], ab, bb0, bb1);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] += tile[n][i];
+}
+
+template <int HD, int BK>
+__device__ __forceinline__ void add_pv(const float (&p)[BK / 8][4],
+                                       const __nv_bfloat16* vt,
+                                       float (&acc)[HD / 8][4], int lane) {
+  constexpr int VST = Tile<__nv_bfloat16, HD>::VST;
+  // ldmatrix row address: matrix m = lane / 8 covers keys (m & 1) * 8 ..
+  // and columns (m >> 1) * 8 .. of a 16 x 16 block
+  const __nv_bfloat16* vrow =
+      vt + (((lane >> 3) & 1) * 8 + (lane & 7)) * VST + (lane >> 4) * 8;
+#pragma unroll
+  for (int s = 0; s < BK / 16; ++s) {
+    const uint32_t a[4] = {pack_bf16(p[2 * s][0], p[2 * s][1]),
+                           pack_bf16(p[2 * s][2], p[2 * s][3]),
+                           pack_bf16(p[2 * s + 1][0], p[2 * s + 1][1]),
+                           pack_bf16(p[2 * s + 1][2], p[2 * s + 1][3])};
+#pragma unroll
+    for (int np = 0; np < HD / 16; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, vrow + 16 * s * VST + 16 * np);
+      mma_bf16(acc[2 * np], a, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+// The minimum of one block per SM is stated: with it ptxas gives the bf16
+// instantiations more registers (as many blocks fit an SM either way), and
+// they run faster; the fp32 ones do not change.
+__global__ void __launch_bounds__(kThreads, 1)
 fa_fwd(const T* __restrict__ q, const T* __restrict__ k,
        const T* __restrict__ v, T* __restrict__ o, int sq, int sk, int h,
-       int kvh, float scale, int causal) {
-  constexpr int NC = HD / 16;             // output columns per thread
-  constexpr int C4 = HD / 4;              // float4 chunks per row
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);   // [HD][kBQ]
-  float* kt = qt + HD * kBQ;                     // [HD][kBK]
-  float* vs = kt + HD * kBK;                     // [kBK][HD]
-  float* ps = vs + kBK * HD;                     // [kBQ][kPS]
+       int kvh, float scale_log2, int causal) {
+  using C = Tile<T, HD>;
+  constexpr int BK = C::BK;
+  constexpr int NT = BK / 8;              // n8 score tiles per key tile
+  constexpr int ND = HD / 8;              // n8 output tiles
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);     // [2][BK][KST]
+  T* vs = ks + 2 * BK * C::KST;           // [2][BK][VST]
+  T* qs = vs + 2 * BK * C::VST;           // [kBQ][KST] if C::kQSmem
 
   const int qt_idx = gridDim.x - 1 - blockIdx.x;  // longest tiles first
   const int q0 = qt_idx * kBQ;
@@ -99,142 +374,124 @@ fa_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / h, hh = bh % h;
   const int kh = hh / (h / kvh);
   const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wq0 = q0 + 16 * warp;         // the warp's first row
+  const int row0 = wq0 + g, row1 = row0 + 8;
   const size_t q_stride = static_cast<size_t>(h) * HD;
   const size_t kv_stride = static_cast<size_t>(kvh) * HD;
   const T* qb = q + static_cast<size_t>(b) * sq * q_stride + hh * HD;
   const T* kb = k + static_cast<size_t>(b) * sk * kv_stride + kh * HD;
   const T* vb = v + static_cast<size_t>(b) * sk * kv_stride + kh * HD;
 
-  // Q tile, transposed: lanes walk rows, so the scattered stores do not
-  // collide in a bank
-  for (int idx = tid; idx < kBQ * C4; idx += kThreads) {
-    const int r = idx % kBQ, c = idx / kBQ;
-    const float4 x = q0 + r < sq
-        ? load4(qb + static_cast<size_t>(q0 + r) * q_stride + 4 * c)
-        : make_float4(0.f, 0.f, 0.f, 0.f);
-    qt[(4 * c + 0) * kBQ + r] = x.x;
-    qt[(4 * c + 1) * kBQ + r] = x.y;
-    qt[(4 * c + 2) * kBQ + r] = x.z;
-    qt[(4 * c + 3) * kBQ + r] = x.w;
-  }
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int n = 0; n < NC; ++n) acc[i][n] = 0.f;
-  }
-
   const int k_end = causal ? min(sk, q0 + kBQ) : sk;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();                      // the previous tile is consumed
-    for (int idx = tid; idx < kBK * C4; idx += kThreads) {
-      const int j = idx % kBK, c = idx / kBK;       // K: transposed
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + j < sk)
-        x = load4(kb + static_cast<size_t>(k0 + j) * kv_stride + 4 * c);
-      kt[(4 * c + 0) * kBK + j] = x.x;
-      kt[(4 * c + 1) * kBK + j] = x.y;
-      kt[(4 * c + 2) * kBK + j] = x.z;
-      kt[(4 * c + 3) * kBK + j] = x.w;
-      const int jv = idx / C4, cv = idx % C4;       // V: row-major
-      float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + jv < sk)
-        y = load4(vb + static_cast<size_t>(k0 + jv) * kv_stride + 4 * cv);
-      reinterpret_cast<float4*>(vs)[jv * C4 + cv] = y;
+  const int n_tiles = (k_end + BK - 1) / BK;
+  load_tile<T, HD, BK, C::KST>(ks, kb, kv_stride, 0, sk, tid);
+  load_tile<T, HD, BK, C::VST>(vs, vb, kv_stride, 0, sk, tid);
+  QFrag<T, HD> qf;                        // rows >= sq are zeros
+  if constexpr (C::kQSmem) {
+    load_tile<T, HD, kBQ, C::KST>(qs, qb, q_stride, q0, sq, tid);
+    qf.qs = qs + (16 * warp + g) * C::KST + 2 * t;
+  } else {
+    qf.load(row0 < sq ? qb + static_cast<size_t>(row0) * q_stride : nullptr,
+            row1 < sq ? qb + static_cast<size_t>(row1) * q_stride : nullptr,
+            t);
+  }
+  cp_async_commit();
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BK;
+    if (it + 1 < n_tiles) {               // next tile in flight
+      const int nb = (it + 1) & 1;
+      load_tile<T, HD, BK, C::KST>(ks + nb * BK * C::KST, kb, kv_stride,
+                                   k0 + BK, sk, tid);
+      load_tile<T, HD, BK, C::VST>(vs + nb * BK * C::VST, vb, kv_stride,
+                                   k0 + BK, sk, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const T* kt = ks + (it & 1) * BK * C::KST;
+    const T* vt = vs + (it & 1) * BK * C::VST;
 
-    // scores: rows ty*4 + i, keys tx*4 + j
-    float s[4][4];
+    float sc[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qt + d * kBQ + ty * 4);
-      const float4 c = *reinterpret_cast<const float4*>(kt + d * kBK + tx * 4);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          s[i][j] = fmaf(get(a, i), get(c, j), s[i][j]);
-    }
+      for (int i = 0; i < 4; ++i) sc[j][i] = 0.f;
+    scores<HD, BK>(qf, kt, sc, g, t);
 
+    // scale to the log2 domain; mask only where the tile crosses the end
+    // of the keys or (causal) the warp's diagonal
+    const bool masked = k0 + BK > sk || (causal && k0 + BK - 1 > wq0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = sc[j][i] * scale_log2;
+        if (masked) {
+          const int key = k0 + 8 * j + 2 * t + (i & 1);
+          const int row = i < 2 ? row0 : row1;
+          if (key >= sk || (causal && key > row)) x = kNegInf;
+        }
+        sc[j][i] = x;
+      }
+
+    // online softmax: rows g (r = 0) and g + 8 (r = 1); a row lives in
+    // one quad, so its max takes two shuffles.  l is this thread's
+    // partial sum, reduced over the quad once at the end.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
       float mt = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx * 4 + j;
-        const bool keep = kpos < sk && (!causal || kpos <= qpos);
-        s[i][j] = keep ? s[i][j] * scale : kNegInf;
-        mt = fmaxf(mt, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      const float corr = expf(m[i] - m_new);
+      for (int j = 0; j < NT; ++j)
+        mt = fmaxf(mt, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      const float m_new = fmaxf(m[r], mt);
+      const float corr = ex2(m[r] - m_new);
+      m[r] = m_new;
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
+      for (int j = 0; j < NT; ++j) {
+        sc[j][2 * r] = ex2(sc[j][2 * r] - m_new);
+        sc[j][2 * r + 1] = ex2(sc[j][2 * r + 1] - m_new);
+        rs += sc[j][2 * r] + sc[j][2 * r + 1];
       }
-      l[i] = l[i] * corr + rs;
+      l[r] = l[r] * corr + rs;
 #pragma unroll
-      for (int n = 0; n < NC; ++n) acc[i][n] *= corr;
-      m[i] = m_new;
-      *reinterpret_cast<float4*>(ps + (ty * 4 + i) * kPS + tx * 4) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+      for (int n = 0; n < ND; ++n) {
+        acc[n][2 * r] *= corr;
+        acc[n][2 * r + 1] *= corr;
+      }
     }
-    __syncthreads();
 
-    // acc += P V: rows ty*4 + i, columns out_col(tx, n)
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float p[4], vv[NC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty * 4 + i) * kPS + j];
-      const float* vrow = vs + j * HD;
-      if constexpr (NC >= 4) {
-#pragma unroll
-        for (int g = 0; g < NC / 4; ++g) {
-          const float4 x =
-              *reinterpret_cast<const float4*>(vrow + g * 64 + tx * 4);
-          vv[4 * g] = x.x; vv[4 * g + 1] = x.y;
-          vv[4 * g + 2] = x.z; vv[4 * g + 3] = x.w;
-        }
-      } else {
-#pragma unroll
-        for (int n = 0; n < NC; ++n) vv[n] = vrow[tx * NC + n];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int n = 0; n < NC; ++n) acc[i][n] = fmaf(p[i], vv[n], acc[i][n]);
-    }
+    add_pv<HD, BK>(sc, vt, acc, lane);
+    __syncthreads();                      // the tile is consumed
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float lt = l[i];
-#pragma unroll
-    for (int off = 1; off < 16; off <<= 1)
-      lt += __shfl_xor_sync(0xffffffffu, lt, off);
-    const int qpos = q0 + ty * 4 + i;
-    if (qpos < sq) {
+  for (int r = 0; r < 2; ++r) {
+    float lt = l[r];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int row = r ? row1 : row0;
+    if (row < sq) {
       const float den = fmaxf(lt, 1e-30f);
-      T* orow = o + (static_cast<size_t>(b) * sq + qpos) * q_stride + hh * HD;
+      T* orow = o + (static_cast<size_t>(b) * sq + row) * q_stride + hh * HD;
 #pragma unroll
-      for (int n = 0; n < NC; ++n)
-        store1(orow + out_col<HD>(tx, n), acc[i][n] / den);
+      for (int n = 0; n < ND; ++n)
+        store2(orow + 8 * n + 2 * t, acc[n][2 * r] / den,
+               acc[n][2 * r + 1] / den);
     }
   }
 }
@@ -243,7 +500,7 @@ template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int b, int sq, int sk, int h, int kvh, float scale,
                    int causal, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<HD>();
+  constexpr size_t bytes = smem_bytes<T, HD>();
   cudaError_t err = cudaFuncSetAttribute(
       fa_fwd<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -251,8 +508,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
   fa_fwd<T, HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, h, kvh, scale,
-      causal);
+      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, h, kvh,
+      scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
@@ -270,6 +527,17 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
     case 128: return launch<T, 128>(q, k, v, o, b, sq, sk, h, kvh, scale,
                                     causal, stream);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int smem_hd(int hd) {
+  switch (hd) {
+    case 16: return static_cast<int>(smem_bytes<T, 16>());
+    case 32: return static_cast<int>(smem_bytes<T, 32>());
+    case 64: return static_cast<int>(smem_bytes<T, 64>());
+    case 128: return static_cast<int>(smem_bytes<T, 128>());
+    default: return -1;
   }
 }
 
@@ -294,6 +562,16 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     case 1: return static_cast<int>(launch_hd<__nv_bfloat16>(
         hd, q, k, v, o, b, sq, sk, h, kvh, scale, causal, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Dynamic shared memory (bytes) of one block for (hd, dtype); -1 if the
+// pair is not built.
+int flash_attention_smem_bytes(int hd, int dtype) {
+  switch (dtype) {
+    case 0: return smem_hd<float>(hd);
+    case 1: return smem_hd<__nv_bfloat16>(hd);
+    default: return -1;
   }
 }
 

@@ -16,9 +16,15 @@ the reference's ``flash_attention`` takes the heads already repeated,
 which is the case KVH == H).
 
 Replaces the TPU Pallas kernel ``_fa_kernel`` / ``flash_attention_fwd`` in
-``src/repro/kernels/flash_attention/kernel.py``; see the note at the top of
-``flash_attention.cu`` for what bounds it on an H100 and how its design
-meets it.
+``src/repro/kernels/flash_attention/kernel.py``.  The function is bound by
+operations on an H100, so the kernel runs both products on the tensor
+cores with warp-level ``mma.sync``: one bf16 m16n8k16 product in bf16, and
+in fp32 three TF32 m16n8k8 products per product (each operand split into
+a TF32 ``big`` and a TF32 ``small`` remainder), which keeps fp32's 2e-5
+tolerance where one TF32 product misses it.  The note at the top of
+``flash_attention.cu`` gives the tiling and the fragment orders.
+``torch.backends.cuda.matmul.allow_tf32`` plays no part: the split is the
+kernel's own.
 """
 from __future__ import annotations
 
@@ -105,10 +111,18 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_launch.argtypes = [
             p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
         lib.flash_attention_launch.restype = i
+        lib.flash_attention_smem_bytes.argtypes = [i, i]
+        lib.flash_attention_smem_bytes.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib._repro_typed = True
     return lib
+
+
+def smem_bytes(hd: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the kernel at (hd, dtype), as
+    the built library states it (builds the library if needed)."""
+    return int(_library().flash_attention_smem_bytes(hd, DTYPES[dtype]))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -2,6 +2,8 @@
 (interpret mode) and its oracle, at the reference's own kernel tolerances
 (2e-5 fp32, 2e-2 bf16, tests/test_kernels.py); and the port's
 chunked/full attention against the reference's."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -136,3 +138,50 @@ def test_cost_counts_the_kept_pairs():
     assert nbytes == (2 * 2 * 4096 * 32 * 64 + 2 * 2 * 4096 * 8 * 64) * 4
     ops_nc, _ = flash_attention_cost(1, 8, 8, 1, 1, 32, False, 2)
     assert ops_nc == 4 * 32 * 64
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> nearest TF32 (10-bit mantissa, ties away from zero), as
+    cvt.rna.tf32.f32 and the kernel's integer split round: add half of
+    the 13 dropped bits to the magnitude, then clear them."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000) \
+        .view(torch.float32)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, split: bool):
+    """a @ b as the kernel's fp32 route computes it on the tensor cores:
+    products of TF32 values (exact in fp32), sums in fp32.  split: three
+    products of big = rna(x) and small = trunc(x - big), small terms
+    first; else one product of the rounded operands."""
+    ab, bb = _tf32_rna(a), _tf32_rna(b)
+    if not split:
+        return ab @ bb
+    asm, bsm = _tf32_trunc(a - ab), _tf32_trunc(b - bb)
+    return (asm @ bb + ab @ bsm) + ab @ bb
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["3xTF32", "1xTF32"])
+@pytest.mark.parametrize("hd,s", [(64, 512), (128, 256)])
+def test_tf32_split_keeps_the_fp32_tolerance(hd, s, split):
+    """The arithmetic of the kernel's fp32 route, emulated on the CPU: the
+    3xTF32 split of both products of causal attention stays within the
+    fp32 tolerance (2e-5) of flash_attention_plain, while one TF32 product
+    per matmul misses it, which is why the kernel splits."""
+    b, h = 1, 4
+    q, k, v = (torch.tensor(x) for x in _inputs((b, s, h, hd), seed=hd))
+    qh, kh, vh = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+    scores = _tf32_matmul(qh, kh.transpose(-1, -2), split) / math.sqrt(hd)
+    keep = torch.ones(s, s, dtype=torch.bool).tril()
+    scores = torch.where(keep, scores, -1e30)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    out = _tf32_matmul(p, vh, split) / p.sum(dim=-1, keepdim=True)
+    got = out.permute(0, 2, 1, 3).numpy()
+    want = flash_attention_plain(q, k, v, causal=True).numpy()
+    if split:
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        assert np.max(np.abs(got - want)) > 2e-5

@@ -32,12 +32,20 @@ def _qkv(b, sq, sk, h, kvh, hd, dtype, dev, seed=0):
     return q, k, v
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("b,s,h,kvh,hd", [
+# the reference's test shapes, the llama3.2-1b prefill shape, and one
+# ragged S (1, 65, 333: not a multiple of 16 or 64) with GQA and MHA at
+# every head dim
+KERNEL_SHAPES = [
     (2, 128, 2, 2, 64), (1, 256, 4, 4, 128), (2, 64, 2, 2, 32),
     (1, 128, 1, 1, 64), (2, 333, 8, 2, 64), (1, 300, 4, 2, 16),
-    (1, 4096, 32, 8, 64)])
+    (1, 4096, 32, 8, 64)] + [
+    (b, s, h, kvh, hd) for hd in (16, 32, 64, 128)
+    for b, s, h, kvh in ((2, 1, 4, 2), (1, 65, 4, 4), (1, 333, 6, 2))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,h,kvh,hd", KERNEL_SHAPES)
 def test_kernel_matches_plain(cuda, b, s, h, kvh, hd, causal, dtype):
     q, k, v = _qkv(b, s, s, h, kvh, hd, dtype, cuda)
     before = flash_attention.launches
@@ -49,6 +57,17 @@ def test_kernel_matches_plain(cuda, b, s, h, kvh, hd, causal, dtype):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_kernel_is_deterministic(cuda, hd, dtype):
+    """No atomics: two launches on the same inputs agree bit for bit."""
+    q, k, v = _qkv(2, 333, 333, 8, 2, hd, dtype, cuda, seed=5)
+    a = flash_attention(q, k, v)
+    b = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_kernel_rejects_misaligned_input(cuda):
