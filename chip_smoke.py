@@ -14,6 +14,8 @@ line is printed:
    time; each flash_attention instantiation's registers, spills (ptxas)
    and shared memory, and its tensor-core (HMMA) instructions in the
    built library's SASS (cuobjdump, where the toolkit has it; none fails);
+   each rwkv6_scan instantiation's (state and output pass) registers,
+   spills and shared memory;
 2. each kernel against its plain PyTorch version on the card, at the
    reference's own kernel tolerances, at small and ragged batches and at
    the sweep's chunk shape;
@@ -35,6 +37,9 @@ line is printed:
    causal), fp32 and bf16 (2e-5 / 2e-2); rwkv6_scan at the test shapes and
    at (B 1, T 4096, H 64, hd 64), ssm_scan at the test shapes and at (B 1,
    T 4096, D 16384, N 16) (both 5e-5 / 5e-2); one ragged shape each;
+   rwkv6_scan also at (1, 4096, 64, 64) with the model's w (~0.9975, held
+   against the float64 plain version, since there the fp32 recurrence
+   itself drifts) and with w holding exact zeros and fp32 denormals;
 8. the prefill step at full width in fp32, weights from a seeded
    ``torch.Generator``, prompts from ``np.random.default_rng(0)``:
    llama3.2-1b at B 2, S 4096 must launch flash_attention 16 times and
@@ -54,7 +59,9 @@ line is printed:
    products at 495 TFLOP/s, the 67 TFLOP/s SIMT figure printed beside
    it; bf16 at 989 TFLOP/s), the plain versions and, for attention, one
    ``F.scaled_dot_product_attention`` call (timed only, never used by the
-   port), the prefill wall times, and profiler windows over one
+   port), rwkv6_scan beside the times of its earlier, sequential version
+   (recorded, not run) with the device time of each of its two passes,
+   the prefill wall times, and profiler windows over one
    llama3.2-1b prefill and one decode step;
 11. the hybrid path: jamba-1.5-large-398b cut to one attention and one
    Mamba sub-layer (n_layers 2, attn_every 2; every published width, 11.90
@@ -225,6 +232,28 @@ def profile_device(torch, fn, tag: str, what: str, keep: str = None) -> None:
             f"{name[:90]}")
 
 
+def pass_times(torch, fn, names, calls: int = 5) -> dict:
+    """Mean device time (us) of one launch of each kernel whose name holds
+    one of `names`, and how many launches the profiler recorded, from a
+    window over `calls` calls of fn().  In a long process the profiler can
+    drop events, so the mean is over the launches it recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    seen = {n: [] for n in names}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for n in names:
+                if n in e.name:
+                    seen[n].append(e.time_range.elapsed_us())
+    return {n: (sum(us) / len(us) if us else float("nan"), len(us))
+            for n, us in seen.items()}
+
+
 # ---------------------------------------------------------------- LM slice
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}       # tests/test_kernels.py
 RWKV_TOL = {"float32": 5e-5, "bfloat16": 5e-2}
@@ -239,6 +268,13 @@ FA_SHAPES = [(2, 128, 2, 2, 64, True), (1, 256, 4, 4, 128, True),
 # (B, T, H, hd): the test shapes, the rwkv6-7b prefill shape, one ragged T
 RWKV_SHAPES = [(2, 64, 2, 16), (1, 128, 4, 32), (2, 32, 1, 64),
                (1, 4096, 64, 64), (2, 333, 3, 64)]
+# w regimes at the prefill shape, and whether the plain version they are
+# held against runs in float64 (near w = 1 the fp32 recurrence drifts)
+RWKV_REGIMES = (("model", True), ("zeros", False))
+# the sequential kernel's times at the prefill shape (B 1, T 4096, H 64,
+# hd 64), from earlier runs of this script on NVIDIA H100 80GB HBM3 at
+# 700.00 W (PERF.md), printed beside the chunked kernel's
+RWKV_SEQUENTIAL_MS = {"float32": "1.245-1.276", "bfloat16": "2.132-2.155"}
 LLAMA = ("llama3.2-1b", 2, 4096)                    # arch, batch, seq
 RWKV = ("rwkv6-7b", 1, 4096)
 SSM_TOL = {"float32": 5e-5, "bfloat16": 5e-2}      # tests/test_kernels.py
@@ -262,11 +298,24 @@ def fa_inputs(torch, b, s, h, kvh, hd, dtype, dev, seed=0):
     return q, k, v
 
 
-def rwkv_inputs(torch, b, t, h, hd, dtype, dev, seed=0):
+def rwkv_inputs(torch, b, t, h, hd, dtype, dev, seed=0, regime="uniform"):
+    """w ~ U(0.3, 0.99) as the reference test draws it; "model": w =
+    exp(-exp(-6 + 0.5 N(0, 1))) ~ 0.9975, as the model's w_bias -6 makes
+    it; "zeros": U(0, 1) with 10% exact zeros and 10% fp32 denormals."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    r, k, v = (0.5 * torch.randn((b, t, h, hd), generator=g, device=dev)
+    shape = (b, t, h, hd)
+    r, k, v = (0.5 * torch.randn(shape, generator=g, device=dev)
                for _ in range(3))
-    w = 0.3 + 0.69 * torch.rand((b, t, h, hd), generator=g, device=dev)
+    if regime == "uniform":
+        w = 0.3 + 0.69 * torch.rand(shape, generator=g, device=dev)
+    elif regime == "model":
+        w = torch.exp(-torch.exp(
+            -6.0 + 0.5 * torch.randn(shape, generator=g, device=dev)))
+    else:
+        w = torch.rand(shape, generator=g, device=dev)
+        pick = torch.rand(shape, generator=g, device=dev)
+        w = torch.where(pick < 0.1, 0.0, w)
+        w = torch.where((pick >= 0.1) & (pick < 0.2), 1e-39, w)
     u = 0.1 * torch.randn((h, hd), generator=g, device=dev)
     return [x.to(dtype).contiguous() for x in (r, k, v, w)] + [u]
 
@@ -308,6 +357,22 @@ def fa_bound(ops: int, nbytes: int, dn: str) -> dict:
                        if dn == "float32" else "")}
 
 
+def ptxas_by_entry(log_text: str, inst) -> dict:
+    """{inst(line): {"regs": n, "spills": text}} from ptxas -v output, one
+    entry per kernel that `inst` names (a key, or None to skip it)."""
+    import re
+    info, cur = {}, None
+    for line in log_text.splitlines():
+        if "Compiling entry" in line:
+            cur = inst(line)
+        elif cur and "spill stores" in line:
+            info.setdefault(cur, {})["spills"] = line.strip()
+        elif cur and "registers" in line:
+            info.setdefault(cur, {})["regs"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    return info
+
+
 def report_fa_build(torch, build_mod, fa_ops) -> None:
     """Registers and spills (ptxas) and shared memory of each fa_fwd
     instantiation, and the tensor-core instructions in its SASS; fails if
@@ -319,15 +384,8 @@ def report_fa_build(torch, build_mod, fa_ops) -> None:
         m = name.search(line)
         return m and ("float32" if m.group(1) == "f" else "bfloat16",
                       int(m.group(2)))
-    info, cur = {}, None
-    for line in build_mod.BUILD_LOGS.get("flash_attention", "").splitlines():
-        if "Compiling entry" in line:
-            cur = inst(line)
-        elif cur and "spill stores" in line:
-            info.setdefault(cur, {})["spills"] = line.strip()
-        elif cur and "registers" in line:
-            info.setdefault(cur, {})["regs"] = int(
-                re.search(r"Used (\d+) registers", line).group(1))
+    info = ptxas_by_entry(build_mod.BUILD_LOGS.get("flash_attention", ""),
+                          inst)
     hmma = {}
     cob = os.path.join(os.path.dirname(build_mod.find_nvcc()), "cuobjdump")
     if os.path.exists(cob):
@@ -357,6 +415,31 @@ def report_fa_build(torch, build_mod, fa_ops) -> None:
         check(h is None or h > 0, f"fa_fwd<{dn}, {hd}> has no HMMA")
     check(len(info) == 8 or not info, f"{len(info)} fa_fwd "
           f"instantiations reported, want 8")
+
+
+def report_rwkv_build(build_mod, rwkv_ops) -> None:
+    """Registers and spills (ptxas) of each rwkv6_scan instantiation of
+    both passes, and its dynamic shared memory per block."""
+    import re
+    name = re.compile(r"(wkv_state|wkv_out)I(f|13__nv_bfloat16)Li(\d+)E")
+
+    def inst(line):
+        m = name.search(line)
+        return m and (m.group(1), "float32" if m.group(2) == "f"
+                      else "bfloat16", int(m.group(3)))
+    if "rwkv6_scan" not in build_mod.BUILD_LOGS:
+        log("[1]   rwkv6_scan was built by an earlier run: ptxas not "
+            "reported")
+        return
+    info = ptxas_by_entry(build_mod.BUILD_LOGS["rwkv6_scan"], inst)
+    for kern, dn, hd in sorted(info):
+        i = info[(kern, dn, hd)]
+        smem = rwkv_ops.smem_bytes(hd)["state" if kern == "wkv_state"
+                                       else "out"]
+        log(f"[1]   {kern}<{dn}, {hd}>: {i.get('regs')} registers, "
+            f"{i.get('spills')}; shared memory {smem} B")
+    check(len(info) == 16, f"{len(info)} rwkv6_scan instantiations "
+          f"reported, want 16")
 
 
 def phase7_lm_kernels(torch, dev) -> dict:
@@ -392,6 +475,23 @@ def phase7_lm_kernels(torch, dev) -> dict:
                 err["rwkv6_scan"] = max(err["rwkv6_scan"], e)
             log(f"[7] rwkv6_scan {dn} B={b} T={t} H={h} hd={hd}: max abs "
                 f"err {e:.3g} (tol {RWKV_TOL[dn]})")
+        b, t, h, hd = RWKV[1], RWKV[2], 64, 64
+        for regime, exact in RWKV_REGIMES:
+            args = rwkv_inputs(torch, b, t, h, hd, dt, dev, regime=regime)
+            got = rwkv6_scan(*args)
+            torch.cuda.synchronize()
+            want = (rwkv6_scan_plain(*(x.double() for x in args[:4]),
+                                     args[4])
+                    if exact else rwkv6_scan_plain(*args))
+            e = hold(got, want, RWKV_TOL[dn],
+                     f"rwkv6_scan {dn} {(b, t, h, hd)} w {regime}")
+            if dn == "float32":
+                err["rwkv6_scan"] = max(err["rwkv6_scan"], e)
+            log(f"[7] rwkv6_scan {dn} B={b} T={t} H={h} hd={hd} w {regime}: "
+                f"max abs err {e:.3g} against the "
+                f"{'float64' if exact else dn} plain version "
+                f"(tol {RWKV_TOL[dn]})")
+            del args, got, want
         for b, t, d, n in SSM_SHAPES:
             args = ssm_inputs(torch, b, t, d, n, dt, dev)
             got = ssm_scan(*args)
@@ -681,11 +781,18 @@ def phase10_lm_timings(torch, dev) -> dict:
             "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
             "bound_ms": max(t_ops, t_bytes), "max_abs_err": e,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        passes = pass_times(torch, lambda: rwkv6_scan(*args),
+                            ("wkv_state", "wkv_out"))
         log(f"[10] rwkv6_scan {dn} B={b} T={t} H={h} hd={hd}: kernel "
-            f"{k_ms:.3f} ms ({k_ms / t * 1e6:.1f} ns per step), plain "
+            f"{k_ms:.3f} ms (chunked; the sequential kernel took "
+            f"{RWKV_SEQUENTIAL_MS[dn]} ms in earlier runs), plain "
             f"{p_ms:.1f} ms, bound {max(t_ops, t_bytes):.4f} ms "
             f"({ops / 1e9:.2f} GFLOP at 67 TFLOP/s; {nbytes / 1e6:.1f} MB "
-            f"at 3.35 TB/s); no single PyTorch call computes it")
+            f"at 3.35 TB/s), {max(t_ops, t_bytes) / k_ms:.1%} of it; no "
+            f"single PyTorch call computes it; device time per pass "
+            f"(profiler, 5 calls): "
+            + ", ".join(f"{n} {us / 1e3:.4f} ms ({cnt} launches recorded)"
+                        for n, (us, cnt) in passes.items()))
     flash_attention.launches, rwkv6_scan.launches = saved
     return out
 
@@ -881,13 +988,14 @@ def main() -> int:
     log(f"[1] build ppa_eval, flash_attention, rwkv6_scan, ssm_scan (nvcc "
         f"in parallel): {time.perf_counter() - t0:.2f} s")
     for name in ("ppa_eval", "flash_attention", "rwkv6_scan", "ssm_scan"):
-        if name == "flash_attention":
+        if name in ("flash_attention", "rwkv6_scan"):
             continue                      # per instantiation, below
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if "Compiling entry" in line or "registers" in line \
                     or "spill" in line:
                 log(f"[1]   {name}: {line.strip()}")
     report_fa_build(torch, _build, fa_ops)
+    report_rwkv_build(_build, rwkv_ops)
 
     # ---- 2. kernel vs plain on the card -----------------------------------
     wls = {"ttft": gpt3_layer_prefill(), "tpot": gpt3_layer_decode()}

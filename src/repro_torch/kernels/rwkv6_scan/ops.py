@@ -12,6 +12,12 @@ the kernel or raises.
 Like the TPU kernel it starts from a zero state and returns no state, so
 it does not compute a decode step; ``models.ssm.wkv6_scan`` does.
 
+The kernel is a chunked scan over chunks of :data:`CHUNK` steps: a state
+pass writes each chunk's incoming state to an fp32 workspace that the
+wrapper allocates (``torch.empty``; (B, H, ceil(T / CHUNK) - 1, hd, hd),
+as the library states it), and an output pass computes every chunk's y
+in parallel from it.
+
 Replaces the TPU Pallas kernel ``_wkv6_kernel`` / ``rwkv6_scan_fwd`` in
 ``src/repro/kernels/rwkv6_scan/kernel.py``; see the note at the top of
 ``rwkv6_scan.cu`` for what bounds it on an H100 and how its design meets
@@ -31,6 +37,10 @@ FLAGS = TOLERANCE_FLAGS
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}     # the kernel's
 PLAIN_DTYPES = (*DTYPES, torch.float64)            # the plain version's
+# rwkv6_scan.cu's C (steps per chunk) and L (steps per sub-chunk of its
+# output pass), for the tests that mirror its decomposition
+CHUNK = 64
+SUB_CHUNK = 16
 
 
 def _check(r, k, v, w, u) -> None:
@@ -77,13 +87,19 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, t, h, hd = r.shape
     if b * h > 65535:
         raise ValueError(f"rwkv6_scan: B*H = {b * h} exceeds the grid")
+    if any(x.data_ptr() % 16 for x in (r, k, v, w, u)):
+        raise ValueError("rwkv6_scan: the kernel reads 16-byte vectors; "
+                         "r, k, v, w, u must start 16-byte aligned")
     lib = _library()
     y = torch.empty_like(r)
+    ws = torch.empty(lib.rwkv6_scan_workspace_floats(b, t, h, hd),
+                     dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):     # the launch uses the current device
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rwkv6_scan_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(), y.data_ptr(), b, t, h, hd, DTYPES[r.dtype], stream)
+            u.data_ptr(), y.data_ptr(), ws.data_ptr(), ws.numel(), b, t, h,
+            hd, DTYPES[r.dtype], stream)
     if err:
         raise RuntimeError("rwkv6_scan launch failed: "
                            + lib.rwkv6_scan_error_string(err).decode())
@@ -98,12 +114,26 @@ def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE, FLAGS)
     if not getattr(lib, "_repro_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rwkv6_scan_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.rwkv6_scan_launch.argtypes = [p, p, p, p, p, p, p,
+                                          ctypes.c_longlong, i, i, i, i, i, p]
         lib.rwkv6_scan_launch.restype = i
+        lib.rwkv6_scan_workspace_floats.argtypes = [i, i, i, i]
+        lib.rwkv6_scan_workspace_floats.restype = ctypes.c_longlong
+        lib.rwkv6_scan_smem_bytes.argtypes = [i, i]
+        lib.rwkv6_scan_smem_bytes.restype = i
         lib.rwkv6_scan_error_string.argtypes = [i]
         lib.rwkv6_scan_error_string.restype = ctypes.c_char_p
         lib._repro_typed = True
     return lib
+
+
+def smem_bytes(hd: int) -> dict:
+    """Dynamic shared memory of one block of each of the kernel's two
+    passes at head size `hd`, as the built library states it (builds the
+    library if needed)."""
+    lib = _library()
+    return {"state": int(lib.rwkv6_scan_smem_bytes(hd, 0)),
+            "out": int(lib.rwkv6_scan_smem_bytes(hd, 1))}
 
 
 def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

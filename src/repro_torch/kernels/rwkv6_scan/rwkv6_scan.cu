@@ -1,4 +1,4 @@
-// RWKV6 ("Finch") WKV recurrence on Hopper (sm_90a).
+// RWKV6 ("Finch") WKV recurrence on Hopper (sm_90a), as a chunked scan.
 //
 // Replaces the TPU Pallas kernel `_wkv6_kernel` / `rwkv6_scan_fwd` in
 // src/repro/kernels/rwkv6_scan/kernel.py.  Same function: per (batch,
@@ -12,160 +12,610 @@
 // (B, T, H, hd) contiguous, u is (H, hd) fp32.  Ragged T is masked.
 //
 // What bounds it on an H100: at the rwkv6-7b prefill shape (B 1, T 4096,
-// H 64, hd 64) it moves ~0.34 GB (five (B, T, H, hd) fp32 arrays), 0.100 ms
-// at 3.35 TB/s, and needs ~5.45 GFLOP (five operations per state element
-// per step, factored as y = r.S + v (r.(u*k)); S = w*S + k v^T), 0.081 ms
-// at 67 TFLOP/s.  Neither is what holds it: the recurrence is a chain of T
-// dependent steps, so the time is T times the latency of one step.  The
-// design puts that chain on as many SMs as the data allows and keeps each
-// step short: column j of S evolves independently (it needs only v_t[j]),
-// so a block owns 32 columns of one head (grid: hd/32 x B*H), and each
-// thread owns one column and 16 of its rows in registers; a step is 16
-// independent row updates per thread (one float4 shared load of r, k, w
-// each), a partial y[j] in two interleaved sums, and a sum across the
-// hd/16 threads of the column with warp shuffles (adjacent lanes).  The
-// state never leaves registers.  Chunks of 8 * threads / hd steps of r,
-// k, w (packed as float4) and of the block's v columns are staged in
-// shared memory; the next chunk's global loads are issued into registers
-// before the current chunk's steps run, so their latency is hidden.  The
-// chunk's y columns are gathered in shared memory and written back
-// coalesced.
+// H 64, hd 64) the function moves ~0.34 GB (five (B, T, H, hd) fp32
+// arrays), 0.100 ms at 3.35 TB/s, and needs ~5.45 GFLOP, 0.081 ms at 67
+// TFLOP/s.  Stepping the recurrence makes the time T times the latency of
+// one step instead, so the kernel cuts T into chunks of C = 64 steps and
+// makes the chain ceil(T/C) - 1 chunk updates long.  For a chunk with
+// incoming state S0, with every decay a product of w (never a quotient or
+// a difference of logs, so w = 0 or denormal gives what the recurrence
+// gives):
+//
+//     D_ts = prod_{s<q<t} w_q   (s < t)      R_s = prod_{s<q<C} w_q
+//     E_t  = prod_{q<t} w_q                  P   = prod_q w_q
+//     y_t  = (r_t E_t) . S0 + sum_{s<t} A_ts v_s + A_tt v_t,
+//            A_ts = sum_i r_t[i] k_s[i] D_ts[i],  A_tt = sum_i r_t[i] u[i] k_t[i]
+//     S_C  = diag(P) S0 + (k R)^T v
+//
+// Two kernels, one launch of each per call:
+//
+// * `wkv_state` (grid: hd/32 row tiles x B*H) keeps a 32-row tile of S in
+//   registers and walks the chunks, writing each chunk's S0 to an fp32
+//   workspace (B, H, ceil(T/C) - 1, hd, hd) that the caller allocates.
+//   Per chunk, 32 threads form k R and P as running products (R = 1; for
+//   s = C-1 down to 0: kR_s = k_s R; R *= w_s), then every thread forms
+//   P S + (k R)^T v for its 4 x 2 elements, with S kept as a compensated
+//   (Kahan) pair and (k R)^T v joined L steps at a time: with w near 1, S
+//   grows with T, and rounding every step or chunk at S's magnitude would
+//   drift from the exact sum as stepping the recurrence does.  The next
+//   chunk's k, w, v are copied into a second shared buffer meanwhile.
+// * `wkv_out` (grid: chunks x B*H, 256 threads) computes one chunk's y:
+//   A from r, k, w (the note above wkv_out), then each thread forms a
+//   4 x hd/16 tile of y as [r E | A] . [S0 ; V], two dense products from
+//   shared memory (A is lower triangular, so the s loop stops at the
+//   tile's last row).
+//
+// What holds it now (chip_smoke.py's per-pass profile on an NVIDIA H100
+// 80GB HBM3 at 700 W, PERF.md section 6): neither bytes nor FLOPs.  The
+// state pass is a chain of ceil(T/C) - 1 dependent chunk steps, each a
+// barrier-separated sequence (the k R chain, the update, the copy) that
+// one or two blocks an SM do not overlap; in the output pass the
+// in-sub-chunk walk, the blocks below the diagonal, the dense products
+// and the copies each take a similar share of the time and overlap
+// poorly.  Tensor cores (3xTF32, as flash_attention does) for the dense
+// products are left for later.
+//
+// Inputs are staged in shared memory as fp32: fp32 by cp.async, bf16 in
+// 16-byte vectors widened once.  All math is fp32 on the SIMT units.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cstdint>
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+constexpr int C = 64;                      // steps per chunk
+constexpr int L = 16;                      // steps per sub-chunk (wkv_out)
+constexpr int NB = C / L;
+constexpr int OUT_THREADS = 4 * C;         // wkv_out: 4 threads per row
+// wkv_state: rows of S per block, 8 elements per thread
+template <int HD> __host__ __device__ constexpr int jr() {
+  return HD < 32 ? HD : 32;
 }
-__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
+template <int HD> __host__ __device__ constexpr int state_threads() {
+  return HD * jr<HD>() / 8;
 }
 
-template <int HD> struct Shape {
-  static constexpr int JB = HD < 32 ? HD : 32;    // columns per block
-  static constexpr int RG = HD / 16;              // threads per column
-  static constexpr int RPT = HD / RG;             // rows per thread (16)
-  static constexpr int NT = JB * RG;              // threads per block
-  static constexpr int TC = 8 * NT / HD;          // steps per chunk
-  static constexpr int E = TC * HD / NT;          // r/k/w loads per thread
-  static constexpr int EV = TC * JB / NT;         // v loads per thread
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; zero-fills when `ok` is false.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n"
+               "cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copies rows [t0, t0 + C) x columns [0, W) of one head of a (B, T, H, hd)
+// array (`src` at that head's row 0, column 0; rows `t_stride` apart) into
+// shared `dst` (C x W fp32, row stride DS); rows at or past t_len are zero.
+// fp32 goes by cp.async straight to `dst` and store() does nothing; bf16
+// is held in registers by load() as 16-byte vectors (8 values) and widened
+// into `dst` by store(), so a caller can overlap the two with other work.
+// Either way the caller waits (cp_async_wait_all) and syncs before use.
+template <typename T, int W, int NT, int DS = W> struct Stage;
+
+template <int W, int NT, int DS> struct Stage<float, W, NT, DS> {
+  static constexpr int NV = C * W / 4;
+  static constexpr int PER = (NV + NT - 1) / NT;
+  __device__ __forceinline__ void load(const float* src, size_t t_stride,
+                                       int t0, int t_len, float* dst,
+                                       int tid) {
+#pragma unroll
+    for (int e = 0; e < PER; ++e) {
+      const int idx = tid + e * NT;
+      if (NV % NT == 0 || idx < NV) {
+        const int tt = idx / (W / 4), c = idx % (W / 4) * 4;
+        const bool ok = t0 + tt < t_len;
+        cp_async16(dst + tt * DS + c,
+                   ok ? src + (t0 + tt) * t_stride + c : src, ok);
+      }
+    }
+  }
+  __device__ __forceinline__ void store(float*, int) {}
 };
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(Shape<HD>::NT)
-wkv6_fwd(const T* __restrict__ r, const T* __restrict__ k,
-         const T* __restrict__ v, const T* __restrict__ w,
-         const float* __restrict__ u, T* __restrict__ y, int t_len, int h) {
-  using S = Shape<HD>;
-  __shared__ float4 rkw[S::TC][HD];               // (r, k, w, -)
-  __shared__ float vs[S::TC][S::JB], ys[S::TC][S::JB];
-
-  const int bh = blockIdx.y;
-  const int b = bh / h, hh = bh % h;
-  const int col0 = blockIdx.x * S::JB;
-  const int tid = threadIdx.x;
-  const int jl = tid / S::RG, g = tid % S::RG;    // column, row group
-
-  // rows i = m * RG + g: the RG threads of a column read adjacent words
-  float st[S::RPT], uu[S::RPT];
+template <int W, int NT, int DS> struct Stage<__nv_bfloat16, W, NT, DS> {
+  static constexpr int NV = C * W / 8;
+  static constexpr int PER = (NV + NT - 1) / NT;
+  uint4 raw[PER];
+  __device__ __forceinline__ void load(const __nv_bfloat16* src,
+                                       size_t t_stride, int t0, int t_len,
+                                       float*, int tid) {
 #pragma unroll
-  for (int m = 0; m < S::RPT; ++m) {
-    st[m] = 0.f;
-    uu[m] = u[hh * HD + m * S::RG + g];
-  }
-
-  const size_t t_stride = static_cast<size_t>(h) * HD;
-  const size_t base = static_cast<size_t>(b) * t_len * t_stride + hh * HD;
-  float4 nx[S::E];                                // the next chunk
-  float nv[S::EV];
-  auto fetch = [&](int t0) {
-#pragma unroll
-    for (int e = 0; e < S::E; ++e) {
-      const int idx = tid + e * S::NT;
-      const int tt = idx / HD, c = idx % HD;
-      nx[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (t0 + tt < t_len) {
-        const size_t off = base + (t0 + tt) * t_stride + c;
-        nx[e] = make_float4(to_f32(r[off]), to_f32(k[off]), to_f32(w[off]),
-                            0.f);
+    for (int e = 0; e < PER; ++e) {
+      const int idx = tid + e * NT;
+      raw[e] = make_uint4(0u, 0u, 0u, 0u);
+      if (NV % NT == 0 || idx < NV) {
+        const int tt = idx / (W / 8), c = idx % (W / 8) * 8;
+        if (t0 + tt < t_len)
+          raw[e] = *reinterpret_cast<const uint4*>(
+              src + (t0 + tt) * t_stride + c);
       }
     }
+  }
+  __device__ __forceinline__ void store(float* dst, int tid) {
 #pragma unroll
-    for (int e = 0; e < S::EV; ++e) {
-      const int idx = tid + e * S::NT;
-      const int tt = idx / S::JB, c = idx % S::JB;
-      nv[e] = t0 + tt < t_len
-          ? to_f32(v[base + (t0 + tt) * t_stride + col0 + c]) : 0.f;
+    for (int e = 0; e < PER; ++e) {
+      const int idx = tid + e * NT;
+      if (NV % NT == 0 || idx < NV) {
+        const int tt = idx / (W / 8), c = idx % (W / 8) * 8;
+        const uint32_t wd[4] = {raw[e].x, raw[e].y, raw[e].z, raw[e].w};
+        float f[8];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const float2 p = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&wd[m]));
+          f[2 * m] = p.x;
+          f[2 * m + 1] = p.y;
+        }
+        float4* d = reinterpret_cast<float4*>(dst + tt * DS + c);
+        d[0] = make_float4(f[0], f[1], f[2], f[3]);
+        d[1] = make_float4(f[4], f[5], f[6], f[7]);
+      }
     }
+  }
+};
+
+// Shared memory (floats) of each kernel at head size HD.
+template <int HD> __host__ __device__ constexpr int state_floats() {
+  return 2 * (2 * C * jr<HD>() + C * HD) + jr<HD>();   // two (k, w, v), P
+}
+// wkv_out's row stride for r, k, w: rows 4 banks apart, so 8 lanes
+// reading 8 rows in one 16-byte load do not conflict
+template <int HD> __host__ __device__ constexpr int pad() { return HD + 4; }
+// v and S0 are needed after A only: they go where k and w were, if they
+// fit there (hd <= 64: three blocks an SM at hd 64)
+template <int HD> __host__ __device__ constexpr bool v_late() {
+  return HD * HD + C * HD <= 2 * C * pad<HD>();
+}
+template <int HD> __host__ __device__ constexpr int out_floats() {
+  // r, A, M, [v], k, w (r, k, w in padded rows), and what more S0 needs
+  return 3 * C * pad<HD>() + C * C + NB * HD + (v_late<HD>() ? 0 : C * HD)
+         + (HD * HD > 2 * C * pad<HD>() ? HD * HD - 2 * C * pad<HD>() : 0);
+}
+
+// One head's chunk updates: S0 of chunk c + 1 -> ws slot c, for c = 0 ..
+// n_upd - 1 (every such chunk is full).  A block owns rows row0 .. row0 +
+// JR - 1 of S (it reads k and w of those channels only, and all of v);
+// thread (rg, cp) owns rows row0 + 4 rg .. + 3 and columns 2 cp, 2 cp + 1.
+template <typename T, int HD>
+__global__ void __launch_bounds__(state_threads<HD>())
+wkv_state(const T* __restrict__ k, const T* __restrict__ v,
+          const T* __restrict__ w, float* __restrict__ ws, int t_len, int h,
+          int n_upd) {
+  constexpr int NT = state_threads<HD>(), JR = jr<HD>();
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int BUF = 2 * C * JR + C * HD;       // floats per buffer
+  float* pw = smem + 2 * BUF;                    // P, JR floats
+
+  const int bh = blockIdx.y, b = bh / h, hh = bh % h;
+  const int row0 = blockIdx.x * JR;
+  const int tid = threadIdx.x;
+  const int rg = tid / (HD / 2), cp = tid % (HD / 2);
+  const size_t t_stride = static_cast<size_t>(h) * HD;
+  const size_t head = static_cast<size_t>(b) * t_len * t_stride + hh * HD;
+
+  Stage<T, JR, NT> sk, sw;
+  Stage<T, HD, NT> sv;
+  auto load = [&](int c, float* buf) {
+    sk.load(k + head + row0, t_stride, c * C, t_len, buf, tid);
+    sw.load(w + head + row0, t_stride, c * C, t_len, buf + C * JR, tid);
+    sv.load(v + head, t_stride, c * C, t_len, buf + 2 * C * JR, tid);
+  };
+  auto store = [&](float* buf) {
+    sk.store(buf, tid);
+    sw.store(buf + C * JR, tid);
+    sv.store(buf + 2 * C * JR, tid);
   };
 
-  fetch(0);
-  for (int t0 = 0; t0 < t_len; t0 += S::TC) {
-    const int n = min(S::TC, t_len - t0);
-    __syncthreads();                    // the previous chunk is consumed
-#pragma unroll
-    for (int e = 0; e < S::E; ++e) {
-      const int idx = tid + e * S::NT;
-      rkw[idx / HD][idx % HD] = nx[e];
-    }
-#pragma unroll
-    for (int e = 0; e < S::EV; ++e) {
-      const int idx = tid + e * S::NT;
-      vs[idx / S::JB][idx % S::JB] = nv[e];
-    }
-    __syncthreads();
-    if (t0 + S::TC < t_len) fetch(t0 + S::TC);    // in flight meanwhile
+  float s[4][2] = {}, e[4][2] = {};
+  load(0, smem);
+  store(smem);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int c = 0; c < n_upd; ++c) {
+    float* kb = smem + (c & 1) * BUF;
+    const float* wb = kb + C * JR;
+    const float* vb = kb + 2 * C * JR;
+    if (c + 1 < n_upd) load(c + 1, smem + ((c + 1) & 1) * BUF);
 
-    for (int tt = 0; tt < n; ++tt) {
-      const float vj = vs[tt][jl];
-      float p0 = 0.f, p1 = 0.f;
+    if (tid < JR) {                  // k R and P, running products
+      float rr = 1.f;
+      // 16 steps at a time through registers: stores into kb between
+      // loads of wb would serialise every step on shared memory
+      for (int t1 = C - 16; t1 >= 0; t1 -= 16) {
+        float kk[16], ww[16];
 #pragma unroll
-      for (int m = 0; m < S::RPT; ++m) {
-        const float4 x = rkw[tt][m * S::RG + g];  // r, k, w of row i
-        const float a = x.y * vj;
-        const float t = x.x * fmaf(uu[m], a, st[m]);
-        if (m % 2) p1 += t; else p0 += t;
-        st[m] = fmaf(x.z, st[m], a);
+        for (int m = 0; m < 16; ++m) {
+          kk[m] = kb[(t1 + m) * JR + tid];
+          ww[m] = wb[(t1 + m) * JR + tid];
+        }
+#pragma unroll
+        for (int m = 15; m >= 0; --m) {
+          kk[m] *= rr;
+          rr *= ww[m];
+        }
+#pragma unroll
+        for (int m = 0; m < 16; ++m) kb[(t1 + m) * JR + tid] = kk[m];
       }
-      float part = p0 + p1;
-#pragma unroll
-      for (int off = 1; off < S::RG; off <<= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (g == 0) ys[tt][jl] = part;
+      pw[tid] = rr;
     }
     __syncthreads();
-    for (int idx = tid; idx < S::TC * S::JB; idx += S::NT) {
-      const int tt = idx / S::JB, c = idx % S::JB;
-      if (tt < n)
-        from_f32(y + base + (t0 + tt) * t_stride + col0 + c, ys[tt][c]);
+
+    // S = P S + (k R)^T v with S held as s - e (Kahan; see the top note):
+    // the scaling's exact rounding error goes into e (an FMA gives it),
+    // then each L-step partial sum of (k R)^T v is added with
+    // compensation.  The _rn intrinsics keep the compiler from fusing.
+    const float4 p4 = *reinterpret_cast<const float4*>(pw + 4 * rg);
+    const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float hi = __fmul_rn(p[i], s[i][j]);
+        e[i][j] = fmaf(p[i], e[i][j], -fmaf(p[i], s[i][j], -hi));
+        s[i][j] = hi;
+      }
+    for (int t1 = 0; t1 < C; t1 += L) {
+      float d[4][2] = {};
+#pragma unroll 8
+      for (int t = t1; t < t1 + L; ++t) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            kb + t * JR + 4 * rg);
+        const float2 x = *reinterpret_cast<const float2*>(
+            vb + t * HD + 2 * cp);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          d[i][0] = fmaf(av[i], x.x, d[i][0]);
+          d[i][1] = fmaf(av[i], x.y, d[i][1]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float yv = __fsub_rn(d[i][j], e[i][j]);
+          const float tv = __fadd_rn(s[i][j], yv);
+          e[i][j] = __fsub_rn(__fsub_rn(tv, s[i][j]), yv);
+          s[i][j] = tv;
+        }
     }
+    float* slot = ws + (static_cast<size_t>(bh) * n_upd + c) * HD * HD;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float2*>(slot + (row0 + 4 * rg + i) * HD + 2 * cp) =
+          make_float2(__fsub_rn(s[i][0], e[i][0]),
+                      __fsub_rn(s[i][1], e[i][1]));
+
+    if (c + 1 < n_upd) store(smem + ((c + 1) & 1) * BUF);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+}
+
+template <typename T, int TC>
+__device__ __forceinline__ void store_row(T* p, const float* x);
+
+template <>
+__device__ __forceinline__ void store_row<float, 1>(float* p,
+                                                    const float* x) {
+  *p = x[0];
+}
+template <>
+__device__ __forceinline__ void store_row<float, 2>(float* p,
+                                                    const float* x) {
+  *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+}
+template <>
+__device__ __forceinline__ void store_row<float, 4>(float* p,
+                                                    const float* x) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+template <>
+__device__ __forceinline__ void store_row<float, 8>(float* p,
+                                                    const float* x) {
+  store_row<float, 4>(p, x);
+  store_row<float, 4>(p + 4, x + 4);
+}
+template <>
+__device__ __forceinline__ void store_row<__nv_bfloat16, 1>(
+    __nv_bfloat16* p, const float* x) {
+  *p = __float2bfloat16_rn(x[0]);
+}
+template <>
+__device__ __forceinline__ void store_row<__nv_bfloat16, 2>(
+    __nv_bfloat16* p, const float* x) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x[0], x[1]);
+}
+template <>
+__device__ __forceinline__ void store_row<__nv_bfloat16, 4>(
+    __nv_bfloat16* p, const float* x) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x[0], x[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(x[2], x[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+template <>
+__device__ __forceinline__ void store_row<__nv_bfloat16, 8>(
+    __nv_bfloat16* p, const float* x) {
+  store_row<__nv_bfloat16, 4>(p, x);
+  store_row<__nv_bfloat16, 4>(p + 4, x + 4);
+}
+
+// x[0 .. TC) = p[0 .. TC), in 16- or 8-byte shared loads where TC allows.
+template <int TC>
+__device__ __forceinline__ void ld_row(const float* p, float* x) {
+  if constexpr (TC % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < TC; q += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(p + q);
+      x[q] = a.x; x[q + 1] = a.y; x[q + 2] = a.z; x[q + 3] = a.w;
+    }
+  } else if constexpr (TC == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    x[0] = a.x; x[1] = a.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+// One chunk of one head: y for rows c C .. c C + C - 1.
+//
+// A is built in sub-chunks of L steps.  Inside a sub-chunk (and for the
+// u term) thread (t, g) walks s = t-1 down to the sub-chunk's start with
+// q = r_t D_ts (q *= w_s after each s), leaving q = r_t E^a_t, E^a the
+// running product from the start of t's sub-chunk a.  Below the diagonal
+// blocks, for s in an earlier sub-chunk b, D_ts = R^b_s M_{b+1} .. M_{a-1}
+// E^a_t, with R^b_s = prod_{s<q<end of b} w_q and M_j the product over
+// sub-chunk j, so A_ts = (r_t E^a_t M_{a-1} .. M_{b+1}) . (k_s R^b_s): a
+// dot product of two rows of shared memory.  The left rows start as q and
+// are scaled by M_b after block column b (b from NB-2 down to 0); after
+// M_0 they are r_t E_t.
+template <typename T, int HD>
+__global__ void __launch_bounds__(OUT_THREADS)
+wkv_out(const T* __restrict__ r, const T* __restrict__ k,
+        const T* __restrict__ v, const T* __restrict__ w,
+        const float* __restrict__ u, const float* __restrict__ ws,
+        T* __restrict__ y, int t_len, int h, int n_upd) {
+  constexpr int NT = OUT_THREADS;
+  constexpr int RS = pad<HD>();          // row stride of r, k, w
+  constexpr int CPT = HD / 4;            // channels per thread, the walk
+  constexpr int TC = HD / 16;            // y columns per thread, phase B
+  extern __shared__ float4 smem4[];
+  float* rs = reinterpret_cast<float*>(smem4);
+  float* as = rs + C * RS;               // A, C x C
+  float* ms = as + C * C;                // M_b, NB x HD
+  float* ks = ms + NB * HD + (v_late<HD>() ? 0 : C * HD);
+  float* wsm = ks + C * RS;
+  float* s0 = ks;                        // S0 (HD x HD) from k on, later
+  float* vs = v_late<HD>() ? ks + HD * HD : ms + NB * HD;
+
+  const int c = blockIdx.x, bh = blockIdx.y, b = bh / h, hh = bh % h;
+  const int t0 = c * C;
+  const int tid = threadIdx.x;
+  const size_t t_stride = static_cast<size_t>(h) * HD;
+  const size_t head = static_cast<size_t>(b) * t_len * t_stride + hh * HD;
+
+  Stage<T, HD, NT> sv;
+  {
+    Stage<T, HD, NT, RS> st[3];
+    st[0].load(r + head, t_stride, t0, t_len, rs, tid);
+    st[1].load(k + head, t_stride, t0, t_len, ks, tid);
+    st[2].load(w + head, t_stride, t0, t_len, wsm, tid);
+    if (!v_late<HD>()) sv.load(v + head, t_stride, t0, t_len, vs, tid);
+    st[0].store(rs, tid);
+    st[1].store(ks, tid);
+    st[2].store(wsm, tid);
+    if (!v_late<HD>()) sv.store(vs, tid);
+    cp_async_wait_all();
+  }
+  __syncthreads();
+
+  // ---- phase A1: the u term, the diagonal blocks of A, r_t E^a_t
+  {
+    const int t = tid / 4, g = tid % 4, ch = g * CPT;
+    float q[CPT];
+    float d = 0.f;
+#pragma unroll
+    for (int m = 0; m < CPT; m += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(rs + t * RS + ch + m);
+      const float4 kk = *reinterpret_cast<const float4*>(ks + t * RS + ch + m);
+      const float4 uu = *reinterpret_cast<const float4*>(
+          u + hh * HD + ch + m);
+      q[m] = x.x; q[m + 1] = x.y; q[m + 2] = x.z; q[m + 3] = x.w;
+      d = fmaf(x.x * uu.x, kk.x, d);
+      d = fmaf(x.y * uu.y, kk.y, d);
+      d = fmaf(x.z * uu.z, kk.z, d);
+      d = fmaf(x.w * uu.w, kk.w, d);
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    if (g == 0) as[t * C + t] = d;
+    for (int s = t + 1 + g; s < C; s += 4) as[t * C + s] = 0.f;
+
+    // this warp's rows 8 (tid / 32) .. + 7 lie in one sub-chunk; s runs
+    // warp-uniformly from the last row's predecessor to its start
+    const int s_top = (tid / 32) * 8 + 6, s_lo = (tid / 32) * 8 / L * L;
+    for (int s = s_top; s >= s_lo; --s) {
+      const bool on = s < t;
+      float pp[4] = {};                  // four short FMA chains
+      if (on) {
+#pragma unroll
+        for (int m = 0; m < CPT; m += 4) {
+          const float4 kk = *reinterpret_cast<const float4*>(
+              ks + s * RS + ch + m);
+          const float4 ww = *reinterpret_cast<const float4*>(
+              wsm + s * RS + ch + m);
+          pp[0] = fmaf(q[m], kk.x, pp[0]);
+          pp[1] = fmaf(q[m + 1], kk.y, pp[1]);
+          pp[2] = fmaf(q[m + 2], kk.z, pp[2]);
+          pp[3] = fmaf(q[m + 3], kk.w, pp[3]);
+          q[m] *= ww.x; q[m + 1] *= ww.y; q[m + 2] *= ww.z; q[m + 3] *= ww.w;
+        }
+      }
+      float p = (pp[0] + pp[1]) + (pp[2] + pp[3]);
+      p += __shfl_xor_sync(0xffffffffu, p, 1);
+      p += __shfl_xor_sync(0xffffffffu, p, 2);
+      if (on && g == 0) as[t * C + s] = p;
+    }
+    // row t of rs is read by this thread only
+#pragma unroll
+    for (int m = 0; m < CPT; m += 4)
+      *reinterpret_cast<float4*>(rs + t * RS + ch + m) =
+          make_float4(q[m], q[m + 1], q[m + 2], q[m + 3]);
+  }
+  __syncthreads();
+
+  // ---- phase A2: k_s R^b_s in place of k, and M_b (sub-chunks 0..NB-2)
+  for (int idx = tid; idx < HD * (NB - 1); idx += NT) {
+    const int i = idx % HD, sb = idx / HD;
+    float kk[L], ww[L], rr = 1.f;
+#pragma unroll
+    for (int e = 0; e < L; ++e) {
+      kk[e] = ks[(sb * L + e) * RS + i];
+      ww[e] = wsm[(sb * L + e) * RS + i];
+    }
+#pragma unroll
+    for (int e = L - 1; e >= 0; --e) {
+      kk[e] *= rr;
+      rr *= ww[e];
+    }
+#pragma unroll
+    for (int e = 0; e < L; ++e) ks[(sb * L + e) * RS + i] = kk[e];
+    ms[sb * HD + i] = rr;
+  }
+  __syncthreads();
+
+  // ---- phase A3: the blocks below the diagonal, block column sb at a
+  // time, rows (sb + 1) L .. C - 1
+  for (int sb = NB - 2; sb >= 0; --sb) {
+    const int row0 = (sb + 1) * L;
+    for (int o = tid; o < (C - row0) * L; o += NT) {
+      const int t = row0 + o / L, s = sb * L + o % L;
+      float pp[4] = {};
+#pragma unroll 8
+      for (int i = 0; i < HD; i += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(rs + t * RS + i);
+        const float4 kk = *reinterpret_cast<const float4*>(ks + s * RS + i);
+        pp[0] = fmaf(x.x, kk.x, pp[0]);
+        pp[1] = fmaf(x.y, kk.y, pp[1]);
+        pp[2] = fmaf(x.z, kk.z, pp[2]);
+        pp[3] = fmaf(x.w, kk.w, pp[3]);
+      }
+      as[t * C + s] = (pp[0] + pp[1]) + (pp[2] + pp[3]);
+    }
+    __syncthreads();
+    for (int idx = tid; idx < (C - row0) * HD / 4; idx += NT) {
+      const int t = row0 + idx / (HD / 4), i = idx % (HD / 4) * 4;
+      float4* x = reinterpret_cast<float4*>(rs + t * RS + i);
+      const float4 m = *reinterpret_cast<const float4*>(ms + sb * HD + i);
+      *x = make_float4(x->x * m.x, x->y * m.y, x->z * m.z, x->w * m.w);
+    }
+    __syncthreads();                      // rs holds r E once sb = 0 is done
+  }
+
+  // k, w are free: S0 (and v) go there
+  if (v_late<HD>()) {
+    sv.load(v + head, t_stride, t0, t_len, vs, tid);
+    sv.store(vs, tid);
+  }
+  if (c > 0) {
+    const float* src = ws + (static_cast<size_t>(bh) * n_upd + c - 1)
+                       * HD * HD;
+    for (int idx = tid; idx < HD * HD / 4; idx += NT)
+      cp_async16(s0 + 4 * idx, src + 4 * idx, true);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // ---- phase B: y = [r E | A] . [S0 ; V], rows 4 rb .. + 3
+  const int rb = tid / 16, cb = tid % 16, j0 = cb * TC;
+  float acc[4][TC] = {};
+  auto mac = [&](const float* arow, int ast, const float* brow, int kk) {
+    // acc += arow[4 rows, kk .. kk + 3] . brow[kk .. kk + 3][j0 .. + TC)
+    float a[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 x = *reinterpret_cast<const float4*>(
+          arow + (4 * rb + i) * ast + kk);
+      a[i][0] = x.x; a[i][1] = x.y; a[i][2] = x.z; a[i][3] = x.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float bv[TC];
+      ld_row<TC>(brow + (kk + e) * HD + j0, bv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < TC; ++jj)
+          acc[i][jj] = fmaf(a[i][e], bv[jj], acc[i][jj]);
+    }
+  };
+  if (c > 0) {
+#pragma unroll 4
+    for (int i = 0; i < HD; i += 4) mac(rs, RS, s0, i);
+  }
+  for (int s = 0; s <= 4 * rb; s += 4) mac(as, C, vs, s);
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = t0 + 4 * rb + i;
+    if (t < t_len) store_row<T, TC>(y + head + t * t_stride + j0, acc[i]);
   }
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* r, const void* k, const void* v,
-                   const void* w, const float* u, void* y, int b, int t_len,
-                   int h, cudaStream_t stream) {
-  const dim3 grid(HD / Shape<HD>::JB, b * h);
-  wkv6_fwd<T, HD><<<grid, Shape<HD>::NT, 0, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(w), u,
-      static_cast<T*>(y), t_len, h);
+                   const void* w, const float* u, void* y, float* ws,
+                   int b, int t_len, int h, cudaStream_t stream) {
+  const int n_chunks = (t_len + C - 1) / C, n_upd = n_chunks - 1;
+  const T* rp = static_cast<const T*>(r);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* wp = static_cast<const T*>(w);
+  cudaError_t err;
+  if (n_upd > 0) {
+    const int bytes = state_floats<HD>() * 4;
+    err = cudaFuncSetAttribute(wkv_state<T, HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return err;
+    wkv_state<T, HD><<<dim3(HD / jr<HD>(), b * h), state_threads<HD>(),
+                        bytes, stream>>>(
+        kp, vp, wp, ws, t_len, h, n_upd);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int bytes = out_floats<HD>() * 4;
+  err = cudaFuncSetAttribute(wkv_out<T, HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return err;
+  wkv_out<T, HD><<<dim3(n_chunks, b * h), OUT_THREADS, bytes, stream>>>(
+      rp, kp, vp, wp, u, ws, static_cast<T*>(y), t_len, h, n_upd);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_hd(int hd, const void* r, const void* k, const void* v,
-                      const void* w, const float* u, void* y, int b,
-                      int t_len, int h, cudaStream_t s) {
+                      const void* w, const float* u, void* y, float* ws,
+                      int b, int t_len, int h, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<T, 16>(r, k, v, w, u, y, b, t_len, h, s);
-    case 32: return launch<T, 32>(r, k, v, w, u, y, b, t_len, h, s);
-    case 64: return launch<T, 64>(r, k, v, w, u, y, b, t_len, h, s);
-    case 128: return launch<T, 128>(r, k, v, w, u, y, b, t_len, h, s);
+    case 16: return launch<T, 16>(r, k, v, w, u, y, ws, b, t_len, h, s);
+    case 32: return launch<T, 32>(r, k, v, w, u, y, ws, b, t_len, h, s);
+    case 64: return launch<T, 64>(r, k, v, w, u, y, ws, b, t_len, h, s);
+    case 128: return launch<T, 128>(r, k, v, w, u, y, ws, b, t_len, h, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -174,23 +624,47 @@ cudaError_t launch_hd(int hd, const void* r, const void* k, const void* v,
 
 extern "C" {
 
-// Launches the kernel on `stream` (a cudaStream_t) and returns the
+// Floats of the fp32 workspace a call needs: the incoming state of every
+// chunk but the first, (b, h, ceil(t_len / C) - 1, hd, hd).
+long long rwkv6_scan_workspace_floats(int b, int t_len, int h, int hd) {
+  return static_cast<long long>(b) * h * ((t_len + C - 1) / C - 1) * hd * hd;
+}
+
+// Launches the kernels on `stream` (a cudaStream_t) and returns the
 // cudaError_t of the launch (0 on success).  dtype: 0 fp32, 1 bf16.
-// r, k, v, w, y: (b, t_len, h, hd) contiguous in that dtype; u: (h, hd)
-// fp32; hd in {16, 32, 64, 128}.
+// r, k, v, w, y: (b, t_len, h, hd) contiguous in that dtype, 16-byte
+// aligned; u: (h, hd) fp32; hd in {16, 32, 64, 128}; ws: fp32 workspace
+// of ws_floats >= rwkv6_scan_workspace_floats(b, t_len, h, hd) floats.
 int rwkv6_scan_launch(const void* r, const void* k, const void* v,
-                      const void* w, const void* u, void* y, int b,
-                      int t_len, int h, int hd, int dtype, void* stream) {
+                      const void* w, const void* u, void* y, void* ws,
+                      long long ws_floats, int b, int t_len, int h, int hd,
+                      int dtype, void* stream) {
   if (b <= 0 || t_len <= 0 || h <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ws_floats < rwkv6_scan_workspace_floats(b, t_len, h, hd))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* uf = static_cast<const float*>(u);
+  float* wsf = static_cast<float*>(ws);
   switch (dtype) {
     case 0: return static_cast<int>(launch_hd<float>(
-        hd, r, k, v, w, uf, y, b, t_len, h, s));
+        hd, r, k, v, w, uf, y, wsf, b, t_len, h, s));
     case 1: return static_cast<int>(launch_hd<__nv_bfloat16>(
-        hd, r, k, v, w, uf, y, b, t_len, h, s));
+        hd, r, k, v, w, uf, y, wsf, b, t_len, h, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Dynamic shared memory (bytes) of one block of each kernel at hd
+// (which: 0 the state pass, 1 the output pass; either dtype); -1 if not
+// built.
+int rwkv6_scan_smem_bytes(int hd, int which) {
+  switch (hd) {
+    case 16: return 4 * (which ? out_floats<16>() : state_floats<16>());
+    case 32: return 4 * (which ? out_floats<32>() : state_floats<32>());
+    case 64: return 4 * (which ? out_floats<64>() : state_floats<64>());
+    case 128: return 4 * (which ? out_floats<128>() : state_floats<128>());
+    default: return -1;
   }
 }
 

@@ -104,7 +104,7 @@ class Model(nn.Module):
     ``moe_capacity`` is the MoE token-dropping capacity factor; set it to
     ``n_experts`` to disable drops."""
 
-    def __init__(self, cfg: ArchConfig, dtype=torch.float32,
+    def __init__(self, cfg: ArchConfig, dtype=torch.bfloat16,
                  device: DeviceLike = None, moe_capacity: float = 1.25):
         super().__init__()
         if cfg.family not in FAMILIES:
@@ -327,7 +327,7 @@ class Model(nn.Module):
         return h, dict(cache, mamba=new_m, len=cache["len"] + 1)
 
 
-def build_model(cfg: ArchConfig, dtype=torch.float32,
+def build_model(cfg: ArchConfig, dtype=torch.bfloat16,
                 device: DeviceLike = None,
                 moe_capacity: float = 1.25) -> Model:
     """An unfilled :class:`Model` on `device` (None: the CUDA device)."""

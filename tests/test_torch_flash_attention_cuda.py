@@ -84,7 +84,7 @@ def test_model_prefill_launches_the_kernel(cuda):
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import build_model
     cfg = get_arch("llama3.2-1b").smoke()
-    m = build_model(cfg, device=cuda)
+    m = build_model(cfg, dtype=torch.float32, device=cuda)
     m.init_weights(torch.Generator(device=cuda).manual_seed(0))
     toks = torch.randint(0, cfg.vocab, (1, 2304), device=cuda)
     before = flash_attention.launches

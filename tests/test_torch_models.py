@@ -49,7 +49,7 @@ def _models(arch, seed=0):
     jm = j_build(J_ARCHS[arch].smoke(), dtype=jnp.float32, remat=False)
     params = jax.jit(jm.init)(jax.random.key(seed))
     cfg = get_arch(arch).smoke()
-    m = build_model(cfg, device="cpu")
+    m = build_model(cfg, dtype=torch.float32, device="cpu")
     m.load_state_dict(params_from_jax(cfg, params))
     return jm, params, m
 
@@ -234,14 +234,15 @@ def test_serve_greedy_tokens_equal_reference(arch):
 def test_unported_families_raise(arch):
     cfg = get_arch(arch).smoke()
     with pytest.raises(NotImplementedError, match=cfg.family):
-        build_model(cfg, device="cpu")
+        build_model(cfg, dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError):
         params_from_jax(cfg, {})
 
 
 def test_seeded_init_is_deterministic():
     cfg = get_arch("rwkv6-7b").smoke()
-    a, b = (build_model(cfg, device="cpu") for _ in range(2))
+    a, b = (build_model(cfg, dtype=torch.float32, device="cpu")
+            for _ in range(2))
     a.init_weights(torch.Generator().manual_seed(3))
     b.init_weights(torch.Generator().manual_seed(3))
     for (ka, va), (kb, vb) in zip(a.state_dict().items(),
@@ -297,3 +298,27 @@ def test_params_from_jax_carries_bf16_exactly():
     got = m.layers[1].attn.q.w.float().numpy()
     assert m.layers[1].attn.q.w.dtype == torch.bfloat16
     np.testing.assert_array_equal(got, want)
+
+
+def test_dtype_defaults_match_the_reference():
+    """Code that omits `dtype` gets the reference's dtype on the port too:
+    bf16 for ``Model`` / ``build_model``, fp32 for ``serve``."""
+    import inspect
+
+    from repro.models.transformer import Model as JModel
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model
+
+    def name(dt) -> str:
+        return str(dt).removeprefix("torch.") if isinstance(
+            dt, torch.dtype) else jnp.dtype(dt).name
+
+    def default(fn):
+        return inspect.signature(fn).parameters["dtype"].default
+
+    j_model = {f.name: f.default for f in dataclasses.fields(JModel)}["dtype"]
+    pairs = [(Model.__init__, j_model), (build_model, default(j_build)),
+             (serve, default(j_serve))]
+    assert [name(default(fn)) for fn, _ in pairs] == \
+        [name(want) for _, want in pairs] == \
+        ["bfloat16", "bfloat16", "float32"]

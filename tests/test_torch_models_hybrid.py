@@ -56,7 +56,7 @@ def hybrid(request):
         ((8, 8) if request.param == "smoke" else (2, 2))
     jm = j_build(jcfg, dtype=jnp.float32, remat=False)
     params = jax.jit(jm.init)(jax.random.key(0))
-    m = build_model(cfg, device="cpu")
+    m = build_model(cfg, dtype=torch.float32, device="cpu")
     m.load_state_dict(params_from_jax(cfg, params), strict=True)
     return request.param, jm, params, m
 
@@ -126,7 +126,7 @@ def test_decode_matches_forward(hybrid):
     itself with drops disabled (moe_capacity = n_experts), at
     tests/test_models.py's 2e-3."""
     _, _, _, m0 = hybrid
-    m = build_model(m0.cfg, device="cpu",
+    m = build_model(m0.cfg, dtype=torch.float32, device="cpu",
                     moe_capacity=float(m0.cfg.n_experts))
     m.load_state_dict(m0.state_dict())
     toks = torch.as_tensor(_tokens(2, 8, seed=5))
@@ -175,7 +175,7 @@ def test_params_from_jax_lands_every_leaf_exactly_once():
         np.arange(start[i], start[i + 1], dtype=np.float32).reshape(s.shape)
         for i, s in enumerate(leaves)])
     sd = params_from_jax(cfg, tree)
-    m = build_model(cfg, device="cpu")
+    m = build_model(cfg, dtype=torch.float32, device="cpu")
     assert set(sd) == set(m.state_dict())
     got = np.sort(np.concatenate([v.numpy().ravel() for v in sd.values()]))
     np.testing.assert_array_equal(got, np.arange(sum(sizes)))
