@@ -15,7 +15,8 @@ line is printed:
    and shared memory, and its tensor-core (HMMA) instructions in the
    built library's SASS (cuobjdump, where the toolkit has it; none fails);
    each rwkv6_scan instantiation's (state and output pass) registers,
-   spills and shared memory;
+   spills and shared memory; each ssm_scan (``ssm_fwd``) instantiation's
+   registers, spills and shared memory;
 2. each kernel against its plain PyTorch version on the card, at the
    reference's own kernel tolerances, at small and ragged batches and at
    the sweep's chunk shape;
@@ -40,6 +41,9 @@ line is printed:
    rwkv6_scan also at (1, 4096, 64, 64) with the model's w (~0.9975, held
    against the float64 plain version, since there the fp32 recurrence
    itself drifts) and with w holding exact zeros and fp32 denormals;
+   ssm_scan also at (1, 4096, 16384, 16) in the model's regime (dt =
+   softplus(N(0, 1)), A = -(1..16)) and in a long-memory one (dt 0.001, A
+   -0.5; held against the float64 plain version);
 8. the prefill step at full width in fp32, weights from a seeded
    ``torch.Generator``, prompts from ``np.random.default_rng(0)``:
    llama3.2-1b at B 2, S 4096 must launch flash_attention 16 times and
@@ -70,8 +74,9 @@ line is printed:
    steps at batch 1 must match the prefill's logits at rtol = atol = 2e-3
    (MoE routings of both paths printed where they differ); greedy serving
    at batch 4 (prompt 32, gen 16): TTFT and TPOT; ssm_scan timed at the
-   prefill shape against its bound, flash_attention at hd 128 against
-   SDPA; a profiler window over one prefill.
+   prefill shape against its bound, beside the times of its earlier
+   kernel (4 states a lane; recorded, not run); flash_attention at hd 128
+   against SDPA; a profiler window over one prefill.
 
 Kernel launch counters are zeroed just before each part of the main path
 and read just after; every kernel of that part must have launched there.
@@ -281,6 +286,15 @@ SSM_TOL = {"float32": 5e-5, "bfloat16": 5e-2}      # tests/test_kernels.py
 # (B, T, D, N): the test shapes, the jamba prefill shape, one ragged shape
 SSM_SHAPES = [(2, 64, 32, 8), (1, 128, 64, 16), (2, 32, 16, 4),
               (1, 4096, 16384, 16), (2, 333, 1000, 16)]
+# dt, A regimes at the jamba shape, and whether the plain version they are
+# held against runs in float64 (with a long memory the fp32 recurrence
+# itself moves; tests/test_torch_ssm_scan.py pins by how much)
+SSM_REGIMES = (("model", False), ("long", True))
+# the earlier kernel's times (4 states a lane, one step at a time) at the
+# jamba prefill shape (B 1, T 4096, D 16384, N 16), from earlier runs of
+# this script on NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md), printed
+# beside the current kernel's
+SSM_EARLIER_MS = {"float32": "1.031-1.039", "bfloat16": "1.364-1.384"}
 JAMBA = ("jamba-1.5-large-398b", 1, 4096)
 JAMBA_FA = (1, 4096, 64, 8, 128)                    # B, S, H, KVH, hd
 N_DECODE = 64
@@ -320,12 +334,24 @@ def rwkv_inputs(torch, b, t, h, hd, dtype, dev, seed=0, regime="uniform"):
     return [x.to(dtype).contiguous() for x in (r, k, v, w)] + [u]
 
 
-def ssm_inputs(torch, b, t, d, n, dtype, dev, seed=0):
-    """As the reference test draws them: dt ~ U(0.001, 0.1), A = -U(0.5, 2)."""
+def ssm_inputs(torch, b, t, d, n, dtype, dev, seed=0, regime="test"):
+    """"test": as the reference test draws them, dt ~ U(0.001, 0.1), A =
+    -U(0.5, 2); "model": dt = softplus(N(0, 1)), A = -(1..N), as the
+    model's initialisation gives; "long": dt 0.001, A -0.5 (decay 0.9995,
+    a ~2,000-step memory)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     u = torch.randn((b, t, d), generator=g, device=dev)
-    dt = 0.001 + 0.099 * torch.rand((b, t, d), generator=g, device=dev)
-    a = -(0.5 + 1.5 * torch.rand((d, n), generator=g, device=dev))
+    if regime == "test":
+        dt = 0.001 + 0.099 * torch.rand((b, t, d), generator=g, device=dev)
+        a = -(0.5 + 1.5 * torch.rand((d, n), generator=g, device=dev))
+    elif regime == "model":
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, t, d), generator=g, device=dev))
+        a = -torch.arange(1, n + 1, dtype=torch.float32,
+                          device=dev).repeat(d, 1)
+    else:
+        dt = torch.full((b, t, d), 0.001, device=dev)
+        a = torch.full((d, n), -0.5, device=dev)
     bm, cm = (torch.randn((b, t, n), generator=g, device=dev)
               for _ in range(2))
     return u.to(dtype), dt.to(dtype), a, bm.to(dtype), cm.to(dtype)
@@ -442,6 +468,31 @@ def report_rwkv_build(build_mod, rwkv_ops) -> None:
           f"reported, want 16")
 
 
+def report_ssm_build(torch, build_mod, ssm_ops) -> None:
+    """Registers and spills (ptxas) and dynamic shared memory per block of
+    each ssm_fwd instantiation."""
+    import re
+    name = re.compile(r"ssm_fwdI(f|13__nv_bfloat16)Li(\d+)E")
+
+    def inst(line):
+        m = name.search(line)
+        return m and ("float32" if m.group(1) == "f" else "bfloat16",
+                      int(m.group(2)))
+    if "ssm_scan" not in build_mod.BUILD_LOGS:
+        log("[1]   ssm_scan was built by an earlier run: ptxas not "
+            "reported")
+        return
+    info = ptxas_by_entry(build_mod.BUILD_LOGS["ssm_scan"], inst)
+    dts = _dtypes(torch)
+    for dn, n in sorted(info):
+        i = info[(dn, n)]
+        log(f"[1]   ssm_fwd<{dn}, {n}>: {i.get('regs')} registers, "
+            f"{i.get('spills')}; shared memory "
+            f"{ssm_ops.smem_bytes(n, dts[dn])} B")
+    check(len(info) == 10, f"{len(info)} ssm_scan instantiations "
+          f"reported, want 10")
+
+
 def phase7_lm_kernels(torch, dev) -> dict:
     """Each LM kernel against its plain version; max abs error per kernel
     over the fp32 checks (the main path's dtype)."""
@@ -503,6 +554,21 @@ def phase7_lm_kernels(torch, dev) -> dict:
             log(f"[7] ssm_scan {dn} B={b} T={t} D={d} N={n}: max abs err "
                 f"{e:.3g} (tol {SSM_TOL[dn]})")
             del args, got
+        b, t, d, n = JAMBA[1], JAMBA[2], 16384, 16
+        for regime, exact in SSM_REGIMES:
+            args = ssm_inputs(torch, b, t, d, n, dt, dev, regime=regime)
+            got = ssm_scan(*args)
+            torch.cuda.synchronize()
+            want = (ssm_scan_plain(*(x.double() if x.dim() == 3 else x
+                                     for x in args))
+                    if exact else ssm_scan_plain(*args))
+            e = hold(got, want, SSM_TOL[dn],
+                     f"ssm_scan {dn} {(b, t, d, n)} {regime}")
+            log(f"[7] ssm_scan {dn} B={b} T={t} D={d} N={n} {regime} "
+                f"regime: max abs err {e:.3g} against the "
+                f"{'float64' if exact else dn} plain version "
+                f"(tol {SSM_TOL[dn]})")
+            del args, got, want
     flash_attention.launches, rwkv6_scan.launches, ssm_scan.launches = saved
     return err
 
@@ -909,13 +975,18 @@ def phase11_jamba(torch, dev) -> dict:
             "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
             "bound_ms": max(t_ops, t_bytes), "max_abs_err": e,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        t_issue = exps / 32 * 12 / (528 * 1.98e9) * 1e3
         log(f"[11] ssm_scan {dn} B={b} T={t} D={d} N={n}: kernel "
-            f"{k_ms:.3f} ms ({k_ms / t * 1e6:.1f} ns per step), plain "
-            f"{p_ms:.1f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-            f"({nbytes / 1e6:.1f} MB at 3.35 TB/s; {ops / 1e9:.2f} GFLOP at "
-            f"67 TFLOP/s: {t_ops:.4f} ms); {exps / 1e9:.3f} G exps on the "
-            f"SFU at 16/clock/SM, 1.98 GHz: {t_exp:.4f} ms; no single "
-            f"PyTorch call computes it")
+            f"{k_ms:.4f} ms ({k_ms / t * 1e6:.1f} ns per step), the "
+            f"earlier 4-states-a-lane kernel {SSM_EARLIER_MS[dn]} ms in "
+            f"earlier runs; plain {p_ms:.1f} ms, "
+            f"bound {max(t_ops, t_bytes):.4f} ms ({nbytes / 1e6:.1f} MB at "
+            f"3.35 TB/s; {ops / 1e9:.2f} GFLOP at 67 TFLOP/s: "
+            f"{t_ops:.4f} ms), {max(t_ops, t_bytes) / k_ms:.1%} of it; "
+            f"{exps / 1e9:.3f} G exps on the SFU at 16/clock/SM, 1.98 GHz: "
+            f"{t_exp:.4f} ms; issue slots at 12 warp instructions per 32 "
+            f"state-steps, one a clock on 528 schedulers: {t_issue:.4f} ms; "
+            f"no single PyTorch call computes it")
         del args
     b, s_, h, kvh, hd = JAMBA_FA
     for dn, dt in _dtypes(torch).items():
@@ -987,15 +1058,13 @@ def main() -> int:
         m._library()                      # loads what build() compiled
     log(f"[1] build ppa_eval, flash_attention, rwkv6_scan, ssm_scan (nvcc "
         f"in parallel): {time.perf_counter() - t0:.2f} s")
-    for name in ("ppa_eval", "flash_attention", "rwkv6_scan", "ssm_scan"):
-        if name in ("flash_attention", "rwkv6_scan"):
-            continue                      # per instantiation, below
-        for line in _build.BUILD_LOGS.get(name, "").splitlines():
-            if "Compiling entry" in line or "registers" in line \
-                    or "spill" in line:
-                log(f"[1]   {name}: {line.strip()}")
+    for line in _build.BUILD_LOGS.get("ppa_eval", "").splitlines():
+        if "Compiling entry" in line or "registers" in line \
+                or "spill" in line:
+            log(f"[1]   ppa_eval: {line.strip()}")
     report_fa_build(torch, _build, fa_ops)
     report_rwkv_build(_build, rwkv_ops)
+    report_ssm_build(torch, _build, ssm_ops)
 
     # ---- 2. kernel vs plain on the card -----------------------------------
     wls = {"ttft": gpt3_layer_prefill(), "tpot": gpt3_layer_decode()}

@@ -80,10 +80,19 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if u.dtype not in DTYPES:
         raise TypeError(f"ssm_scan: the kernel takes {list(DTYPES)}, got "
                         f"{u.dtype}")
+    if u.shape[0] > 65535:
+        raise ValueError(f"ssm_scan: B = {u.shape[0]} exceeds the grid")
+    y = _launch(_library(), u, dt, a, b, c)
+    ssm_scan.launches += 1
+    return y
+
+
+ssm_scan.launches = 0
+
+
+def _launch(lib: ctypes.CDLL, u, dt, a, b, c) -> torch.Tensor:
+    """The kernel in `lib` on checked CUDA inputs, on the current stream."""
     bsz, t, d = u.shape
-    if bsz > 65535:
-        raise ValueError(f"ssm_scan: B = {bsz} exceeds the grid")
-    lib = _library()
     y = torch.empty_like(u)
     with torch.cuda.device(u.device):     # the launch uses the current device
         stream = torch.cuda.current_stream().cuda_stream
@@ -94,11 +103,7 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if err:
         raise RuntimeError("ssm_scan launch failed: "
                            + lib.ssm_scan_error_string(err).decode())
-    ssm_scan.launches += 1
     return y
-
-
-ssm_scan.launches = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -107,10 +112,18 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ssm_scan_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.ssm_scan_launch.restype = i
+        lib.ssm_scan_smem_bytes.argtypes = [i, i]
+        lib.ssm_scan_smem_bytes.restype = i
         lib.ssm_scan_error_string.argtypes = [i]
         lib.ssm_scan_error_string.restype = ctypes.c_char_p
         lib._repro_typed = True
     return lib
+
+
+def smem_bytes(n: int, dtype: torch.dtype) -> int:
+    """One block's dynamic shared memory in bytes at state dim `n` and
+    `dtype`, as the kernel states it (builds it if needed)."""
+    return int(_library().ssm_scan_smem_bytes(n, DTYPES[dtype]))
 
 
 def ssm_scan_plain(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

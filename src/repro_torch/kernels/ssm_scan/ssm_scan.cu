@@ -13,161 +13,460 @@
 // (D, N) fp32, B and C are (B, T, N).  Ragged T and D are masked; N is
 // one of 4, 8, 16, 32, 64.
 //
-// What bounds it on an H100: at the jamba-1.5-large prefill shape (B 1,
-// T 4096, D 16384, N 16, fp32) it moves 806.9 MB (u, dt and y: 805.3 MB;
-// A, B, C: 1.6 MB), 0.241 ms at 3.35 TB/s, and needs 6.5 GFLOP (six per
-// state element per step: dt*A, exp's product with h, B*(dt*u), the add,
-// C*h and its sum; and dt*u per channel), 0.097 ms at 67 TFLOP/s.
-// Beside them, the 1.07 G exps: on the SFU (16 per clock per SM) about
-// 0.26 ms at 1.98 GHz, the largest term.  The recurrence is a chain of T dependent steps per
-// channel, so the time is also T times the latency of one step.
+// The floors at the jamba-1.5-large prefill shape (B 1, T 4096, D 16384,
+// N 16) on an H100 (132 SMs, 1.98 GHz, 3.35 TB/s):
 //
-// Design, right and simple first: time is a loop inside the block; the N
-// states of a channel are split over G = N / 4 adjacent lanes, each lane
-// keeping 4 states and their 4 A values in registers, and y_t is summed
-// over the G lanes with warp shuffles.  A 128-thread block owns 128 / G
-// channels of one batch row (grid: D / (128 / G) x B).  Chunks of 16 steps
-// of B_t and C_t (shared by all channels) and of the block's u and dt
-// columns are staged in shared memory; the next chunk's global loads are
-// issued into registers before the current chunk's steps run.  u and dt
-// are read coalesced (adjacent threads, adjacent d); y is gathered in
-// shared memory per chunk and written back coalesced.  What holds it back:
-// at B*D = 16,384 channels and N 16 the grid is 512 blocks, about four
-// 4-warp blocks per SM, so each step's exp and shuffle latencies are only
-// partly hidden; exp is the accurate expf (no fast math).
+//   bytes        806.9 MB fp32 / 404.0 MB bf16 (u, dt, y; A, B, C 1.6 MB)
+//                  0.241 / 0.121 ms
+//   operations   6.5 GFLOP (6 per state element per step, dt*u per
+//                channel) at 67 TFLOP/s: 0.097 ms
+//   exps         1.074 G on the SFU at 16 per clock per SM: 0.257 ms
+//
+// and the one that bounds a kernel keeping the accurate expf, issue slots:
+// per state and step dt*A (1), expf (8: five FP32 ops, a shift, one
+// MUFU.EX2, the scaling product), B*(dt*u) (1), the h FFMA (1) and the
+// C*h FFMA (1) are 12 warp instructions per 32 state-steps, 1.074 G / 32
+// x 12 = 403 M warp instructions over 528 schedulers at 1.98 GHz: 0.385
+// ms at one instruction a clock.  Each step also loads dt, u, B_t and C_t,
+// forms dt*u and (G > 1) shuffles y_t, about one more per state-step.
+//
+// Why sequential in time and not chunked as rwkv6_scan is: rwkv6's decay
+// is per head and channel, so a chunk's outputs become dot products of
+// rows.  Here the decay exp(dt_t A_dn) differs for every (t, d, n): inside
+// a chunk the contribution of step s to step t needs its own exp per (t,
+// s, d, n), which is no dense product, and a two-pass chunk scan (chunk
+// states, then chunk outputs) takes every step's exp twice (0.51 ms on the
+// SFU, twice what a sequential kernel needs).  Parallelism across time is
+// not what is missing either: B * D = 16,384 independent channels fill
+// the card.  So the kernel walks time and cuts per-step overhead and
+// exposed latency instead:
+//
+// * A thread keeps SPT = 8 states of one channel and their A values in
+//   registers, G = N / 8 lanes per channel (N 16: two lanes, joined by one
+//   xor shuffle; N 4 and 8: one lane), so dt, u and dt*u are loaded and
+//   formed once per 8 states and B_t, C_t are broadcast 16-byte shared
+//   loads.  y_t is summed in state order, one FFMA chain per lane, then
+//   across the G lanes by xor shuffles.  16 states a lane (one lane a
+//   channel at N 16, no shuffle, 16 independent chains a thread) leaves
+//   one warp per scheduler at the jamba shape and was slower on the card
+//   (PERF.md, section 6).
+// * Time goes in chunks of TC steps: 64, or 32 where a block's staging at
+//   64 would not let two blocks share an SM's shared memory (fp32 and bf16
+//   at N 4 and 8, 128 channels a block).  Within a chunk the step loop is
+//   unrolled UNROLL = 16 steps at a time (a ragged last chunk runs a plain
+//   loop), so one step's dt*A, exps and loads issue while earlier steps'
+//   FFMAs retire.  The 16 steps' y stay in registers and are stored
+//   together: a shared store between steps would order the later steps'
+//   shared loads after it.
+// * A 128-thread block owns 128 / G channels of one batch row (grid: D /
+//   channels x B; at the jamba shape 256 blocks, two an SM).  Each chunk's
+//   u and dt columns and B_t, C_t rows are double-buffered in shared
+//   memory.  u and dt stay in the input type: fp32 and bf16 both by
+//   16-byte cp.async (4-byte cp.async or element copies where D or a
+//   pointer does not allow pieces); bf16 is widened where a step reads it.
+//   B and C are stored widened to fp32: fp32 by cp.async, bf16 held raw in
+//   registers from the load and widened only at the shared-memory store,
+//   after the current chunk's steps, so no load's latency is waited on
+//   early.  y is gathered in shared memory per chunk and written back one
+//   chunk later, coalesced (16-byte pieces, packed bf16).
+// * exp is the accurate expf, the function torch.exp computes on the card,
+//   so the kernel and the plain version agree on every decay and differ
+//   only in the rounding of the sums.
+//
+// What holds it: neither bytes nor the SFU.  The time is ~1.6x the
+// issue-slot floor above (PERF.md, section 6).  The likeliest cause, not
+// yet measured stall by stall, is latency that two warps per scheduler do
+// not hide: expf's chain of dependent FP32 ops, the MUFU latency and the
+// y chain.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cstdint>
 
 namespace {
 
-constexpr int NT = 128;      // threads per block
-constexpr int TC = 16;       // time steps per chunk
-constexpr int SPT = 4;       // states per thread
+constexpr int NT = 128;              // threads per block
+constexpr int SPT_MAX = 8;           // states a lane at most
+constexpr int UNROLL = 16;           // steps unrolled together
+constexpr int SM_SMEM = 228 * 1024;  // shared memory of one SM
+constexpr int BLOCK_SMEM = 1024;     // reserved per resident block
+
+template <typename T, int N> struct Shape {
+  static constexpr int SPT = N < SPT_MAX ? N : SPT_MAX;  // states a lane
+  static constexpr int G = N / SPT;                      // lanes a channel
+  static constexpr int CB = NT / G;                      // channels a block
+  // one stage of tc steps: u, dt as they come (T), B, C widened (fp32);
+  // a block holds two stages, then two fp32 y tiles
+  static constexpr int stage_bytes(int tc) {
+    return 2 * tc * CB * static_cast<int>(sizeof(T)) + 2 * tc * N * 4;
+  }
+  static constexpr int smem_bytes(int tc) {
+    return 2 * stage_bytes(tc) + 2 * tc * CB * 4;
+  }
+  // time steps per chunk: 64 if two blocks then fit an SM, else 32
+  static constexpr int TC =
+      2 * (smem_bytes(64) + BLOCK_SMEM) <= SM_SMEM ? 64 : 32;
+  static constexpr int UD = TC * CB;         // elements of a u or dt tile
+  static constexpr int BC = TC * N;          // elements of a B or C tile
+  static constexpr int STAGE_BYTES = stage_bytes(TC);
+  static constexpr int SMEM_BYTES = smem_bytes(TC);
+  static_assert(SPT % 4 == 0 && N % SPT == 0 && G <= 32 && CB % 8 == 0,
+                "unsupported N");
+  static_assert(TC % UNROLL == 0 && 2 * (SMEM_BYTES + BLOCK_SMEM) <= SM_SMEM,
+                "two blocks must fit an SM");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// global -> shared copies of 16 and 4 bytes; zero-fill when `ok` is false
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float widen(unsigned short x) {
+  return __uint_as_float(static_cast<uint32_t>(x) << 16);
+}
+
+// Rows [0, TC) x columns [0, W) of a row-major array (`src` at the tile's
+// first element, rows `ld` apart) into shared memory; rows at or past
+// `rows` and columns at or past `cols` are zero.  vec: 16-byte pieces (the
+// caller has checked alignment, so `cols` is a multiple of a piece), else
+// single elements.  load() starts the copy of the next chunk, store()
+// finishes it once the current chunk is stepped; the caller then waits
+// (cp_async_wait_all) and syncs before reading `dst`.
+//
+// Raw keeps the elements as they come (u and dt: bf16 is widened where a
+// step reads it): pieces go by cp.async, and so do fp32 elements; bf16
+// elements (a D or pointer that pieces do not fit, off the model's path)
+// are copied one by one in store().
+template <typename T, int W, int TC> struct Raw {
+  static constexpr int E = 16 / sizeof(T);               // elements a piece
+  static constexpr int NV = TC * W / E, KV = (NV + NT - 1) / NT;
+  static constexpr int NS = TC * W;
+  static_assert(W % E == 0, "a row is whole pieces");
+  const T* src_;
+  size_t ld_;
+  int rows_, cols_;
+  __device__ __forceinline__ void load(const T* src, size_t ld, int rows,
+                                       int cols, bool vec, T* dst) {
+    const int tid = threadIdx.x;
+    if (vec) {
+#pragma unroll
+      for (int e = 0; e < KV; ++e) {
+        const int i = tid + e * NT;
+        if (NV % NT == 0 || i < NV) {
+          const int r = i / (W / E), c = i % (W / E) * E;
+          const bool ok = r < rows && c < cols;
+          cp_async16(dst + r * W + c, ok ? src + r * ld + c : src, ok);
+        }
+      }
+    } else if constexpr (sizeof(T) == 4) {
+      for (int i = tid; i < NS; i += NT) {
+        const int r = i / W, c = i % W;
+        const bool ok = r < rows && c < cols;
+        cp_async4(dst + i, ok ? src + r * ld + c : src, ok);
+      }
+    } else {
+      src_ = src;
+      ld_ = ld;
+      rows_ = rows;
+      cols_ = cols;
+    }
+  }
+  __device__ __forceinline__ void store(T* dst, bool vec) const {
+    if constexpr (sizeof(T) == 2) {
+      if (!vec) {
+        const unsigned short* raw =
+            reinterpret_cast<const unsigned short*>(src_);
+        unsigned short* out = reinterpret_cast<unsigned short*>(dst);
+        for (int i = threadIdx.x; i < NS; i += NT) {
+          const int r = i / W, c = i % W;
+          out[i] = r < rows_ && c < cols_ ? raw[r * ld_ + c] : 0;
+        }
+      }
+    }
+  }
+};
+
+// Wide widens to fp32 (B and C, read four at a time by every step): fp32
+// is Raw; bf16 pieces are held raw in registers by load() and widened
+// into `dst` by store(), bf16 elements (N 4, or a pointer that pieces do
+// not fit) are read and widened one by one in store().
+template <typename T, int W, int TC> struct Wide : Raw<T, W, TC> {};
+
+template <int W, int TC> struct Wide<__nv_bfloat16, W, TC> {
+  static constexpr int PW = W % 8 == 0 ? W / 8 : 0;   // pieces a row
+  static constexpr int NV = TC * PW, KV = (NV + NT - 1) / NT + (NV == 0);
+  static constexpr int NS = TC * W;
+  uint4 v[KV];                 // vec: 8 raw values each
+  const unsigned short* src_;
+  size_t ld_;
+  int rows_, cols_;
+  __device__ __forceinline__ void load(const __nv_bfloat16* src, size_t ld,
+                                       int rows, int cols, bool vec,
+                                       float*) {
+    if (PW > 0 && vec) {
+#pragma unroll
+      for (int e = 0; e < KV; ++e) {
+        const int i = threadIdx.x + e * NT;
+        const int r = i / PW, c = i % PW * 8;
+        v[e] = make_uint4(0u, 0u, 0u, 0u);
+        if ((NV % NT == 0 || i < NV) && r < rows && c < cols)
+          v[e] = *reinterpret_cast<const uint4*>(src + r * ld + c);
+      }
+    } else {
+      src_ = reinterpret_cast<const unsigned short*>(src);
+      ld_ = ld;
+      rows_ = rows;
+      cols_ = cols;
+    }
+  }
+  __device__ __forceinline__ void store(float* dst, bool vec) const {
+    if (PW > 0 && vec) {
+#pragma unroll
+      for (int e = 0; e < KV; ++e) {
+        const int i = threadIdx.x + e * NT;
+        if (NV % NT == 0 || i < NV) {
+          const uint32_t wd[4] = {v[e].x, v[e].y, v[e].z, v[e].w};
+          float f[8];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            f[2 * m] = __uint_as_float(wd[m] << 16);
+            f[2 * m + 1] = __uint_as_float(wd[m] & 0xffff0000u);
+          }
+          float4* d = reinterpret_cast<float4*>(dst + i * 8);
+          d[0] = make_float4(f[0], f[1], f[2], f[3]);
+          d[1] = make_float4(f[4], f[5], f[6], f[7]);
+        }
+      }
+    } else {
+      for (int i = threadIdx.x; i < NS; i += NT) {
+        const int r = i / W, c = i % W;
+        dst[i] = r < rows_ && c < cols_ ? widen(src_[r * ld_ + c]) : 0.f;
+      }
+    }
+  }
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+  return widen(__bfloat16_as_ushort(x));
 }
-__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) {
+
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-template <int N> struct Shape {
-  static constexpr int G = N / SPT;           // lanes per channel
-  static constexpr int CB = NT / G;           // channels per block
-  static constexpr int EU = TC * CB / NT;     // u (and dt) loads per thread
-  static constexpr int EB = TC * N / NT;      // B (and C) loads per thread
-  static_assert(N % SPT == 0 && G <= 32 && EU >= 1, "unsupported N");
-};
+// Writes rows [0, rows) x columns [0, cols) of the shared fp32 tile `ys`
+// (TC x CB) to `dst` (rows `ld` apart) in T, 16-byte pieces if vec.
+template <typename T, int CB, int TC>
+__device__ __forceinline__ void write_y(T* dst, const float* ys, size_t ld,
+                                        int rows, int cols, bool vec) {
+  const int tid = threadIdx.x;
+  if (vec) {
+    constexpr int E = 16 / sizeof(T), NV = TC * CB / E;
+#pragma unroll
+    for (int k = 0; k < (NV + NT - 1) / NT; ++k) {
+      const int i = tid + k * NT;
+      const int r = i / (CB / E), c = i % (CB / E) * E;
+      if ((NV % NT == 0 || i < NV) && r < rows && c < cols) {
+        const float4* src = reinterpret_cast<const float4*>(ys + i * E);
+        uint4 out;
+        if constexpr (sizeof(T) == 4) {
+          const float4 f = src[0];
+          out = make_uint4(__float_as_uint(f.x), __float_as_uint(f.y),
+                           __float_as_uint(f.z), __float_as_uint(f.w));
+        } else {
+          const float4 f0 = src[0], f1 = src[1];
+          const float f[8] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
+          uint32_t wd[4];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * m],
+                                                           f[2 * m + 1]);
+            wd[m] = *reinterpret_cast<const uint32_t*>(&p);
+          }
+          out = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+        }
+        *reinterpret_cast<uint4*>(dst + r * ld + c) = out;
+      }
+    }
+  } else {
+    for (int i = tid; i < TC * CB; i += NT) {
+      const int r = i / CB, c = i % CB;
+      if (r < rows && c < cols) put(dst + r * ld + c, ys[i]);
+    }
+  }
+}
 
 template <typename T, int N>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 ssm_fwd(const T* __restrict__ u, const T* __restrict__ dt,
         const float* __restrict__ a, const T* __restrict__ bm,
-        const T* __restrict__ cm, T* __restrict__ y, int t_len, int d) {
-  using S = Shape<N>;
-  constexpr int EBL = S::EB > 0 ? S::EB : 1;
-  __shared__ __align__(16) float bs[TC][N];     // read as float4
-  __shared__ __align__(16) float cs[TC][N];
-  __shared__ float us[TC][S::CB], dts[TC][S::CB], ys[TC][S::CB];
+        const T* __restrict__ cm, T* __restrict__ y, int t_len, int d,
+        bool vec_ud, bool vec_bc) {
+  using S = Shape<T, N>;
+  constexpr int SPT = S::SPT, G = S::G, CB = S::CB, TC = S::TC,
+                UD = S::UD, BC = S::BC;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  // stage p: u, dt (TC x CB, T), B, C (TC x N, fp32); then two y tiles
+  auto su = [&](int p) {
+    return reinterpret_cast<T*>(smem + p * S::STAGE_BYTES);
+  };
+  auto sb = [&](int p) {
+    return reinterpret_cast<float*>(su(p) + 2 * UD);
+  };
+  auto ytile = [&](int p) {
+    return reinterpret_cast<float*>(smem + 2 * S::STAGE_BYTES) + p * UD;
+  };
 
-  const int b = blockIdx.y;
-  const int d0 = blockIdx.x * S::CB;
-  const int tid = threadIdx.x;
-  const int cl = tid / S::G, g = tid % S::G;  // channel in block, lane in it
-  const bool live = d0 + cl < d;
+  const int d0 = blockIdx.x * CB;
+  const int cl = threadIdx.x / G, g = threadIdx.x % G;  // channel, lane
+  const int cols = min(CB, d - d0);
 
   float h[SPT], av[SPT];
 #pragma unroll
   for (int j = 0; j < SPT; ++j) {
     h[j] = 0.f;
-    av[j] = live ? a[static_cast<size_t>(d0 + cl) * N + g * SPT + j] : 0.f;
+    av[j] = cl < cols ? a[static_cast<size_t>(d0 + cl) * N + g * SPT + j]
+                      : 0.f;
   }
 
-  const size_t ud_base = static_cast<size_t>(b) * t_len * d + d0;
-  const size_t bc_base = static_cast<size_t>(b) * t_len * N;
-  float nu[S::EU], ndt[S::EU], nb[EBL], nc[EBL];  // the next chunk
-  auto fetch = [&](int t0) {
-#pragma unroll
-    for (int e = 0; e < S::EU; ++e) {
-      const int idx = tid + e * NT;
-      const int tt = idx / S::CB, c = idx % S::CB;
-      const bool in = t0 + tt < t_len && d0 + c < d;
-      const size_t off = ud_base + static_cast<size_t>(t0 + tt) * d + c;
-      nu[e] = in ? to_f32(u[off]) : 0.f;
-      ndt[e] = in ? to_f32(dt[off]) : 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < EBL; ++e) {
-      const int idx = tid + e * NT;
-      const bool in = idx < TC * N && t0 + idx / N < t_len;
-      const size_t off = bc_base + static_cast<size_t>(t0) * N + idx;
-      nb[e] = in ? to_f32(bm[off]) : 0.f;
-      nc[e] = in ? to_f32(cm[off]) : 0.f;
-    }
+  const size_t row0 = static_cast<size_t>(blockIdx.y) * t_len;
+  const T* ug = u + row0 * d + d0;
+  const T* dtg = dt + row0 * d + d0;
+  T* yg = y + row0 * d + d0;
+  const T* bg = bm + row0 * N;
+  const T* cg = cm + row0 * N;
+  Raw<T, CB, TC> tu, tdt;
+  Wide<T, N, TC> tb, tc;
+  auto issue = [&](int t0, int p) {          // chunk at t0 into stage p
+    const int rows = min(TC, t_len - t0);
+    const size_t ud = static_cast<size_t>(t0) * d;
+    tu.load(ug + ud, d, rows, cols, vec_ud, su(p));
+    tdt.load(dtg + ud, d, rows, cols, vec_ud, su(p) + UD);
+    tb.load(bg + static_cast<size_t>(t0) * N, N, rows, N, vec_bc, sb(p));
+    tc.load(cg + static_cast<size_t>(t0) * N, N, rows, N, vec_bc,
+            sb(p) + BC);
+    cp_async_commit();
   };
 
-  fetch(0);
-  for (int t0 = 0; t0 < t_len; t0 += TC) {
-    const int n = min(TC, t_len - t0);
-    __syncthreads();                      // the previous chunk is consumed
+  // one step; returns y_t (every lane of the channel holds it)
+  auto step = [&](int p, int tt) {
+    const float dtv = to_f32(su(p)[UD + tt * CB + cl]);
+    const float du = dtv * to_f32(su(p)[tt * CB + cl]);
+    const float4* bq = reinterpret_cast<const float4*>(
+        sb(p) + tt * N + g * SPT);
+    const float4* cq = reinterpret_cast<const float4*>(
+        sb(p) + BC + tt * N + g * SPT);
+    float acc = 0.f;
 #pragma unroll
-    for (int e = 0; e < S::EU; ++e) {
-      const int idx = tid + e * NT;
-      us[idx / S::CB][idx % S::CB] = nu[e];
-      dts[idx / S::CB][idx % S::CB] = ndt[e];
-    }
+    for (int q = 0; q < SPT / 4; ++q) {
+      const float4 b4 = bq[q], c4 = cq[q];
+      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+      const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
 #pragma unroll
-    for (int e = 0; e < EBL; ++e) {
-      const int idx = tid + e * NT;
-      if (idx < TC * N) {
-        bs[idx / N][idx % N] = nb[e];
-        cs[idx / N][idx % N] = nc[e];
+      for (int j = 0; j < 4; ++j) {
+        const int k = 4 * q + j;
+        h[k] = fmaf(expf(dtv * av[k]), h[k], bv[j] * du);
+        acc = fmaf(cv[j], h[k], acc);
       }
     }
-    __syncthreads();
-    if (t0 + TC < t_len) fetch(t0 + TC);  // in flight meanwhile
+#pragma unroll
+    for (int off = 1; off < G; off <<= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    return acc;
+  };
 
-    for (int tt = 0; tt < n; ++tt) {
-      const float dtv = dts[tt][cl];
-      const float du = dtv * us[tt][cl];
-      const float4 bq = *reinterpret_cast<const float4*>(&bs[tt][g * SPT]);
-      const float4 cq = *reinterpret_cast<const float4*>(&cs[tt][g * SPT]);
-      const float bv[SPT] = {bq.x, bq.y, bq.z, bq.w};
-      const float cv[SPT] = {cq.x, cq.y, cq.z, cq.w};
-      float part = 0.f;
+  const int n_chunks = (t_len + TC - 1) / TC;
+  issue(0, 0);
+  for (int c = 0; c < n_chunks; ++c) {
+    const int p = c & 1, t0 = c * TC;
+    // finish staging chunk c (the stage was last read two chunks ago):
+    // bf16 B, C are widened from registers, odd-shaped bf16 u, dt copied
+    tu.store(su(p), vec_ud);
+    tdt.store(su(p) + UD, vec_ud);
+    tb.store(sb(p), vec_bc);
+    tc.store(sb(p) + BC, vec_bc);
+    cp_async_wait_all();
+    __syncthreads();         // chunk c staged; chunk c - 1 fully stepped
+    if (c > 0)
+      write_y<T, CB, TC>(yg + static_cast<size_t>(t0 - TC) * d,
+                         ytile(p ^ 1), d, TC, cols, vec_ud);
+    if (c + 1 < n_chunks) issue(t0 + TC, p ^ 1);
+    float* ys = ytile(p);
+    if (t_len - t0 >= TC) {
+#pragma unroll 1
+      for (int t1 = 0; t1 < TC; t1 += UNROLL) {
+        // y stays in registers for UNROLL steps: a shared store between
+        // steps would order every later step's shared loads after it (the
+        // compiler cannot tell the y tile from the stage apart)
+        float yv[UNROLL];
 #pragma unroll
-      for (int j = 0; j < SPT; ++j) {
-        h[j] = fmaf(expf(dtv * av[j]), h[j], bv[j] * du);
-        part = fmaf(cv[j], h[j], part);
+        for (int k = 0; k < UNROLL; ++k) yv[k] = step(p, t1 + k);
+        if (g == 0) {
+#pragma unroll
+          for (int k = 0; k < UNROLL; ++k) ys[(t1 + k) * CB + cl] = yv[k];
+        }
       }
-#pragma unroll
-      for (int off = 1; off < S::G; off <<= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (g == 0) ys[tt][cl] = part;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < S::EU; ++e) {
-      const int idx = tid + e * NT;
-      const int tt = idx / S::CB, c = idx % S::CB;
-      if (tt < n && d0 + c < d)
-        from_f32(y + ud_base + static_cast<size_t>(t0 + tt) * d + c,
-                 ys[tt][c]);
+    } else {
+#pragma unroll 1
+      for (int tt = 0; tt < t_len - t0; ++tt) {
+        const float yt = step(p, tt);
+        if (g == 0) ys[tt * CB + cl] = yt;
+      }
     }
   }
+  __syncthreads();
+  const int t_last = (n_chunks - 1) * TC;
+  write_y<T, CB, TC>(yg + static_cast<size_t>(t_last) * d,
+                     ytile((n_chunks - 1) & 1), d, t_len - t_last, cols,
+                     vec_ud);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T, int N>
 cudaError_t launch(const void* u, const void* dt, const float* a,
                    const void* bm, const void* cm, void* y, int b, int t_len,
                    int d, cudaStream_t stream) {
-  const dim3 grid((d + Shape<N>::CB - 1) / Shape<N>::CB, b);
-  ssm_fwd<T, N><<<grid, NT, 0, stream>>>(
+  using S = Shape<T, N>;
+  constexpr int E = 16 / sizeof(T);           // elements a 16-byte piece
+  const int bytes = S::SMEM_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssm_fwd<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const bool vec_ud = d % E == 0 && aligned16(u) && aligned16(dt)
+                      && aligned16(y);
+  const bool vec_bc = N % E == 0 && aligned16(bm) && aligned16(cm);
+  const dim3 grid((d + S::CB - 1) / S::CB, b);
+  ssm_fwd<T, N><<<grid, NT, bytes, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(dt), a,
       static_cast<const T*>(bm), static_cast<const T*>(cm),
-      static_cast<T*>(y), t_len, d);
+      static_cast<T*>(y), t_len, d, vec_ud, vec_bc);
   return cudaGetLastError();
 }
 
@@ -185,6 +484,17 @@ cudaError_t launch_n(int n, const void* u, const void* dt, const float* a,
   }
 }
 
+template <typename T> int smem_bytes(int n) {
+  switch (n) {
+    case 4: return Shape<T, 4>::SMEM_BYTES;
+    case 8: return Shape<T, 8>::SMEM_BYTES;
+    case 16: return Shape<T, 16>::SMEM_BYTES;
+    case 32: return Shape<T, 32>::SMEM_BYTES;
+    case 64: return Shape<T, 64>::SMEM_BYTES;
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -196,7 +506,7 @@ extern "C" {
 int ssm_scan_launch(const void* u, const void* dt, const void* a,
                     const void* bm, const void* cm, void* y, int b,
                     int t_len, int d, int n, int dtype, void* stream) {
-  if (b <= 0 || t_len <= 0 || d <= 0)
+  if (b <= 0 || b > 65535 || t_len <= 0 || d <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* af = static_cast<const float*>(a);
@@ -207,6 +517,12 @@ int ssm_scan_launch(const void* u, const void* dt, const void* a,
         n, u, dt, af, bm, cm, y, b, t_len, d, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Dynamic shared memory (bytes) of one block at state dim n and dtype
+// (0 fp32, 1 bf16); -1 if n is not built.
+int ssm_scan_smem_bytes(int n, int dtype) {
+  return dtype == 0 ? smem_bytes<float>(n) : smem_bytes<__nv_bfloat16>(n);
 }
 
 const char* ssm_scan_error_string(int code) {
