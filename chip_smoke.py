@@ -11,25 +11,31 @@ first use) and runs, in order — any failure exits non-zero before the last
 line is printed:
 
 1. card: name and power limit (nvidia-smi), torch/CUDA versions, build
-   time; each flash_attention instantiation's registers, spills (ptxas)
-   and shared memory, and its tensor-core (HMMA) instructions in the
+   time; ppa_eval's registers and spills (ptxas) and SASS instructions
+   (cuobjdump); each flash_attention instantiation's registers, spills
+   (ptxas) and shared memory, and its tensor-core (HMMA) instructions in the
    built library's SASS (cuobjdump, where the toolkit has it; none fails);
    each rwkv6_scan instantiation's (state and output pass) registers,
    spills and shared memory; each ssm_scan (``ssm_fwd``) instantiation's
    registers, spills and shared memory;
 2. each kernel against its plain PyTorch version on the card, at the
    reference's own kernel tolerances, at small and ragged batches and at
-   the sweep's chunk shape;
+   the sweep's chunk shape; ppa_eval's one launch for both GPT-3 workloads
+   bit for bit against its single-table launches and the plain version,
+   on sampled ids and on off-grid rows with more distinct sa_dim values
+   than a block tabulates;
 3. the evaluator: ``backend="cuda"`` objectives against the torch roofline
    backend on 4,096 sampled designs, one dispatch per ``evaluate``, and
    ``backend="auto"`` timing the two on the card;
 4. the main path, part 1: the full 4,741,632-design sweep through the
-   kernel, then the same sweep on the torch roofline backend, which must
-   find the same superior count, top-k ids and front;
+   kernel (one launch a chunk), then the same sweep on the torch roofline
+   backend, which must find the same superior count, top-k ids and front;
 5. the main path, part 2: a budget-20 LUMINA run on the GPT-3 pair, scored
    against the phase-4 front;
 6. kernel timings at the sweep's chunk shape against their bounds (the
-   timed outputs held against the plain version once more), and a short
+   timed outputs held against the plain version once more): ppa_eval per
+   workload and for both in one launch (the chunk), beside an empty
+   kernel of the same grid (the launch floor); and a short
    profiler window over the kernel sweep: device time by kernel and
    the device's idle share;
 7. the LM kernels against their plain versions on the card: flash_attention
@@ -1030,9 +1036,12 @@ def main() -> int:
     from repro_torch.kernels.ppa_eval import ops as ppa_ops
     from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
     from repro_torch.kernels.ssm_scan import ops as ssm_ops
-    from repro_torch.kernels.ppa_eval import (op_table, op_table_tensor,
-                                              ppa_eval, ppa_eval_op_count,
-                                              ppa_eval_plain)
+    from repro_torch.kernels.ppa_eval import (kernel_tables,
+                                              op_table_tensor, ppa_eval,
+                                              ppa_eval_op_count,
+                                              ppa_eval_plain,
+                                              ppa_eval_workloads)
+    from repro_torch.kernels.ppa_eval import bench as ppa_bench
     from repro_torch.perfmodel import (OracleEvaluator, SweepEngine,
                                        get_evaluator, gpt3_layer_decode,
                                        gpt3_layer_prefill)
@@ -1053,7 +1062,8 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     t0 = time.perf_counter()
     kernel_mods = (ppa_ops, fa_ops, rwkv_ops, ssm_ops)
-    _build.build([(m.SOURCE, m.FLAGS) for m in kernel_mods])
+    _build.build([(m.SOURCE, m.FLAGS) for m in kernel_mods]
+                 + [(ppa_ops.FLOOR_SOURCE, ppa_ops.FLAGS)])
     for m in kernel_mods:
         m._library()                      # loads what build() compiled
     log(f"[1] build ppa_eval, flash_attention, rwkv6_scan, ssm_scan (nvcc "
@@ -1062,6 +1072,13 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line \
                 or "spill" in line:
             log(f"[1]   ppa_eval: {line.strip()}")
+    ppa_sass = ppa_bench.sass_counts(
+        _build.library_path(ppa_ops.SOURCE, ppa_ops.FLAGS))
+    for fn, c in ppa_sass.items():
+        log(f"[1]   ppa_eval SASS {fn}: {c['instructions']} instructions, "
+            f"{c['mufu_rcp']} MUFU.RCP")
+    if not ppa_sass:
+        log("[1]   ppa_eval SASS not read (no cuobjdump)")
     report_fa_build(torch, _build, fa_ops)
     report_rwkv_build(_build, rwkv_ops)
     report_ssm_build(torch, _build, ssm_ops)
@@ -1084,6 +1101,29 @@ def main() -> int:
             log(f"[2] ppa_eval {nm} B={b}: max rel lat {err['lat']:.3g} "
                 f"area {err['area']:.3g}, max abs stall {err['stall']:.3g}, "
                 f"bitwise {err['bitwise']}")
+    # both workloads in one launch, as the sweep and the evaluator make it:
+    # bit for bit the single-table launches' and the plain version's rows,
+    # on sampled ids and on off-grid rows with more distinct sa_dim values
+    # than a block's table holds
+    pair = kernel_tables(list(wls.values()), dev)
+    for b in PHASE2_BATCHES:
+        batches = ppa_bench.design_batches(b, dev)
+        for what, dv in batches.items():
+            lat, area, stall = ppa_eval_workloads(dv, pair)
+            got = torch.stack([torch.cat([lat[w][:, None], stall[w],
+                                          area[:, None]], dim=1)
+                               for w in range(len(pair))])
+            for w, (tab, tp) in enumerate(pair.unpack()):
+                single = ppa_eval(dv, tab, tp)[:, :6]
+                plain = ppa_eval_plain(dv, tab, tp)[:, :6]
+                check(torch.equal(got[w], single)
+                      and torch.equal(got[w], plain),
+                      f"ppa_eval both workloads B={b} {what}: workload {w} "
+                      f"differs from its single-table launch or the plain "
+                      f"version")
+        log(f"[2] ppa_eval both workloads in one launch B={b}: bitwise "
+            f"equal to the single-table launches and the plain version "
+            f"({', '.join(batches)})")
 
     # ---- 3. evaluator: cuda backend vs torch roofline ---------------------
     ev_k = get_evaluator("proxy", backend="cuda")
@@ -1130,8 +1170,8 @@ def main() -> int:
     check(res_k.n_evaluated == SPACE.size,
           f"n_eval {res_k.n_evaluated} != {SPACE.size}")
     check(sweep_launches > 0, "the sweep never launched ppa_eval")
-    check(sweep_launches == 2 * n_chunks,
-          f"{sweep_launches} launches for {n_chunks} chunks x 2 workloads")
+    check(sweep_launches == n_chunks,
+          f"{sweep_launches} launches for {n_chunks} chunks (one a chunk)")
     check(np.isfinite(res_k.pareto_y).all() and len(res_k.pareto_ids) > 0,
           "empty or non-finite front")
     seeds = {k: len(v) for k, v in res_k.stall_seeds().items()}
@@ -1185,34 +1225,54 @@ def main() -> int:
                           device=dev)
     dv = SPACE.decode_values(idx)
     times = {}
-    for nm, wl in wls.items():
-        tab = op_table_tensor(wl, dev)
-        saved = ppa_eval.launches
-        k_ms = kernel_ms(torch, lambda: ppa_eval(dv, tab, float(wl.tp)))
-        loop_ms = time_ms(torch, lambda: ppa_eval(dv, tab, float(wl.tp)))
-        ppa_eval.launches = saved           # timing launches are not the path's
-        err = check_ppa_rows(ppa_eval(dv, tab, float(wl.tp)).cpu().numpy(),
-                             ppa_eval_plain(dv, tab, float(wl.tp))
-                             .cpu().numpy(), f"ppa_eval {nm} B={b} (timed)")
-        ppa_eval.launches = saved
-        max_abs_err = max(max_abs_err, err["abs"])
-        p_ms = time_ms(torch, lambda: ppa_eval_plain(dv, tab, float(wl.tp)),
+    saved = ppa_eval.launches
+    floor_ms = kernel_ms(torch, ppa_bench.floor_launcher(b))
+    # each workload alone (one launch each) and both in one launch (the
+    # sweep's chunk and the evaluator's dispatch)
+    for nm, tabs in (("ttft", kernel_tables([wls["ttft"]], dev)),
+                     ("tpot", kernel_tables([wls["tpot"]], dev)),
+                     ("both", pair)):
+        k_ms = kernel_ms(torch, lambda: ppa_eval_workloads(dv, tabs))
+        loop_ms = time_ms(torch, lambda: ppa_eval_workloads(dv, tabs))
+        lat, area, stall = ppa_eval_workloads(dv, tabs)
+        ppa_eval.launches = saved      # timing launches are not the path's
+        pad = torch.zeros((b, 2), device=dev)
+        for w, (tab, tp) in enumerate(tabs.unpack()):
+            got = torch.cat([lat[w][:, None], stall[w], area[:, None], pad],
+                            dim=1)
+            err = check_ppa_rows(got.cpu().numpy(),
+                                 ppa_eval_plain(dv, tab, tp).cpu().numpy(),
+                                 f"ppa_eval {nm} B={b} (timed)")
+            check(err["bitwise"], f"ppa_eval {nm} B={b} (timed): not "
+                  f"bitwise equal to the plain version")
+            max_abs_err = max(max_abs_err, err["abs"])
+        p_ms = time_ms(torch, lambda: [ppa_eval_plain(dv, t, tp)
+                                       for t, tp in tabs.unpack()],
                        warm=1, iters=5)
-        n_ops = tab.shape[0]
-        nbytes = (2 * b * 8 + n_ops * 8) * 4
-        nops = b * ppa_eval_op_count(op_table(wl))
+        n_ops = tabs.ends[-1]
+        # each design row read once, each (workload, design) row written
+        # once, the op tables read once
+        nbytes = (b * 8 + len(tabs) * b * 8 + n_ops * 8) * 4
+        nops = b * ppa_eval_op_count(*[t.cpu().numpy()
+                                       for t, _ in tabs.unpack()])
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = nops / PEAK_FP32_PER_S * 1e3
         times[nm] = {"ms": k_ms, "loop_ms": loop_ms, "plain_ms": p_ms,
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        log(f"[6] ppa_eval {nm} B={b} n_ops={n_ops}: kernel {k_ms:.4f} ms "
-            f"(back-to-back from Python: {loop_ms:.4f} ms per launch), "
-            f"plain {p_ms:.3f} ms, bound {times[nm]['bound_ms']:.5f} ms "
-            f"({times[nm]['bound_by']}: {nbytes} B, {nops} fp32 ops)")
-    full = n_chunks * (times["ttft"]["ms"] + times["tpot"]["ms"])
-    log(f"[6] ppa_eval per full sweep: {2 * n_chunks} launches, "
-        f"~{full:.3f} ms of kernel time")
+        log(f"[6] ppa_eval {nm} B={b} workloads={len(tabs)} n_ops={n_ops}: "
+            f"kernel {k_ms:.5f} ms (back-to-back from Python: "
+            f"{loop_ms:.5f} ms per launch), plain {p_ms:.3f} ms, bound "
+            f"{times[nm]['bound_ms']:.5f} ms ({times[nm]['bound_by']}: "
+            f"{nbytes} B, {nops} fp32 ops), launch floor {floor_ms:.5f} ms")
+    both = times["both"]["ms"]
+    pair_ms = times["ttft"]["ms"] + times["tpot"]["ms"]
+    log(f"[6] ppa_eval per chunk: one launch {both:.5f} ms against the two "
+        f"single-table launches' {pair_ms:.5f} ms; bound "
+        f"{times['both']['bound_ms']:.5f} ms (96 B a design), empty-kernel "
+        f"floor {floor_ms:.5f} ms at the same grid")
+    log(f"[6] ppa_eval per full sweep: {sweep_launches} launches, "
+        f"~{sweep_launches * both:.3f} ms of kernel time")
     saved = ppa_eval.launches
     profile_device(torch, lambda: eng_k.run(0, 4 * eng_k.chunk_size), "6",
                    "4 sweep chunks", "ppa_eval")
@@ -1266,7 +1326,7 @@ def main() -> int:
     log(f"[11] prefill wall (second call): {JAMBA[0]} cut B={JAMBA[1]} "
         f"S={JAMBA[2]} {jamba['prefill']['prefill_s']:.3f} s")
 
-    kt = times["ttft"]
+    kt = times["both"]                 # the main path's launch: a chunk
     kernels = [{
         "name": "ppa_eval", "route": "cuda",
         "source": "src/repro_torch/kernels/ppa_eval/ppa_eval.cu",

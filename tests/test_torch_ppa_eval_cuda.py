@@ -7,8 +7,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.ppa_eval import (op_table_tensor, ppa_eval,
-                                          ppa_eval_plain)
+from repro_torch.kernels.ppa_eval import (KernelTables, kernel_tables,
+                                          op_table_tensor, ppa_eval,
+                                          ppa_eval_plain, ppa_eval_workloads)
+from repro_torch.kernels.ppa_eval import ops
+from repro_torch.kernels.ppa_eval.bench import design_batches
 from repro_torch.perfmodel import get_evaluator
 from repro_torch.perfmodel import workload as T_W
 from repro_torch.perfmodel.designspace import SPACE
@@ -75,3 +78,77 @@ def test_launch_leaves_the_current_device_alone(cuda):
     assert torch.cuda.current_device() == before
     torch.cuda.synchronize(last)
     assert torch.equal(out, ppa_eval_plain(dv, tab, 8.0))
+
+
+def _pair(device):
+    return kernel_tables([T_W.gpt3_layer_prefill(), T_W.gpt3_layer_decode()],
+                         device)
+
+
+@pytest.mark.parametrize("b", [1, 255, 256, 65_553, 131_072])
+def test_one_launch_for_both_workloads_matches_single_and_plain(cuda, b):
+    """The multi-workload launch's rows equal the single-table launches'
+    and the plain version's, bit for bit."""
+    tables = _pair(cuda)
+    dv = SPACE.decode_values(torch.as_tensor(
+        SPACE.sample(np.random.default_rng(b), b), device=cuda))
+    before = ppa_eval.launches
+    lat, area, stall = ppa_eval_workloads(dv, tables)
+    torch.cuda.synchronize()
+    assert ppa_eval.launches == before + 1
+    for w, (tab, tp) in enumerate(tables.unpack()):
+        single = ppa_eval(dv, tab, tp)
+        plain = ppa_eval_plain(dv, tab, tp)
+        for want in (single, plain):
+            assert torch.equal(lat[w], want[:, 0])
+            assert torch.equal(stall[w], want[:, 1:5])
+            assert torch.equal(area, want[:, 5])
+    assert ppa_eval.launches == before + 3
+
+
+@pytest.mark.parametrize("b", [256, 1_000])
+def test_blocks_with_more_distinct_sa_than_the_table(cuda, b):
+    """Off-grid rows: sa_dim from MAX_SA + 1 values and from a continuum
+    (every design its own), so designs without a slot take the in-line
+    branch; also the A100's off-grid gbuf_mb 40."""
+    tables = _pair(cuda)
+    batches = design_batches(b, cuda, seed=b)
+    assert len(batches) == 3
+    for name, dv in batches.items():
+        got = torch.stack(ppa_eval_workloads(dv, tables)[0])
+        want = torch.stack([ppa_eval_plain(dv, t, tp)[:, 0]
+                            for t, tp in tables.unpack()])
+        assert torch.equal(got, want), name
+
+
+def test_the_largest_launch(cuda):
+    """ops.MAX_OPS op rows over ops.MAX_WORKLOADS workloads (above the
+    default 48 KB of shared memory a block, so the launch opts in), with
+    tps that differ, against the plain version."""
+    base = op_table_tensor(T_W.gpt3_layer_prefill(), cuda)
+    n_wl = ops.MAX_WORKLOADS
+    rows = [ops.MAX_OPS // n_wl] * n_wl
+    rows[-1] += ops.MAX_OPS - sum(rows)
+    pairs = [(base.repeat(-(-r // base.shape[0]), 1)[:r].contiguous(),
+              float(2 + w % 7)) for w, r in enumerate(rows)]
+    tables = KernelTables.pack(pairs)
+    assert tables.ends[-1] == ops.MAX_OPS
+    assert ops.MAX_OPS * ops.SMEM_PER_OP > 48 * 1024
+    dv = design_batches(300, cuda, seed=5)["sampled"]
+    lat, area, stall = ppa_eval_workloads(dv, tables)
+    for w in (0, 1, n_wl - 1):
+        want = ppa_eval_plain(dv, *pairs[w])
+        assert torch.equal(lat[w], want[:, 0]) and torch.equal(
+            stall[w], want[:, 1:5])
+    assert torch.equal(area, want[:, 5])
+
+
+def test_launches_rise_by_one_per_workloads_call(cuda):
+    tables = _pair(cuda)
+    dv = design_batches(4_096, cuda)["sampled"]
+    before = ppa_eval.launches
+    for i in range(3):
+        ppa_eval_workloads(dv, tables)
+        assert ppa_eval.launches == before + i + 1
+    ppa_eval_workloads(dv, KernelTables.pack(tables.unpack()[:1]))
+    assert ppa_eval.launches == before + 4
