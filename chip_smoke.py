@@ -82,7 +82,25 @@ line is printed:
    at batch 4 (prompt 32, gen 16): TTFT and TPOT; ssm_scan timed at the
    prefill shape against its bound, beside the times of its earlier
    kernel (4 states a lane; recorded, not run); flash_attention at hd 128
-   against SDPA; a profiler window over one prefill.
+   against SDPA; a profiler window over one prefill;
+12. the zoo-suite portfolio path at full width (the ten published configs
+   at ``zoo_suite``'s defaults: batch 8, seq 2048, tp 8, decode at KV
+   3,072; nothing cut): (a) 10 scenarios, 20 workloads, 351 op rows, 230
+   unique stack rows; (b) ppa_eval's one launch for all 20 tables at B 1,
+   255, 256, 4,096 and 131,072 on sampled ids and off-grid rows, bit for
+   bit against the 20 single-table launches and the plain version; (c)
+   ``get_evaluator("proxy", "cuda", suite="zoo")``: one dispatch and one
+   ppa_eval launch per objectives evaluate, held against the roofline zoo
+   evaluator (stacked torch ops); (d) the portfolio sweep over all
+   4,741,632 designs (``stall_topk`` 8, ``robust="worst"``): no archive
+   truncated, every front non-empty and finite; (e) each scenario's pair
+   sweep on the kernel (one launch a chunk) and on torch ops equal to its
+   portfolio result exactly; (f) over the first 8 portfolio chunks:
+   ``workers=2`` and a resumed checkpoint equal one fresh process, and an
+   ``oracle_store`` sweeps once and then loads; (g) a budget-20 LUMINA run
+   on llama3.2-1b's pair through the kernel; (h) the 20-table launch at B
+   4,096 and 131,072 against its bound, the empty-kernel floor and the 20
+   single-table launches, and a profiler window over 4 portfolio chunks.
 
 Kernel launch counters are zeroed just before each part of the main path
 and read just after; every kernel of that part must have launched there.
@@ -92,6 +110,7 @@ only.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -1023,6 +1042,268 @@ def phase11_jamba(torch, dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------- zoo slice
+ZOO_BATCHES = (1, 255, 256, 4_096, SWEEP_CHUNK)
+ZOO_TIMED = (4_096, SWEEP_CHUNK)
+ZOO_COUNTS = {"scenarios": 10, "workloads": 20, "rows": 351, "unique": 230}
+ZOO_LOOP_PAIR = ("llama3.2-1b:prefill", "llama3.2-1b:decode")
+ZOO_STALL_TOPK = 8
+SWEEP_FIELDS = ("n_evaluated", "n_superior", "pareto_y", "pareto_ids",
+                "topk_val", "topk_ids", "stall_topk_val", "stall_topk_ids",
+                "archive_truncated", "ref_point")
+
+
+def same_sweep(a, b, what: str, fields=SWEEP_FIELDS) -> None:
+    """Fail unless two SweepResults agree exactly on `fields` (and, for
+    portfolio results, in every scenario)."""
+    for f in fields:
+        va, vb = getattr(a, f), getattr(b, f)
+        ok = (np.array_equal(va, vb) if isinstance(vb, np.ndarray)
+              else va == vb)
+        check(ok, f"{what}: {f} differs")
+    if b.per_scenario is not None:
+        check(a.scenario_names == b.scenario_names, f"{what}: scenarios")
+        for nm in b.scenario_names:
+            same_sweep(a.scenario(nm), b.scenario(nm), f"{what} [{nm}]",
+                       fields)
+
+
+def phase12_zoo(torch, dev, work_dir: str) -> dict:
+    """The zoo-suite portfolio path at full width: the ten published
+    configs at zoo_suite's defaults (batch 8, seq 2048, tp 8, decode at KV
+    3,072), nothing cut.  Returns the phase's ppa_eval launches on the
+    path and the 20-table launch's timings."""
+    import shutil
+
+    from repro_torch.core.loop import LuminaDSE
+    from repro_torch.kernels.ppa_eval import (KernelTables, kernel_tables,
+                                              ppa_eval, ppa_eval_op_count,
+                                              ppa_eval_plain,
+                                              ppa_eval_workloads)
+    from repro_torch.kernels.ppa_eval import bench as ppa_bench
+    from repro_torch.perfmodel import (OracleEvaluator, SweepEngine,
+                                       WorkloadStack, get_evaluator,
+                                       pair_view, zoo_suite)
+    from repro_torch.perfmodel.designspace import SPACE
+    from repro_torch.perfmodel.evaluator import EvalRequest
+    t_phase = time.perf_counter()
+    out = {"launches": 0, "max_abs_err": 0.0}
+
+    # ---- 12a. the suite
+    wls, scen = zoo_suite()
+    counts = {"scenarios": len(scen), "workloads": len(wls),
+              "rows": sum(len(w.ops) for w in wls.values()),
+              "unique": WorkloadStack.build(wls).n_unique}
+    check(counts == ZOO_COUNTS, f"zoo suite {counts}, want {ZOO_COUNTS}")
+    log(f"[12a] zoo suite: {counts['scenarios']} scenarios, "
+        f"{counts['workloads']} workloads, {counts['rows']} op rows, "
+        f"{counts['unique']} unique stack rows")
+    for s in scen:
+        log(f"[12a]   {s.name}: rows prefill {len(wls[s.prefill].ops)} / "
+            f"decode {len(wls[s.decode].ops)}")
+
+    # ---- 12b. the kernel on the 20 tables, bit for bit
+    tables = kernel_tables(list(wls.values()), dev)
+    for b in ZOO_BATCHES:
+        batches = ppa_bench.design_batches(b, dev)
+        for what, dv in batches.items():
+            lat, area, stall = ppa_eval_workloads(dv, tables)
+            for w, (tab, tp) in enumerate(tables.unpack()):
+                got = torch.cat([lat[w][:, None], stall[w], area[:, None]],
+                                dim=1)
+                single = ppa_eval(dv, tab, tp)[:, :6]
+                plain = ppa_eval_plain(dv, tab, tp)[:, :6]
+                out["max_abs_err"] = max(out["max_abs_err"], float(
+                    (got - plain).abs().max()))
+                check(torch.equal(got, single) and torch.equal(got, plain),
+                      f"ppa_eval zoo B={b} {what}: workload {w} differs "
+                      f"from its single-table launch or the plain version")
+        log(f"[12b] ppa_eval 20 zoo tables in one launch B={b}: bitwise "
+            f"equal to the 20 single-table launches and the plain version "
+            f"({', '.join(batches)})")
+
+    # ---- 12c. the zoo evaluator: one dispatch, one launch
+    ev_k = get_evaluator("proxy", "cuda", suite="zoo")
+    ev_r = get_evaluator("proxy", "roofline", suite="zoo")
+    check(ev_k.backend == "cuda" and ev_r.backend == "roofline"
+          and ev_r.stacked, f"zoo backends {ev_k.backend}/{ev_r.backend}")
+    idx = SPACE.sample(np.random.default_rng(7), 4096)
+    ev_k.objectives(idx[:8])                           # tables to the card
+    ppa_eval.launches = 0
+    d0 = ev_k.dispatches
+    yk = ev_k.objectives(idx)
+    n_launch = ppa_eval.launches
+    out["launches"] += n_launch
+    check(ev_k.dispatches == d0 + 1 and n_launch == 1,
+          f"zoo objectives: {ev_k.dispatches - d0} dispatches, {n_launch} "
+          f"ppa_eval launches; want one each")
+    yr = ev_r.objectives(idx)
+    check(yk.shape == (4096, 21), f"zoo objectives shape {yk.shape}")
+    for j in range(20):
+        np.testing.assert_allclose(yk[:, j], yr[:, j], rtol=TOL_LAT_RTOL,
+                                   err_msg=f"zoo evaluator {ev_k.workloads[j]}")
+    np.testing.assert_allclose(yk[:, 20], yr[:, 20], rtol=TOL_AREA_RTOL,
+                               err_msg="zoo evaluator area")
+    d0 = ev_r.dispatches
+    rep = ev_r.evaluate(EvalRequest(idx, detail="stalls"))
+    check(ev_r.dispatches == d0 + 1, "zoo stalls evaluate: one dispatch")
+    check(all(np.isfinite(rep.stall[w]).all() and rep.stall[w].shape
+              == (4096, 4) for w in ev_r.workloads), "zoo stalls malformed")
+    log(f"[12c] zoo evaluator 4096 designs: cuda (1 dispatch, {n_launch} "
+        f"ppa_eval launch) vs roofline (stacked torch ops) max rel latency "
+        f"{max(max_rel(yk[:, j], yr[:, j]) for j in range(20)):.3g}, area "
+        f"{max_rel(yk[:, 20], yr[:, 20]):.3g}, bitwise "
+        f"{np.array_equal(yk, yr)}; stalls evaluate one dispatch, finite")
+
+    # ---- 12d. the portfolio sweep over the full space
+    eng_p = SweepEngine(ev_r, stall_topk=ZOO_STALL_TOPK, robust="worst")
+    check(eng_p._portfolio and eng_p.backend == "roofline",
+          "the zoo sweep did not take the portfolio path")
+    eng_p.run(0, 2 * eng_p.chunk_size)                 # warm-up
+    res = eng_p.run()
+    check(res.n_evaluated == SPACE.size,
+          f"portfolio n_eval {res.n_evaluated} != {SPACE.size}")
+    n_chunks = -(-SPACE.size // eng_p.chunk_size)
+    for nm, r in [("robust", res)] + [(s.name, res.scenario(s.name))
+                                      for s in scen]:
+        check(not r.archive_truncated, f"portfolio {nm}: archive truncated")
+        check(len(r.pareto_ids) > 0 and np.isfinite(r.pareto_y).all(),
+              f"portfolio {nm}: empty or non-finite front")
+        log(f"[12d] portfolio {nm}: n_superior {r.n_superior} front "
+            f"{len(r.pareto_ids)} (the one sweep's wall {res.seconds:.3f} s, "
+            f"{res.points_per_sec:,.0f} designs/s)")
+    log(f"[12d] portfolio sweep, 10 scenarios + robust (worst), stall_topk "
+        f"{ZOO_STALL_TOPK}: n_eval {res.n_evaluated} wall {res.seconds:.3f} "
+        f"s {res.points_per_sec:,.0f} designs/s; chunk {eng_p.chunk_size} "
+        f"x {n_chunks} chunks")
+    out["sweep_s"], out["sweep_pps"] = res.seconds, res.points_per_sec
+
+    # ---- 12e. each scenario's pair sweep equals its portfolio result
+    pair_kw = dict(stall_topk=ZOO_STALL_TOPK)
+    fronts = {}
+    for s in scen:
+        names = (s.prefill, s.decode)
+        eng_k = SweepEngine(pair_view(ev_k, names), **pair_kw)
+        check(eng_k.backend == "cuda" and not eng_k._portfolio,
+              f"{s.name}: pair sweep not on the kernel")
+        ppa_eval.launches = 0
+        rk = eng_k.run()
+        n_launch = ppa_eval.launches
+        out["launches"] += n_launch
+        want = -(-SPACE.size // eng_k.chunk_size)
+        check(n_launch == want, f"{s.name}: {n_launch} ppa_eval launches "
+              f"for {want} chunks")
+        rr = SweepEngine(pair_view(ev_r, names), **pair_kw).run()
+        same_sweep(rk, res.scenario(s.name), f"{s.name} kernel pair sweep")
+        same_sweep(rr, res.scenario(s.name), f"{s.name} torch pair sweep")
+        fronts[s.name] = rk
+        log(f"[12e] {s.name}: pair sweeps on the kernel ({n_launch} "
+            f"launches, {rk.seconds:.3f} s) and on torch ops "
+            f"({rr.seconds:.3f} s) equal the portfolio's scenario exactly "
+            f"(n_superior {rk.n_superior}, top-k, stall seeds, front of "
+            f"{len(rk.pareto_ids)})")
+
+    # ---- 12f. workers, resume and the store over the first 8 chunks
+    stop = 8 * eng_p.chunk_size
+    shutil.rmtree(work_dir, ignore_errors=True)
+    os.makedirs(work_dir)
+    try:
+        one = eng_p.run(0, stop)
+        t0 = time.perf_counter()
+        two = eng_p.run(0, stop, workers=2)
+        t_two = time.perf_counter() - t0
+        same_sweep(two, one, "portfolio workers=2")
+        ck = os.path.join(work_dir, "ck")
+        eng_p.run(0, stop // 2, checkpoint_path=ck)
+        resumed = eng_p.run(0, stop, resume_from=ck)
+        same_sweep(resumed, one, "portfolio resumed")
+        store = os.path.join(work_dir, "store")
+        kw = {"stall_topk": ZOO_STALL_TOPK}
+        t0 = time.perf_counter()
+        first = OracleEvaluator(ev_r, stop=stop, oracle_store=store,
+                                sweep_kwargs=kw).sweep_result()
+        t_sweep = time.perf_counter() - t0
+        check(len(os.listdir(store)) == 1, "the store holds no artifact")
+        t0 = time.perf_counter()
+        loaded = OracleEvaluator(ev_r, stop=stop, oracle_store=store,
+                                 sweep_kwargs=kw).sweep_result()
+        t_load = time.perf_counter() - t0
+        same_sweep(first, one, "oracle store (swept)")
+        same_sweep(loaded, one, "oracle store (loaded)")
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    log(f"[12f] first 8 portfolio chunks ({stop} ids): workers=2 "
+        f"({t_two:.3f} s) == one process ({one.seconds:.3f} s); stopped at "
+        f"4 chunks and resumed == fresh; oracle store: swept and stored "
+        f"{t_sweep:.3f} s, loaded without sweeping {t_load:.3f} s, equal")
+
+    # ---- 12g. the loop on one zoo scenario
+    view = pair_view(ev_k, ZOO_LOOP_PAIR)
+    scen_name = ZOO_LOOP_PAIR[0].split(":")[0]
+    ppa_eval.launches = 0
+    d0 = view.dispatches
+    t0 = time.perf_counter()
+    dse = LuminaDSE(view, seed=0)
+    res_l = dse.run(budget=20)
+    loop_s = time.perf_counter() - t0
+    n_launch = ppa_eval.launches
+    out["launches"] += n_launch
+    check(len(res_l.samples) == 20, f"{len(res_l.samples)} samples")
+    check(n_launch > 0, "the zoo LUMINA run never launched ppa_eval")
+    nphv = OracleEvaluator(view, result=fronts[scen_name]).normalized_phv(
+        res_l.phv, dse.ref_point)
+    check(np.isfinite(res_l.phv) and 0.0 <= nphv <= 1.0 + 1e-9,
+          f"zoo loop phv {res_l.phv} normalized {nphv}")
+    log(f"[12g] LUMINA budget 20 on {scen_name}'s pair: superior_count "
+        f"{res_l.superior_count} normalized_phv {nphv:.6f} dispatches "
+        f"{view.dispatches - d0} wall {loop_s:.3f} s ppa_eval launches "
+        f"{n_launch}")
+
+    # ---- 12h. the 20-table launch against its bound, and a profile
+    saved = ppa_eval.launches
+    n_ops = tables.ends[-1]
+    op_count = ppa_eval_op_count(*[t.cpu().numpy()
+                                   for t, _ in tables.unpack()])
+    singles = [KernelTables.pack([p]) for p in tables.unpack()]
+    for b in ZOO_TIMED:
+        dv = SPACE.decode_values(torch.as_tensor(
+            SPACE.sample(np.random.default_rng(1), b), device=dev))
+        floor_ms = kernel_ms(torch, ppa_bench.floor_launcher(b))
+        k_ms = kernel_ms(torch, lambda: ppa_eval_workloads(dv, tables))
+        s_ms = kernel_ms(torch, lambda: [ppa_eval_workloads(dv, t)
+                                         for t in singles], iters=10)
+        lat, area, stall = ppa_eval_workloads(dv, tables)
+        for w, (tab, tp) in enumerate(tables.unpack()):
+            plain = ppa_eval_plain(dv, tab, tp)
+            check(torch.equal(lat[w], plain[:, 0])
+                  and torch.equal(stall[w], plain[:, 1:5])
+                  and torch.equal(area, plain[:, 5]),
+                  f"ppa_eval zoo B={b} (timed): workload {w} not bitwise "
+                  f"equal to the plain version")
+        p_ms = time_ms(torch, lambda: [ppa_eval_plain(dv, t, tp)
+                                       for t, tp in tables.unpack()],
+                       warm=1, iters=2)
+        nbytes = (b * 8 + len(tables) * b * 8 + n_ops * 8) * 4
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = b * op_count / PEAK_FP32_PER_S * 1e3
+        out[("zoo", b)] = {"ms": k_ms, "plain_ms": p_ms, "floor_ms": floor_ms,
+                           "singles_ms": s_ms, "bound_ms": max(t_bytes, t_ops),
+                           "bound_by": ("bytes" if t_bytes >= t_ops
+                                        else "operations")}
+        log(f"[12h] ppa_eval 20 zoo tables B={b} ({n_ops} rows): one launch "
+            f"{k_ms:.5f} ms, the 20 single-table launches {s_ms:.5f} ms, "
+            f"plain {p_ms:.3f} ms, bound {max(t_bytes, t_ops):.5f} ms "
+            f"(bytes {nbytes} B: {t_bytes:.5f} ms; {b * op_count} fp32 ops: "
+            f"{t_ops:.5f} ms), {max(t_bytes, t_ops) / k_ms:.1%} of it; "
+            f"empty-kernel floor {floor_ms:.5f} ms")
+    ppa_eval.launches = saved          # timing launches are not the path's
+    profile_device(torch, lambda: eng_p.run(0, 4 * eng_p.chunk_size), "12h",
+                   "4 portfolio chunks (torch ops)")
+    ppa_eval.launches = saved
+    log(f"[12] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1325,14 +1606,21 @@ def main() -> int:
     jamba = phase11_jamba(torch, dev)
     log(f"[11] prefill wall (second call): {JAMBA[0]} cut B={JAMBA[1]} "
         f"S={JAMBA[2]} {jamba['prefill']['prefill_s']:.3f} s")
+    jamba["prefill"] = {"counts": jamba["prefill"]["counts"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 12. the zoo-suite portfolio path at full width ---------------------
+    zoo = phase12_zoo(torch, dev, os.path.join(ROOT, "build",
+                                               "chip_smoke_zoo"))
 
     kt = times["both"]                 # the main path's launch: a chunk
     kernels = [{
         "name": "ppa_eval", "route": "cuda",
         "source": "src/repro_torch/kernels/ppa_eval/ppa_eval.cu",
         "replaces": "src/repro/kernels/ppa_eval/kernel.py:42",
-        "launches": sweep_launches + loop_launches,
-        "max_abs_err": max_abs_err,
+        "launches": sweep_launches + loop_launches + zoo["launches"],
+        "max_abs_err": max(max_abs_err, zoo["max_abs_err"]),
         "ms": kt["ms"], "plain_ms": kt["plain_ms"],
         "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],
         "library_ms": None,
@@ -1357,7 +1645,7 @@ def main() -> int:
             "ms": t32["ms"], "plain_ms": t32["plain_ms"],
             "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
             "library_ms": t32["library_ms"]})
-    log(f"[12] total {time.perf_counter() - t_all:.1f} s")
+    log(f"[end] total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
@@ -183,8 +184,18 @@ def _launch(dv: torch.Tensor, tables: KernelTables) -> torch.Tensor:
     if err:
         raise RuntimeError("ppa_eval launch failed: "
                            + lib.ppa_eval_error_string(err).decode())
-    ppa_eval.launches += 1
+    _count_launch()
     return out
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count_launch() -> None:
+    """One more launch in ``ppa_eval.launches``; a sweep's worker spans
+    launch from several threads, and ``+=`` alone can lose a count."""
+    with _LAUNCH_LOCK:
+        ppa_eval.launches += 1
 
 
 def ppa_eval(dv: torch.Tensor, table: torch.Tensor, tp: float) -> torch.Tensor:

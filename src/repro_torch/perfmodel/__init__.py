@@ -17,7 +17,8 @@ from repro_torch.perfmodel.designspace import DesignSpace, A100_REFERENCE
 from repro_torch.perfmodel.hardware import derive_hardware, area_mm2
 from repro_torch.perfmodel.workload import (Workload, Op, WorkloadStack,
                                             Scenario, gpt3_layer_prefill,
-                                            gpt3_layer_decode, paper_suite,
+                                            gpt3_layer_decode, from_arch,
+                                            paper_suite, zoo_suite,
                                             workload_from_arrays)
 from repro_torch.perfmodel.roofline import (RooflineModel,
                                             stacked_workload_batches)
@@ -36,8 +37,8 @@ from repro_torch.perfmodel.sweep import SweepEngine, SweepResult
 __all__ = [
     "DesignSpace", "A100_REFERENCE", "derive_hardware", "area_mm2",
     "Workload", "Op", "WorkloadStack", "Scenario",
-    "gpt3_layer_prefill", "gpt3_layer_decode", "paper_suite",
-    "workload_from_arrays",
+    "gpt3_layer_prefill", "gpt3_layer_decode", "from_arch", "paper_suite",
+    "zoo_suite", "workload_from_arrays",
     "RooflineModel", "CompassModel", "stacked_workload_batches",
     "attribute_stalls", "STALL_CLASSES",
     "Evaluator", "EvalRequest", "PPAReport", "ModelEvaluator",

@@ -15,7 +15,11 @@
   card and keeps the fastest;
 * **tiers**: ``proxy`` (roofline), ``target`` (LLMCompass-calibrated) and
   ``oracle`` — the exhaustive :class:`~repro_torch.perfmodel.sweep.
-  SweepEngine` front wrapped as :class:`OracleEvaluator`.
+  SweepEngine` front wrapped as :class:`OracleEvaluator`, optionally
+  memoized on disk (``oracle_store=``);
+* **suites**: ``paper`` (the GPT-3 pair) and ``zoo`` (every assigned
+  architecture config as a (prefill, decode) scenario: all 20 workloads in
+  one stacked dispatch, or one ``ppa_eval`` launch on ``backend="cuda"``).
 
 Every evaluator runs on one torch device, the CUDA device unless the caller
 passes ``device="cpu"``.  Reports are numpy arrays on the host.
@@ -23,8 +27,11 @@ passes ``device="cpu"``.  Reports are numpy arrays on the host.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
 import threading
 import time
+import warnings
 from collections import OrderedDict
 from typing import Callable, Dict, Mapping, Optional, Protocol, Tuple
 
@@ -42,7 +49,7 @@ from repro_torch.perfmodel.workload import Scenario, WorkloadStack
 
 DETAILS = ("objectives", "ppa", "stalls")
 TIERS = ("proxy", "target", "oracle")
-SUITES = ("paper",)
+SUITES = ("paper", "zoo")
 
 _DETAIL_LEVEL = {name: i for i, name in enumerate(DETAILS)}
 
@@ -470,16 +477,27 @@ class OracleEvaluator:
     caller already swept with the same engine settings — so campaign
     metrics can be normalized against ground truth (``normalized_phv``,
     ``regret``).
+
+    ``oracle_store=`` opts into the persistent oracle store: ``True`` uses
+    ``~/.cache/repro_torch-oracle/`` (the port's own, never the
+    reference's directory), a string names a directory.  The sweep
+    artifact is keyed by the engine's configuration fingerprint (space
+    cards, backend, workload fingerprints, model classes, stop + sweep
+    knobs), so a repeat OracleEvaluator is a ``load_sweep_result`` instead
+    of a re-sweep; a corrupt artifact is quarantined and re-swept, never
+    trusted.
     """
 
     tier = "oracle"
 
     def __init__(self, base: ModelEvaluator, *, stop: Optional[int] = None,
-                 sweep_kwargs: Optional[dict] = None, result=None):
+                 sweep_kwargs: Optional[dict] = None, result=None,
+                 oracle_store=None):
         self.base = base
         self.space = base.space
         self.stop = stop                      # None = the full space
         self._sweep_kwargs = dict(sweep_kwargs or {})
+        self.oracle_store = oracle_store
         self._result = result
         self._phv_cache: Dict[bytes, float] = {}
 
@@ -501,12 +519,51 @@ class OracleEvaluator:
         return self.base.objectives(idx)
 
     # -- ground truth ---------------------------------------------------
+    def _store_path(self, eng) -> Optional[Tuple[str, str]]:
+        """(artifact path, content key) under the oracle store, or None
+        when the store is off."""
+        if not self.oracle_store:
+            return None
+        from repro_torch.perfmodel.sweep import DEFAULT_ORACLE_STORE
+        root = (DEFAULT_ORACLE_STORE if self.oracle_store is True
+                else str(self.oracle_store))
+        root = os.path.expanduser(root)
+        knobs = "|".join(f"{k}={self._sweep_kwargs[k]}"
+                         for k in sorted(self._sweep_kwargs))
+        key = f"{eng.fingerprint()}|stop={self.stop}|{knobs}"
+        digest = hashlib.sha256(key.encode()).hexdigest()[:32]
+        return os.path.join(root, f"oracle-{digest}.npz"), key
+
     def sweep_result(self):
-        """The (memoized) exhaustive sweep over [0, stop or size)."""
-        if self._result is None:
-            from repro_torch.perfmodel.sweep import SweepEngine
-            self._result = SweepEngine(self.base,
-                                       **self._sweep_kwargs).run(0, self.stop)
+        """The (memoized) exhaustive sweep over [0, stop or size) — loaded
+        from the oracle store when enabled and populated, swept (and
+        stored) otherwise."""
+        if self._result is not None:
+            return self._result
+        from repro_torch.perfmodel.sweep import (SweepEngine,
+                                                 load_sweep_result,
+                                                 save_sweep_result)
+        eng = SweepEngine(self.base, **self._sweep_kwargs)
+        loc = self._store_path(eng)
+        if loc is None:
+            self._result = eng.run(0, self.stop)
+            return self._result
+        path, key = loc
+        if os.path.exists(path):
+            try:
+                self._result = load_sweep_result(path, key=key)
+                return self._result
+            except ValueError as exc:
+                q = path + ".quarantined"
+                try:
+                    os.replace(path, q)
+                except OSError:
+                    q = "<could not rename>"
+                warnings.warn(f"oracle store artifact {path} is invalid "
+                              f"({exc}); quarantined to {q} — re-sweeping",
+                              RuntimeWarning, stacklevel=2)
+        self._result = eng.run(0, self.stop)
+        save_sweep_result(path, self._result, key=key)
         return self._result
 
     def front(self) -> np.ndarray:
@@ -568,44 +625,56 @@ _PAPER_EVALUATORS: Dict[tuple, "Evaluator"] = {}
 
 def get_evaluator(tier: str = "proxy", backend: Optional[str] = None,
                   *, oracle_stop: Optional[int] = None,
+                  oracle_store=None,
                   workers: int = 1, suite: str = "paper",
                   device: DeviceLike = None) -> Evaluator:
-    """The paper-workload evaluator per tier (memoized per device).
+    """The paper-workload (or zoo-portfolio) evaluator per tier (memoized
+    per device).
 
     tier="proxy"  -> roofline models (cheap acquisition tier);
     tier="target" -> compass models (the budgeted high-fidelity tier);
     tier="oracle" -> OracleEvaluator over the chosen backend's models
                      (default roofline), exposing the exhaustive front.
     backend: "roofline" | "compass" | "cuda" | "auto" | None.
+    oracle_store: opt-in persistent sweep-artifact store for the oracle
+             tier (``True`` = ``~/.cache/repro_torch-oracle/``, or a
+             directory path).
+    suite: "paper" — the GPT-3 (ttft, tpot) pair, one scenario;
+           "zoo"   — every assigned architecture config as a scenario
+           (``<arch>:prefill`` / ``<arch>:decode`` workload pairs from
+           :func:`~repro_torch.perfmodel.workload.zoo_suite`), all
+           workloads in ONE stacked dispatch; ``.scenarios`` drives the
+           portfolio sweep.
     device:  the torch device; None = the CUDA device (raises without one).
 
-    Sharded evaluation (``workers > 1``) and the zoo suite are not ported
-    yet and raise.
+    Sharded evaluation (``workers > 1``) is not ported yet and raises.
     """
     if tier not in TIERS:
         raise ValueError(f"tier must be one of {TIERS}, got {tier!r}")
     if suite not in SUITES:
-        raise NotImplementedError(
-            f"suite {suite!r} is not ported yet; have {SUITES}")
+        raise ValueError(f"suite must be one of {SUITES}, got {suite!r}")
     if int(workers) != 1:
         raise NotImplementedError("workers > 1 (sharded evaluation) is not "
                                   "ported yet")
     dev = resolve_device(device)
-    key = (tier, backend, oracle_stop, suite, str(dev))
+    key = (tier, backend, oracle_stop, suite,
+           None if not oracle_store else str(oracle_store), str(dev))
     cached = _PAPER_EVALUATORS.get(key)
     if cached is not None:
         return cached
-    from repro_torch.perfmodel.workload import paper_suite
+    from repro_torch.perfmodel.workload import paper_suite, zoo_suite
     if tier == "oracle":
         base_backend = backend or "roofline"
         base_tier = "target" if base_backend == "compass" else "proxy"
-        base = get_evaluator(base_tier, base_backend, device=dev)
-        ev: Evaluator = OracleEvaluator(base, stop=oracle_stop)
+        base = get_evaluator(base_tier, base_backend, suite=suite,
+                             device=dev)
+        ev: Evaluator = OracleEvaluator(base, stop=oracle_stop,
+                                        oracle_store=oracle_store)
     else:
         model_backend = backend if backend not in (None, "auto", "cuda") \
             else TIER_BACKEND[tier]
         cls = _backend(model_backend).model_cls
-        wls, scenarios = paper_suite()
+        wls, scenarios = paper_suite() if suite == "paper" else zoo_suite()
         models = {nm: cls(wl) for nm, wl in wls.items()}
         ev = ModelEvaluator(models, tier=tier, backend=backend,
                             scenarios=scenarios, device=dev)

@@ -74,8 +74,15 @@ def test_cuda_backend_rules():
     # "auto" times candidates only on the card
     assert get_evaluator("proxy", backend="auto",
                          device="cpu").backend == "roofline"
-    with pytest.raises(NotImplementedError):
-        get_evaluator("proxy", suite="zoo", device="cpu")
+    # the zoo suite takes the kernel backend too: all 20 workloads in one
+    # dispatch, the same numbers as its roofline backend
+    zoo_k = get_evaluator("proxy", backend="cuda", suite="zoo", device="cpu")
+    zoo_r = get_evaluator("proxy", suite="zoo", device="cpu")
+    assert zoo_k.backend == "cuda" and len(zoo_k.workloads) == 20
+    d0 = zoo_k.dispatches
+    assert np.array_equal(zoo_k.objectives(IDX[:50]),
+                          zoo_r.objectives(IDX[:50]))
+    assert zoo_k.dispatches == d0 + 1
     with pytest.raises(NotImplementedError):
         get_evaluator("proxy", workers=2, device="cpu")
 

@@ -1,5 +1,6 @@
 """ppa_eval's plain PyTorch version against the reference kernel (interpret
 mode) and its oracle, at the reference's own kernel tolerances."""
+import os
 import re
 
 import numpy as np
@@ -372,3 +373,53 @@ def test_block_table_hoisting_depends_on_the_product_order():
     u_pipe = m / (m + sa)
     assert torch.equal(_sa_terms(m, n, k, sa)[0], u_k * u_n * u_pipe)
     assert not torch.equal(u_k * u_n * u_pipe, u_k * (u_n * u_pipe))
+
+
+def test_zoo_tables_in_kernel_order_equal_plain_and_roofline():
+    """The zoo suite's 20 full-width tables packed for one launch (351 op
+    rows, every family's op kinds, and the MoE's m_eff rows, whose matmul
+    dims come off the designs' grid at other batch sizes): the kernel's
+    division of the work equals the plain version bit for bit, and the
+    plain version the zoo evaluator's stacked torch path."""
+    from repro_torch.perfmodel import get_evaluator
+    wls, _ = T_W.zoo_suite()
+    names = list(wls)
+    packed = kernel_tables(list(wls.values()), "cpu")
+    assert len(packed) == 20 and packed.ends[-1] == 351
+    assert 351 * ops.SMEM_PER_OP < 48 * 1024       # no opt-in needed
+    max_sa = _source_const("kMaxSa")
+    for name, dv in _batches(257).items():
+        want = torch.stack([ppa_eval_plain(dv, t, tp)
+                            for t, tp in packed.unpack()])
+        assert torch.equal(_kernel_order(dv, packed, max_sa), want), name
+    idx = SPACE.sample(np.random.default_rng(12), 300)
+    rep = get_evaluator("proxy", suite="zoo", device="cpu").stalls(idx)
+    lat, area, stall = ppa_eval_workloads(
+        SPACE.decode_values(torch.as_tensor(idx)), packed)
+    assert np.array_equal(area.numpy(), rep.area)
+    for w, nm in enumerate(names):
+        assert np.array_equal(lat[w].numpy(), rep.latency[nm]), nm
+        assert np.array_equal(stall[w].numpy(), rep.stall[nm]), nm
+
+
+def test_launch_count_is_exact_across_threads():
+    """Worker spans launch from several threads: the counter loses no
+    launch under a tiny switch interval and more threads than cores."""
+    import sys
+    import threading
+    before = ppa_eval.launches
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [ops._count_launch() for _ in range(2_000)])
+            for _ in range(4 * (os.cpu_count() or 1))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert ppa_eval.launches == before + 2_000 * len(threads)
+    finally:
+        sys.setswitchinterval(old)
+        ppa_eval.launches = before

@@ -152,3 +152,73 @@ def test_launches_rise_by_one_per_workloads_call(cuda):
         assert ppa_eval.launches == before + i + 1
     ppa_eval_workloads(dv, KernelTables.pack(tables.unpack()[:1]))
     assert ppa_eval.launches == before + 4
+
+
+def _zoo(device):
+    wls, _ = T_W.zoo_suite()
+    return kernel_tables(list(wls.values()), device)
+
+
+@pytest.mark.parametrize("b", [1, 255, 256, 4_096, 131_072])
+def test_zoo_tables_in_one_launch_match_single_and_plain(cuda, b):
+    """The zoo's 20 full-width tables (351 rows) in one launch, on sampled
+    ids and off-grid rows: bit for bit the single-table launches' and the
+    plain version's rows."""
+    tables = _zoo(cuda)
+    assert len(tables) == 20 and tables.ends[-1] == 351
+    for name, dv in design_batches(b, cuda, seed=b).items():
+        before = ppa_eval.launches
+        lat, area, stall = ppa_eval_workloads(dv, tables)
+        torch.cuda.synchronize()
+        assert ppa_eval.launches == before + 1
+        for w, (tab, tp) in enumerate(tables.unpack()):
+            for want in (ppa_eval(dv, tab, tp), ppa_eval_plain(dv, tab, tp)):
+                assert torch.equal(lat[w], want[:, 0]), (name, w)
+                assert torch.equal(stall[w], want[:, 1:5]), (name, w)
+                assert torch.equal(area, want[:, 5]), (name, w)
+
+
+def test_zoo_tables_repeated_past_48kb(cuda):
+    """The zoo's rows repeated up to ops.MAX_OPS and split into 20
+    workloads at tps that differ (the opt-in shared-memory path above 48 KB
+    a block) against the plain version."""
+    zoo = _zoo(cuda).ops
+    rows = zoo.repeat(-(-ops.MAX_OPS // zoo.shape[0]), 1)[:ops.MAX_OPS]
+    cuts = np.linspace(0, ops.MAX_OPS, 21).astype(int)
+    pairs = [(rows[a:b].contiguous(), float(2 + w % 7))
+             for w, (a, b) in enumerate(zip(cuts[:-1], cuts[1:]))]
+    tables = KernelTables.pack(pairs)
+    assert tables.ends[-1] == ops.MAX_OPS
+    assert ops.MAX_OPS * ops.SMEM_PER_OP > 48 * 1024
+    for name, dv in design_batches(1_000, cuda, seed=11).items():
+        lat, area, stall = ppa_eval_workloads(dv, tables)
+        for w in range(len(pairs)):
+            want = ppa_eval_plain(dv, *pairs[w])
+            assert torch.equal(lat[w], want[:, 0]), (name, w)
+            assert torch.equal(stall[w], want[:, 1:5]), (name, w)
+        assert torch.equal(area, want[:, 5])
+
+
+def test_zoo_evaluator_makes_one_launch_per_evaluate(cuda):
+    ev = get_evaluator("proxy", backend="cuda", suite="zoo", device=cuda)
+    ref = get_evaluator("proxy", backend="roofline", suite="zoo", device=cuda)
+    idx = SPACE.sample(np.random.default_rng(6), 4_096)
+    before, d0 = ppa_eval.launches, ev.dispatches
+    y = ev.objectives(idx)
+    assert ppa_eval.launches == before + 1 and ev.dispatches == d0 + 1
+    assert np.array_equal(y, ref.objectives(idx))
+
+
+def test_threaded_sweep_spans_count_every_launch(cuda):
+    """run(workers=4) on the kernel: one launch a chunk whichever thread
+    makes it, and the result of one process."""
+    from repro_torch.perfmodel import SweepEngine
+    eng = SweepEngine(get_evaluator("proxy", backend="cuda", device=cuda),
+                      chunk_size=4_096, stall_topk=4)
+    one = eng.run(0, 16 * 4_096)
+    before = ppa_eval.launches
+    four = eng.run(0, 16 * 4_096, workers=4)
+    assert ppa_eval.launches == before + 16
+    for f in ("n_superior", "pareto_ids", "pareto_y", "topk_ids",
+              "stall_topk_ids"):
+        assert np.array_equal(getattr(one, f), getattr(four, f)), f

@@ -84,8 +84,10 @@ def test_engine_identity_and_guards():
         SweepEngine(RooflineModel(gpt3_layer_prefill()))
     with pytest.raises(ValueError, match="compass-tier knobs"):
         SweepEngine(get_evaluator("target", device="cpu"), backend="cuda")
-    with pytest.raises(NotImplementedError):
-        SweepEngine(ev, chunk_size="auto")
+    auto = SweepEngine(ev, chunk_size="auto", chunk_candidates=(1_000, 2_000))
+    assert auto.chunk_size in (1_000, 2_000)
+    with pytest.raises(ValueError, match="auto"):
+        SweepEngine(ev, chunk_size="fastest")
     with pytest.raises(ValueError):
         SweepEngine(ev, stall_rank="area")
     with pytest.raises(ValueError, match="stall_topk"):
