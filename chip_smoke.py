@@ -100,7 +100,30 @@ line is printed:
    ``oracle_store`` sweeps once and then loads; (g) a budget-20 LUMINA run
    on llama3.2-1b's pair through the kernel; (h) the 20-table launch at B
    4,096 and 131,072 against its bound, the empty-kernel floor and the 20
-   single-table launches, and a profiler window over 4 portfolio chunks.
+   single-table launches, and a profiler window over 4 portfolio chunks;
+13. the paper's method comparison, every evaluation through the
+   evaluator, phase 4's kernel sweep as the oracle front: (a) Figs. 4-6:
+   the five black-box baselines (GS, RW, BO, GA, ACO) and LUMINA at the
+   reference bench's settings (budget 300, 3 trials, seeds 0-2, ask
+   batches of 8, proxy tier) on ``backend="cuda"``, each run equal to
+   the same run on ``backend="roofline"`` (X, Y, PHV curve, superior
+   count; LUMINA's trajectory), 38 ``ppa_eval`` launches (one per ask
+   batch) per baseline trial; PHV, its oracle fraction, sample efficiency,
+   superior count, best/worst PHV and wall per method, LUMINA's regret at
+   25/50/100% of the budget and its gains over the best baseline beside
+   the paper's (reported, not gated); ``ppa_eval`` at B 8 beside the
+   empty kernel and one objectives dispatch's host time; (b) sweep-seeded
+   campaigns (``stall_seeds()`` + the A100 start, budget 60, both
+   policies): fused dispatches at most budget / K + 4, regret never
+   rising, PHV fraction never falling, equal on both backends, the v5
+   telemetry saved and loaded back equal (scratch under
+   ``build/chip_smoke_campaigns/``, removed after); (c) Table 3: the DSE
+   Benchmark at 308/127/30 generated on the card (wall printed) and the
+   five backends' accuracies; the 80/40/20 suite generated on the card
+   equal to the CPU's, question, options and answer; (d) the static
+   influence map's edge counts and the rule audit (``metric_probe_only``
+   empty), and a budget-20 LUMINA run on the static map through the
+   kernel.
 
 Kernel launch counters are zeroed just before each part of the main path
 and read just after; every kernel of that part must have launched there.
@@ -1304,6 +1327,282 @@ def phase12_zoo(torch, dev, work_dir: str) -> dict:
     return out
 
 
+# ------------------------------------------------------ method comparison
+# the reference bench's settings (benchmarks/bench_dse_methods.py,
+# bench_campaigns.py, bench_dse_benchmark.py)
+METHOD_BUDGET, METHOD_TRIALS, METHOD_BATCH = 300, 3, 8
+CAMPAIGN_BUDGET = 60
+TABLE3_SIZES = (308, 127, 30)
+TABLE3_CHECK_SIZES = (80, 40, 20)
+PAPER_PHV_GAIN_PCT, PAPER_EFF_GAIN_X = 32.9, 17.5
+METHOD_ARRAYS = ("X", "Y", "phv_curve")
+
+
+def _same_method(a, b, what: str) -> None:
+    for f in METHOD_ARRAYS:
+        check(np.array_equal(getattr(a, f), getattr(b, f)),
+              f"{what}: {f} differs between the cuda and roofline backends")
+    check(a.superior_count == b.superior_count and a.phv == b.phv,
+          f"{what}: superior_count/phv differ between the backends")
+
+
+def _same_dse(a, b, what: str) -> None:
+    check(np.array_equal(np.stack([s.idx for s in a.samples]),
+                         np.stack([s.idx for s in b.samples]))
+          and np.array_equal(np.stack([s.objectives for s in a.samples]),
+                             np.stack([s.objectives for s in b.samples]))
+          and a.superior_count == b.superior_count and a.phv == b.phv
+          and a.trajectory_notes == b.trajectory_notes,
+          f"{what}: the LUMINA trajectory differs between the cuda and "
+          f"roofline backends")
+
+
+def _table3_backends():
+    from repro_torch.core.llm import DegradedOracle, RuleOracle
+    return [RuleOracle(enhanced=True), RuleOracle(enhanced=False),
+            DegradedOracle(0.18, seed=0, enhanced=True, name="qwen3-proxy"),
+            DegradedOracle(0.30, seed=1, enhanced=True, name="phi4-proxy"),
+            DegradedOracle(0.50, seed=2, enhanced=False,
+                           name="llama31-proxy")]
+
+
+def phase13_methods(torch, dev, res_k, smi: str, work_dir: str) -> dict:
+    """The paper's method comparison on the card: the five black-box
+    baselines and LUMINA (Figs. 4-6), sweep-seeded campaigns, the DSE
+    Benchmark (Table 3) and the rule audit, every evaluation through the
+    evaluator, with phase 4's kernel sweep as the oracle front.  Returns
+    the phase's ppa_eval launches on the path and the B 8 timings."""
+    import shutil
+
+    from repro_torch.core.baselines import METHODS, run_method
+    from repro_torch.core.bench import accuracy_table, generate_suite
+    from repro_torch.core.campaign import CampaignRunner, load_telemetry
+    from repro_torch.core.loop import LuminaDSE
+    from repro_torch.core.quale import static_influence_map
+    from repro_torch.kernels.ppa_eval import (kernel_tables, ppa_eval,
+                                              ppa_eval_workloads)
+    from repro_torch.kernels.ppa_eval import bench as ppa_bench
+    from repro_torch.perfmodel import (ModelEvaluator, OracleEvaluator,
+                                       get_evaluator)
+    from repro_torch.perfmodel.designspace import A100_REFERENCE, SPACE
+    t_phase = time.perf_counter()
+    out = {"launches": 0}
+    ev_k = get_evaluator("proxy", backend="cuda", device=dev)
+    ev_r = get_evaluator("proxy", backend="roofline", device=dev)
+    oracle = OracleEvaluator(ev_k, result=res_k)
+    a100 = SPACE.encode_nearest(A100_REFERENCE)[None, :]
+    ref = ev_k.objectives(a100)[0]
+    check(np.array_equal(ref, ev_r.objectives(a100)[0]),
+          "the A100 reference point differs between the backends")
+
+    # ---- 13a. Figs. 4-6: five baselines and LUMINA, budget 300, 3 trials
+    per_trial = -(-METHOD_BUDGET // METHOD_BATCH)
+    stats = {}
+    for name, cls in METHODS.items():
+        phvs, effs, sups, walls, walls_r = [], [], [], [], []
+        for trial in range(METHOD_TRIALS):
+            ppa_eval.launches = 0
+            d0 = ev_k.dispatches
+            t0 = time.perf_counter()
+            r = run_method(cls, ev_k, METHOD_BUDGET, ref, seed=trial,
+                           batch=METHOD_BATCH)
+            walls.append(time.perf_counter() - t0)
+            n_launch = ppa_eval.launches
+            out["launches"] += n_launch
+            check(n_launch == per_trial and ev_k.dispatches - d0 == per_trial,
+                  f"{name} trial {trial}: {n_launch} ppa_eval launches, "
+                  f"{ev_k.dispatches - d0} dispatches, want {per_trial} "
+                  f"(one per ask batch of {METHOD_BATCH})")
+            t0 = time.perf_counter()
+            r_r = run_method(cls, ev_r, METHOD_BUDGET, ref, seed=trial,
+                             batch=METHOD_BATCH)
+            walls_r.append(time.perf_counter() - t0)
+            _same_method(r, r_r, f"{name} trial {trial}")
+            check(r.X.shape == (METHOD_BUDGET, SPACE.n_params)
+                  and np.isfinite(r.Y).all() and r.phv >= 0,
+                  f"{name} trial {trial}: malformed result")
+            phvs.append(r.phv)
+            effs.append(r.sample_efficiency)
+            sups.append(r.superior_count)
+        stats[name] = (phvs, effs)
+        log(f"[13a] {name}: phv mean {np.mean(phvs):.6e} (oracle fraction "
+            f"{oracle.normalized_phv(np.mean(phvs), ref):.6f}), sample "
+            f"efficiency {np.mean(effs):.6f}, superior mean "
+            f"{np.mean(sups):.1f}, best/worst phv "
+            f"{max(phvs) / max(min(phvs), 1e-12):.3f}; wall per trial "
+            f"cuda {np.mean(walls):.3f} s, roofline {np.mean(walls_r):.3f} s "
+            f"({per_trial} launches a trial; equal trajectories) ({smi})")
+    phvs, effs, sups, walls, curves = [], [], [], [], []
+    for trial in range(METHOD_TRIALS):
+        best = np.full(3, np.inf)
+        curve = []
+
+        def track(campaign, sample, _best=best, _curve=curve):
+            np.minimum(_best, sample.objectives, out=_best)
+            _curve.append(oracle.regret(_best[None, :]))
+
+        ppa_eval.launches = 0
+        t0 = time.perf_counter()
+        res = LuminaDSE(ev_k, seed=trial).run(budget=METHOD_BUDGET,
+                                              step_callback=track)
+        walls.append(time.perf_counter() - t0)
+        n_launch = ppa_eval.launches
+        out["launches"] += n_launch
+        check(n_launch > 0, f"LUMINA trial {trial} never launched ppa_eval")
+        _same_dse(res, LuminaDSE(ev_r, seed=trial).run(budget=METHOD_BUDGET),
+                  f"LUMINA trial {trial}")
+        curves.append(np.stack(curve))
+        phvs.append(res.phv)
+        effs.append(res.sample_efficiency)
+        sups.append(res.superior_count)
+    log(f"[13a] LUMINA: phv mean {np.mean(phvs):.6e} (oracle fraction "
+        f"{oracle.normalized_phv(np.mean(phvs), ref):.6f}), sample "
+        f"efficiency {np.mean(effs):.6f}, superior mean {np.mean(sups):.1f}, "
+        f"best/worst phv {max(phvs) / max(min(phvs), 1e-12):.3f}; wall per "
+        f"trial cuda {np.mean(walls):.3f} s (equal trajectories on "
+        f"roofline) ({smi})")
+    mean_regret = np.mean(np.stack(curves), axis=0)
+    for frac in (0.25, 0.5, 1.0):
+        i = max(0, int(round(frac * METHOD_BUDGET)) - 1)
+        log(f"[13a] LUMINA regret at {int(frac * 100)}% of the budget "
+            f"(ttft|tpot|area): "
+            + "|".join(f"{v:.6f}" for v in mean_regret[i]))
+    best_phv = max(np.mean(p) for p, _ in stats.values())
+    best_eff = max(np.mean(e) for _, e in stats.values())
+    log(f"[13a] LUMINA vs the best baseline: phv gain "
+        f"{(np.mean(phvs) / max(best_phv, 1e-12) - 1) * 100:.1f}% (paper "
+        f"+{PAPER_PHV_GAIN_PCT}%), sample-efficiency gain "
+        f"{np.mean(effs) / max(best_eff, 1e-9):.1f}x (paper "
+        f"{PAPER_EFF_GAIN_X}x); oracle phv {oracle.oracle_phv(ref):.6e}")
+
+    # the baselines' launch shape: one evaluator dispatch at B 8
+    X8 = SPACE.sample(np.random.default_rng(8), METHOD_BATCH)
+    dv8 = SPACE.decode_values(torch.as_tensor(X8, device=dev))
+    pair = kernel_tables(list(ev_k.models[nm].wl for nm in ev_k.workloads),
+                         dev)
+    saved = ppa_eval.launches
+    k8 = kernel_ms(torch, lambda: ppa_eval_workloads(dv8, pair))
+    f8 = kernel_ms(torch, ppa_bench.floor_launcher(METHOD_BATCH))
+    t_disp = {}
+    for nm, ev in (("cuda", ev_k), ("roofline", ev_r)):
+        ev.objectives(X8)
+        t0 = time.perf_counter()
+        for _ in range(200):
+            ev.objectives(X8)
+        t_disp[nm] = (time.perf_counter() - t0) / 200 * 1e3
+    ppa_eval.launches = saved          # timing launches are not the path's
+    out.update(b8_ms=k8, b8_floor_ms=f8)
+    log(f"[13a] ppa_eval at B {METHOD_BATCH} (both tables, one launch): "
+        f"{k8:.5f} ms, empty-kernel floor {f8:.5f} ms; one objectives "
+        f"dispatch from the host: cuda {t_disp['cuda']:.4f} ms, roofline "
+        f"(torch ops) {t_disp['roofline']:.4f} ms ({smi})")
+
+    # ---- 13b. sweep-seeded campaigns, both policies, budget 60
+    os.makedirs(work_dir, exist_ok=True)
+    try:
+        seeds = res_k.stall_seeds()
+        for policy in ("uniform", "adaptive"):
+            runs, walls = {}, {}
+            for nm, ev in (("cuda", ev_k), ("roofline", ev_r)):
+                proxy = ModelEvaluator(ev.models, backend=ev.backend,
+                                       device=dev)
+                ppa_eval.launches = 0
+                t0 = time.perf_counter()
+                runs[nm] = CampaignRunner(
+                    ev, proxy=proxy, oracle=oracle, seed=0,
+                    policy=policy).run(budget=CAMPAIGN_BUDGET, seeds=seeds)
+                walls[nm] = time.perf_counter() - t0
+                if nm == "cuda":
+                    n_launch = ppa_eval.launches
+                    out["launches"] += n_launch
+            c, r = runs["cuda"], runs["roofline"]
+            k = len(c.per_campaign)
+            check(c.dispatches <= CAMPAIGN_BUDGET / k + 4,
+                  f"campaigns {policy}: {c.dispatches} dispatches for {k} "
+                  f"campaigns at budget {CAMPAIGN_BUDGET}")
+            check(len(c.telemetry) == CAMPAIGN_BUDGET,
+                  f"campaigns {policy}: {len(c.telemetry)} observations")
+            regret, frac = c.regret_curve(), c.phv_frac_curve()
+            check((np.diff(regret, axis=0) <= 0).all(),
+                  f"campaigns {policy}: the regret curve rises")
+            check((np.diff(frac) >= 0).all(),
+                  f"campaigns {policy}: the phv fraction falls")
+            check(np.array_equal(np.stack([s.idx for s in c.samples]),
+                                 np.stack([s.idx for s in r.samples]))
+                  and [(t.campaign, t.step, t.objectives, t.regret)
+                       for t in c.telemetry]
+                  == [(t.campaign, t.step, t.objectives, t.regret)
+                      for t in r.telemetry]
+                  and c.phv == r.phv and c.dispatches == r.dispatches,
+                  f"campaigns {policy}: the cuda and roofline runs differ")
+            path = os.path.join(work_dir, f"campaigns_{policy}.json")
+            c.save_telemetry(path)
+            back = load_telemetry(path)
+            check(back == json.loads(json.dumps(c.telemetry_dict()))
+                  and back["version"] == 5 and back["rule_audit"]
+                  and back["metrics"],
+                  f"campaigns {policy}: the v5 telemetry does not load back "
+                  f"equal")
+            log(f"[13b] campaigns {policy}: {k} campaigns "
+                f"({', '.join(sorted(c.per_campaign))}), superior "
+                f"{c.superior_count}, phv fraction {frac[-1]:.6f}, regret "
+                + "|".join(f"{v:.6f}" for v in regret[-1])
+                + f", {c.rounds} rounds, {c.dispatches} fused dispatches, "
+                f"ppa_eval launches {n_launch}, wall cuda "
+                f"{walls['cuda']:.3f} s, roofline {walls['roofline']:.3f} s "
+                f"(equal runs; v5 telemetry round trip equal) ({smi})")
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+
+    # ---- 13c. Table 3: the DSE Benchmark at the paper's sizes
+    t0 = time.perf_counter()
+    suite = generate_suite(*TABLE3_SIZES, device=dev)
+    gen_s = time.perf_counter() - t0
+    check(len(suite.questions) == sum(TABLE3_SIZES),
+          f"{len(suite.questions)} questions")
+    for task, backend, acc in accuracy_table(_table3_backends(), suite):
+        log(f"[13c] table 3 {task} / {backend}: {acc:.3f}")
+    log(f"[13c] suite {'/'.join(map(str, TABLE3_SIZES))} generated on the "
+        f"card in {gen_s:.3f} s ({smi})")
+    small = {d: generate_suite(*TABLE3_CHECK_SIZES, device=d)
+             for d in (dev, "cpu")}
+    for i, (a, b) in enumerate(zip(small[dev].questions,
+                                   small["cpu"].questions)):
+        check(a.task == b.task and a.prompt == b.prompt
+              and a.options == b.options and a.answer == b.answer,
+              f"suite {TABLE3_CHECK_SIZES}: question {i} differs between "
+              f"the card and the CPU")
+    check(len(small[dev].questions) == len(small["cpu"].questions)
+          == sum(TABLE3_CHECK_SIZES), "suite sizes differ")
+    log(f"[13c] suite {'/'.join(map(str, TABLE3_CHECK_SIZES))}: the card's "
+        f"equals the CPU's question for question, option for option, "
+        f"answer for answer")
+
+    # ---- 13d. the rule audit, and a budget-20 run on the static map
+    imap = static_influence_map()
+    log(f"[13d] static influence map: "
+        f"{sum(len(v) for v in imap.metric_edges.values())} metric edges, "
+        f"{sum(len(v) for v in imap.stall_edges.values())} stall edges "
+        f"over {len(imap.metric_edges)} parameters")
+    counts = LuminaDSE(ev_k, seed=0).rule_audit().counts()
+    log(f"[13d] rule audit: {counts}")
+    check(counts["metric_probe_only"] == 0,
+          "rule audit: metric_probe_only is not empty")
+    ppa_eval.launches = 0
+    dse = LuminaDSE(ev_k, seed=0, imap=imap)
+    res = dse.run(budget=20)
+    n_launch = ppa_eval.launches
+    out["launches"] += n_launch
+    check(len(res.samples) == 20 and n_launch > 0,
+          f"static-map run: {len(res.samples)} samples, {n_launch} launches")
+    nphv = oracle.normalized_phv(res.phv, dse.ref_point)
+    log(f"[13d] LUMINA budget 20 on the static map: superior_count "
+        f"{res.superior_count} normalized_phv {nphv:.6f} ppa_eval launches "
+        f"{n_launch}")
+    log(f"[13] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1614,12 +1913,17 @@ def main() -> int:
     zoo = phase12_zoo(torch, dev, os.path.join(ROOT, "build",
                                                "chip_smoke_zoo"))
 
+    # ---- 13. the method comparison, campaigns, Table 3, rule audit ----------
+    methods = phase13_methods(torch, dev, res_k, smi, os.path.join(
+        ROOT, "build", "chip_smoke_campaigns"))
+
     kt = times["both"]                 # the main path's launch: a chunk
     kernels = [{
         "name": "ppa_eval", "route": "cuda",
         "source": "src/repro_torch/kernels/ppa_eval/ppa_eval.cu",
         "replaces": "src/repro/kernels/ppa_eval/kernel.py:42",
-        "launches": sweep_launches + loop_launches + zoo["launches"],
+        "launches": (sweep_launches + loop_launches + zoo["launches"]
+                     + methods["launches"]),
         "max_abs_err": max(max_abs_err, zoo["max_abs_err"]),
         "ms": kt["ms"], "plain_ms": kt["plain_ms"],
         "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],

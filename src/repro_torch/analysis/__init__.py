@@ -1,26 +1,15 @@
-"""The port's copy of the influence graph the reference extracts from its
-perfmodel source (``influence_graph.json``), and a loader for its parts.
+"""The influence graph the reference extracts from its perfmodel source.
 
-The extractor itself (``repro.analysis``) is not ported yet; the artifact
-is what the DSE loop needs from it: the AHK primary edges.
+The port keeps its own copy of the artifact (``influence_graph.json``) and
+one reader of it, :mod:`repro_torch.analysis.influence`; the extractor and
+the linter are not ported yet.  The DSE loop reads the AHK primary edges
+(:func:`primary_resources`) and audits its probe map against the graph
+(:func:`cross_validate`).
 """
-from __future__ import annotations
+from repro_torch.analysis.influence import (InfluenceGraph, RuleAudit,
+                                            cross_validate,
+                                            extract_influence_graph,
+                                            primary_resources)
 
-import functools
-import json
-from pathlib import Path
-from typing import Dict
-
-GRAPH_PATH = Path(__file__).with_name("influence_graph.json")
-
-
-@functools.lru_cache(maxsize=1)
-def _graph() -> dict:
-    with open(GRAPH_PATH, encoding="utf-8") as f:
-        return json.load(f)
-
-
-def primary_resources() -> Dict[str, str]:
-    """stall class -> the parameter that most directly relieves it (the AHK
-    primary edges, key ``"primary"`` of the graph)."""
-    return dict(_graph()["primary"])
+__all__ = ["InfluenceGraph", "RuleAudit", "cross_validate",
+           "extract_influence_graph", "primary_resources"]

@@ -6,7 +6,8 @@ Engine's corrective rules.  The default backend is a deterministic rule
 engine (:class:`RuleOracle`) encoding exactly the architectural reasoning
 the paper prompts for; :class:`DegradedOracle` injects calibrated error to
 emulate weaker models (Table 3 structure) and to exercise the Refinement
-Loop's error recovery.
+Loop's error recovery; :class:`ExternalLLM` shows the wire format a real
+model would consume.
 
 Every interaction is a multiple-choice :class:`MCQuery` carrying BOTH the
 human/LLM-facing prompt text and a structured ``payload`` (the same facts,
@@ -16,6 +17,7 @@ LLM parsing the prompt.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Dict, List, Optional, Protocol
 
 import numpy as np
@@ -199,3 +201,35 @@ class DegradedOracle:
             wrong = [i for i in range(len(q.options)) if i != good]
             return int(self._rng.choice(wrong))
         return good
+
+
+class ExternalLLM:
+    """OpenAI-compatible chat endpoint adapter: the request body a real
+    model would receive and the parsing of its answer (the reference's
+    wire format).  Nothing in the repository calls a live endpoint."""
+
+    def __init__(self, url: str, model: str, api_key: str = ""):
+        self.url, self.model, self.api_key = url, model, api_key
+        self.name = f"external:{model}"
+
+    def choose(self, q: MCQuery) -> int:
+        import urllib.request
+        body = json.dumps({
+            "model": self.model,
+            "messages": [
+                {"role": "system", "content":
+                 "You are a GPU architecture expert. Answer with the single "
+                 "letter of the best option."},
+                {"role": "user", "content": q.render()},
+            ],
+        }).encode()
+        req = urllib.request.Request(
+            self.url, data=body,
+            headers={"Content-Type": "application/json",
+                     "Authorization": f"Bearer {self.api_key}"})
+        with urllib.request.urlopen(req) as r:
+            text = json.load(r)["choices"][0]["message"]["content"]
+        for i in range(len(q.options)):
+            if chr(65 + i) in text[:8]:
+                return i
+        return 0

@@ -14,9 +14,10 @@ The loop is exposed at two altitudes:
   seeded with a LIST of initial designs, with an injectable per-step
   callback for telemetry);
 * :meth:`LuminaDSE.start` -> :class:`Campaign` — the stepwise
-  propose/observe view that a multi-campaign runner drives to run K
-  campaigns against ONE shared engine, fusing each round's candidate
-  evaluations into a single batched dispatch.
+  propose/observe view that :class:`~repro_torch.core.campaign.
+  CampaignRunner` drives to run K campaigns against ONE shared engine,
+  fusing each round's candidate evaluations into a single batched
+  dispatch.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ from typing import Callable, List, Optional, Set, Tuple
 
 import numpy as np
 
+from repro_torch.analysis.influence import (RuleAudit, cross_validate,
+                                            extract_influence_graph)
 from repro_torch.core.explore import ExplorationEngine
 from repro_torch.core.llm import LLMBackend, RuleOracle
 from repro_torch.core.memory import Sample, TrajectoryMemory
@@ -54,7 +57,7 @@ class DSEResult:
 class Campaign:
     """Stepwise view of ONE Lumina trajectory.
 
-    The driver (``LuminaDSE.run`` or a multi-campaign runner) alternates::
+    Its runner (``LuminaDSE.run`` or ``CampaignRunner``) alternates::
 
         idx, directive = campaign.propose()
         sample = engine.evaluate(idx, step=campaign.step, directive=directive)
@@ -185,6 +188,12 @@ class LuminaDSE:
             self._imap = derive_influence_map(self.proxy, space=self.space,
                                               seed=self.seed)
         return self._imap
+
+    def rule_audit(self) -> RuleAudit:
+        """Cross-validate the source-extracted influence graph against this
+        loop's probe-derived map: the auto-correction telemetry of §5.2
+        (source-vs-probe disagreements are candidate rule corrections)."""
+        return cross_validate(extract_influence_graph(), self.imap)
 
     # ------------------------------------------------------------------
     def start(self, init: Optional[np.ndarray] = None,

@@ -18,6 +18,7 @@ from typing import Dict, List, Optional, Set
 
 import numpy as np
 
+from repro_torch.analysis.influence import extract_influence_graph
 from repro_torch.perfmodel.critical_path import STALL_CLASSES
 from repro_torch.perfmodel.designspace import DesignSpace
 from repro_torch.perfmodel.evaluator import EvalRequest, as_evaluator
@@ -85,3 +86,19 @@ def _responds(vals: np.ndarray, rel_eps: float) -> bool:
     span = vals.max(axis=-1) - vals.min(axis=-1)
     scale = np.maximum(np.abs(vals).max(axis=-1), 1e-30)
     return bool((span / scale > rel_eps).any())
+
+
+def static_influence_map() -> InfluenceMap:
+    """The SAME InfluenceMap contract, acquired WITHOUT executing the model:
+    built from the influence graph extracted from the perfmodel source
+    (:mod:`repro_torch.analysis.influence`; the paper's literal 'LLM
+    statically analyses the simulator codebase' path).  Zero evaluator
+    dispatches — usable as ``LuminaDSE(imap=static_influence_map())`` — and
+    the probe map cross-validates it (:meth:`LuminaDSE.rule_audit`)."""
+    graph = extract_influence_graph()
+    metric_edges = {p: set(ms) for p, ms in graph.param_metrics().items()}
+    stall_edges: Dict[str, Set[str]] = {p: set() for p in graph.params}
+    for stall in graph.stalls:
+        for p in graph.params_for_stall(stall):
+            stall_edges[p].add(stall)
+    return InfluenceMap(metric_edges=metric_edges, stall_edges=stall_edges)

@@ -21,7 +21,10 @@ SUBPACKAGES = ("repro_torch", "repro_torch.perfmodel", "repro_torch.core",
                "repro_torch.models", "repro_torch.launch",
                "repro_torch.kernels.flash_attention",
                "repro_torch.kernels.rwkv6_scan",
-               "repro_torch.kernels.ssm_scan", "repro_torch.models.moe")
+               "repro_torch.kernels.ssm_scan", "repro_torch.models.moe",
+               "repro_torch.core.baselines", "repro_torch.core.bench",
+               "repro_torch.core.campaign", "repro_torch.obs",
+               "repro_torch.analysis.influence")
 
 
 def _forbidden(name: str) -> bool:
@@ -78,6 +81,20 @@ def test_entry_points_default_to_the_card():
         for call in calls:
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 call()
+
+
+def test_benchmark_generator_defaults_to_the_card():
+    """The DSE Benchmark builds its evaluators on the CUDA device unless
+    asked for the CPU; the baselines and campaigns run where their
+    evaluator does."""
+    from repro_torch.core.bench import generate_bottleneck, generate_suite
+    calls = [lambda: generate_suite(1, 1, 1),
+             lambda: generate_bottleneck(1)]
+    if not torch.cuda.is_available():
+        for call in calls:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+    assert len(generate_bottleneck(1, device="cpu")) == 1
 
 
 def test_ppa_eval_wrapper_rejects_what_the_kernel_does_not_take():
