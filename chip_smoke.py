@@ -123,7 +123,33 @@ line is printed:
    equal to the CPU's, question, options and answer; (d) the static
    influence map's edge counts and the rule audit (``metric_probe_only``
    empty), and a budget-20 LUMINA run on the static map through the
-   kernel.
+   kernel;
+14. the fault-tolerant evaluation path, every evaluation on
+   ``backend="cuda"``: (a) ``ShardedEvaluator`` in the inline, thread and
+   device modes at 2 and 4 workers and the process mode at 2, on 65,536
+   sampled designs at every detail level, each report bit for bit the
+   unsharded evaluator's, ``ppa_eval`` launched once an objectives shard
+   (process workers launch in their own CUDA contexts), and
+   ``get_evaluator(workers=2)`` equal to ``workers=1``; (b) a fault plan
+   with a crash, a corrupt payload, a slow shard and a hung one under a
+   1 s shard timeout: a bit-identical report, the retry, rejection,
+   timeout, eviction and re-registration counters; (c) a 2-worker sweep of
+   all 4,741,632 designs under a seeded crash/slow plan, replayed from
+   checkpoints every 4 chunks, equal to phase 4's (superior count, top-k,
+   stall seeds, front) with its chunks counted clean + replayed, and the
+   portfolio sweep killed at chunk 5 of 8 and resumed equal to a fresh run
+   (scratch under ``build/chip_smoke_faults/``, removed after); (d)
+   sweep-seeded campaigns at budget 60 through ``EvalService`` over a
+   chaotic 2-worker ``ShardedEvaluator``, equal to the plain evaluator's,
+   at most rounds + K + 2 fused service dispatches, ``service_counters``
+   with the reference's keys; the degrade ladder (stalls dispatch and its
+   narrowed retry crash, the objectives proxy rung serves through one
+   ``ppa_eval`` launch); (e) the Perfetto trace of (c) and (d) written,
+   its schema and completeness checks empty, and the fleet report; (f) one
+   objectives dispatch at B 131,072 through 1, 2 and 4 thread workers,
+   the chaos-off overhead (full sweeps without a plan and with an empty
+   one, in turns), the chaos sweep's wall, and the service's p50/p99
+   queue latency per QoS tier.
 
 Kernel launch counters are zeroed just before each part of the main path
 and read just after; every kernel of that part must have launched there.
@@ -1603,6 +1629,417 @@ def phase13_methods(torch, dev, res_k, smi: str, work_dir: str) -> dict:
     return out
 
 
+# ----------------------------------------------- fault-tolerant evaluation
+PHASE14_ROWS = 65_536            # designs per sharded evaluate in 14a
+PHASE14_SHARDINGS = (("inline", 2), ("inline", 4), ("thread", 2),
+                     ("thread", 4), ("device", 2), ("device", 4),
+                     ("process", 2))
+EVAL_DETAILS = ("objectives", "ppa", "stalls")
+CHAOS_TIMEOUT_S = 1.0            # 14b's shard deadline (a healthy shard: ms)
+CHAOS_SWEEP_SEED, CHAOS_SWEEP_RATE, CHAOS_SWEEP_EVERY = 3, 0.25, 4
+CHAOS_SWEEP_RETRIES = 8
+CHAOS_CAMPAIGN_SEED = 11
+PORTFOLIO_KILL_CHUNKS = 8
+DISPATCH_B, DISPATCH_WORKERS, DISPATCH_CALLS = SWEEP_CHUNK, (1, 2, 4), 10
+TIER_ROWS = {"interactive": 8, "batch": 1_024, "scavenger": 4_096}
+TIER_TICK_ROWS = 8_192           # 14f's service burst: fresh rows per tick
+# the reference's frozen EvalService.telemetry() keys (tests/test_obs.py),
+# plus the runner's resubmission count
+SERVICE_COUNTER_KEYS = frozenset(
+    {"submits", "cache_hits", "fused_dispatches", "coalesced_requests",
+     "degraded", "tiers", "campaign_resubmits"}
+    | {f"evaluator_{n}" for n in ("dispatches", "worker_dispatches",
+                                  "retried", "straggler_redispatches",
+                                  "timeouts", "corrupt_rejected",
+                                  "resizes")})
+
+
+def same_report(a, b, what: str) -> None:
+    """Fail unless two PPAReports are equal bit for bit."""
+    ok = (a.workloads == b.workloads and a.detail == b.detail
+          and np.array_equal(a.area, b.area))
+    for w in a.workloads:
+        ok = ok and np.array_equal(a.latency[w], b.latency[w])
+        for f in ("op_time", "stall", "op_class"):
+            fa, fb = getattr(a, f), getattr(b, f)
+            ok = ok and ((fa is None and fb is None)
+                         or np.array_equal(fa[w], fb[w]))
+    check(ok, f"{what}: differs from the unsharded report")
+
+
+def expected_sweep_chunks(plan, span_chunks, every: int):
+    """(chunks run, spans replayed) by a chaos sweep: a worker span fires
+    (span, chunk ordinal of the attempt) before each chunk, consumes each
+    event once, and replays a crashed attempt from its last checkpoint
+    (written every `every` chunks of an attempt), from scratch before the
+    first."""
+    events = {(w, d): plan.peek(w, d).kind
+              for w in range(len(span_chunks))
+              for d in range(max(span_chunks))
+              if plan.peek(w, d) is not None}
+    total = replays = 0
+    for w, n in enumerate(span_chunks):
+        saved = 0
+        while True:
+            pos, i, crashed = saved, 0, False
+            while pos < n:
+                if events.pop((w, i), None) == "crash":
+                    crashed = True
+                    break
+                pos, i, total = pos + 1, i + 1, total + 1
+                if i % every == 0:
+                    saved = pos
+            if not crashed:
+                break
+            replays += 1
+    return total, replays
+
+
+def phase14_faults(torch, dev, res_k, smi: str, work_dir: str,
+                   stop=None) -> dict:
+    """The fault-tolerant evaluation path on the card, every evaluation on
+    ``backend="cuda"``: (a) ShardedEvaluator in every local mode, (b) a
+    chaos plan with a hung shard, (c) a chaos sweep equal to phase 4's and
+    a killed-and-resumed portfolio sweep, (d) campaigns through a chaotic
+    EvalService and its degrade ladder, (e) the Perfetto trace and the
+    fleet report, (f) timings.  `res_k` is phase 4's sweep over [0, stop).
+    Returns the phase's ppa_eval launches on the path."""
+    import shutil
+
+    from repro_torch.core.campaign import CampaignRunner
+    from repro_torch.distributed import (EvalService, FaultEvent, FaultPlan,
+                                         ShardedEvaluator)
+    from repro_torch.kernels.ppa_eval import ppa_eval
+    from repro_torch.obs import (Tracer, completeness_errors, trace_events,
+                                 validate_trace_events, write_trace)
+    from repro_torch.obs.report import fleet_report
+    from repro_torch.perfmodel import (ModelEvaluator, OracleEvaluator,
+                                       SweepEngine, get_evaluator)
+    from repro_torch.perfmodel.designspace import SPACE
+    from repro_torch.perfmodel.evaluator import EvalRequest
+    from repro_torch.runtime import RetryPolicy
+    t_phase = time.perf_counter()
+    out = {"launches": 0}
+    stop = SPACE.size if stop is None else int(stop)
+    ev_k = get_evaluator("proxy", backend="cuda", device=dev)
+
+    def fresh():
+        return ModelEvaluator(ev_k.models, backend="cuda", device=dev)
+
+    # ---- 14a. ShardedEvaluator in every local mode, bit for bit
+    idx = SPACE.sample(np.random.default_rng(14), PHASE14_ROWS)
+    want = {d: fresh().evaluate(EvalRequest(idx, d)) for d in EVAL_DETAILS}
+    for mode, workers in PHASE14_SHARDINGS:
+        t0 = time.perf_counter()
+        # no speculative twins: each shard dispatches (and launches) once
+        sh = ShardedEvaluator(fresh(), workers=workers, mode=mode,
+                              speculate=False)
+        try:
+            for d in EVAL_DETAILS:
+                ppa_eval.launches = 0
+                w0 = sh.worker_dispatches
+                rep = sh.evaluate(EvalRequest(idx, d))
+                n_launch, shards = ppa_eval.launches, sh.worker_dispatches - w0
+                same_report(rep, want[d], f"{mode} x{workers} {d}")
+                # objectives launch the kernel once a shard; ppa and
+                # stalls run torch ops; a process worker counts its own
+                expect = (shards if d == "objectives" and mode != "process"
+                          else 0)
+                check(n_launch == expect,
+                      f"{mode} x{workers} {d}: {n_launch} ppa_eval launches "
+                      f"for {shards} shards, want {expect}")
+                out["launches"] += n_launch
+                if d == "objectives":
+                    obj = (shards, n_launch)
+        finally:
+            sh.close()
+        log(f"[14a] ShardedEvaluator {mode} x{workers}: {PHASE14_ROWS} "
+            f"designs at {'/'.join(EVAL_DETAILS)} bit for bit equal to the "
+            f"unsharded cuda evaluator; objectives in {obj[0]} shard(s), "
+            f"{obj[1]} ppa_eval launch(es) in this process"
+            f"{' (the workers launch their own)' if mode == 'process' else ''}"
+            f"; {time.perf_counter() - t0:.2f} s")
+    ev2 = get_evaluator("proxy", backend="cuda", workers=2, device=dev)
+    check(isinstance(ev2, ShardedEvaluator) and ev2.workers == 2,
+          "get_evaluator(workers=2) is not a 2-worker ShardedEvaluator")
+    for d in ("objectives", "stalls"):
+        same_report(ev2.evaluate(EvalRequest(idx, d)),
+                    ev_k.evaluate(EvalRequest(idx, d)),
+                    f"get_evaluator(workers=2) {d}")
+    log("[14a] get_evaluator('proxy', 'cuda', workers=2) equals workers=1 "
+        "(objectives, stalls)")
+
+    # ---- 14b. chaos on the card: crash, corrupt, slow and hang
+    plan = FaultPlan([FaultEvent(0, 0, "crash"), FaultEvent(1, 1, "corrupt"),
+                      FaultEvent(2, 2, "slow", delay_s=0.05),
+                      FaultEvent(3, 3, "hang")])
+    sh = ShardedEvaluator(fresh(), workers=4, mode="thread", fault_plan=plan,
+                          shard_timeout_s=CHAOS_TIMEOUT_S, speculate=False)
+    try:
+        ppa_eval.launches = 0
+        t0 = time.perf_counter()
+        rep = sh.evaluate(EvalRequest(idx, "objectives"))
+        chaos_s = time.perf_counter() - t0
+        n_launch = ppa_eval.launches
+        same_report(rep, want["objectives"], "chaos objectives")
+        same_report(sh.evaluate(EvalRequest(idx, "stalls")), want["stalls"],
+                    "chaos stalls")
+        inj = dict(sh._pool.injected)
+        reg = sh.registry
+        check(inj == {"crash": 1, "hang": 1, "slow": 1, "corrupt": 1}
+              and len(plan) == 0, f"chaos: injected {inj}, {len(plan)} left")
+        check(sh.retried == 3 and sh.corrupt_rejected == 1
+              and sh.timeouts == 1 and reg.evictions == 3
+              and reg.reregistrations == 3
+              and sorted(reg.live()) == [0, 1, 2, 3],
+              f"chaos counters: retried {sh.retried} corrupt_rejected "
+              f"{sh.corrupt_rejected} timeouts {sh.timeouts} evictions "
+              f"{reg.evictions} reregistrations {reg.reregistrations}")
+        # a crash and a hang never reach the worker; every other dispatch
+        # of the objectives request launched the kernel once
+        check(n_launch == 4 + 3 - 2,
+              f"chaos: {n_launch} ppa_eval launches, want 5")
+        out["launches"] += n_launch
+        log(f"[14b] chaos x4 (crash, corrupt, slow, hang; shard timeout "
+            f"{CHAOS_TIMEOUT_S} s): report bit for bit equal; retried "
+            f"{sh.retried}, corrupt_rejected {sh.corrupt_rejected}, timeouts "
+            f"{sh.timeouts}, evictions {reg.evictions}, re-registrations "
+            f"{reg.reregistrations}, ppa_eval launches {n_launch}, objectives "
+            f"request {chaos_s:.3f} s")
+    finally:
+        sh.close()
+
+    # ---- 14c. a chaos sweep equal to phase 4's, and a portfolio kill
+    os.makedirs(work_dir, exist_ok=True)
+    tracer = Tracer(proc="chip_smoke")
+    try:
+        eng = SweepEngine(ev_k, stall_topk=8, backend="cuda", tracer=tracer)
+        n_chunks = -(-stop // eng.chunk_size)
+        per = -(-n_chunks // 2)
+        span_chunks = (per, n_chunks - per)
+        splan = FaultPlan.seeded(CHAOS_SWEEP_SEED, workers=2,
+                                 dispatches=per, rate=CHAOS_SWEEP_RATE,
+                                 kinds=("crash", "slow"), delay_s=0.01)
+        want_chunks, replays = expected_sweep_chunks(
+            splan, span_chunks, CHAOS_SWEEP_EVERY)
+        check(replays >= 1, f"seed {CHAOS_SWEEP_SEED} crashes no span")
+        ppa_eval.launches = 0
+        res = eng.run(0, stop, workers=2, fault_plan=splan,
+                      checkpoint_path=os.path.join(work_dir, "chaos"),
+                      checkpoint_every=CHAOS_SWEEP_EVERY,
+                      span_retry=RetryPolicy(max_retries=CHAOS_SWEEP_RETRIES,
+                                             retryable=(RuntimeError,)))
+        n_launch = ppa_eval.launches
+        out["launches"] += n_launch
+        out["chaos_sweep_s"] = res.seconds
+        same_sweep(res, res_k, "chaos sweep",
+                   ("n_evaluated", "n_superior", "pareto_y", "pareto_ids",
+                    "topk_val", "topk_ids", "stall_topk_val",
+                    "stall_topk_ids", "archive_truncated"))
+        tel = eng.telemetry()
+        check(tel["chunks"] == want_chunks and n_launch == want_chunks,
+              f"chaos sweep: {tel['chunks']} chunks, {n_launch} launches; "
+              f"want {n_chunks} + {want_chunks - n_chunks} replayed")
+        log(f"[14c] chaos sweep x2 over {stop:,} designs (seed "
+            f"{CHAOS_SWEEP_SEED}: {splan.fired['crash']} crashes, "
+            f"{splan.fired['slow']} slow chunks, {replays} span replays from "
+            f"checkpoints every {CHAOS_SWEEP_EVERY} chunks): equal to phase "
+            f"4's sweep (n_superior {res.n_superior}, top-k ids, front "
+            f"{len(res.pareto_ids)}); telemetry chunks {tel['chunks']} = "
+            f"{n_chunks} + {tel['chunks'] - n_chunks} replayed, ppa_eval "
+            f"launches {n_launch}, wall {res.seconds:.3f} s")
+        zoo = get_evaluator("proxy", suite="zoo", device=dev)
+        peng = SweepEngine(zoo, stall_topk=8)
+        n = PORTFOLIO_KILL_CHUNKS * peng.chunk_size
+        clean = peng.run(0, n)
+        ck = os.path.join(work_dir, "portfolio")
+        try:
+            peng.run(0, n, checkpoint_path=ck, checkpoint_every=2,
+                     fault_plan=FaultPlan([FaultEvent(0, 5, "crash")]),
+                     span_retry=RetryPolicy(max_retries=0))
+            check(False, "the killed portfolio sweep did not fail")
+        except RuntimeError as exc:
+            check("failed after 0 retries" in str(exc),
+                  f"portfolio kill: {exc}")
+        same_sweep(peng.run(0, n, resume_from=ck), clean,
+                   "portfolio resume")
+        log(f"[14c] portfolio sweep killed at chunk 5 of "
+            f"{PORTFOLIO_KILL_CHUNKS} and resumed from its checkpoint: "
+            f"equal to a fresh run (robust and {len(clean.scenario_names)} "
+            f"scenario fronts)")
+
+        # ---- 14d. campaigns through a chaotic service, and its ladder
+        oracle = OracleEvaluator(ev_k, result=res_k)
+        seeds = res_k.stall_seeds()
+        proxy = fresh()
+        t0 = time.perf_counter()
+        plain = CampaignRunner(ev_k, proxy=proxy, oracle=oracle,
+                               seed=0).run(budget=CAMPAIGN_BUDGET,
+                                           seeds=seeds)
+        plain_s = time.perf_counter() - t0
+        cplan = FaultPlan.seeded(CHAOS_CAMPAIGN_SEED, workers=2,
+                                 dispatches=256, rate=0.3,
+                                 kinds=("crash", "slow", "corrupt"),
+                                 delay_s=0.01)
+        sharded = ShardedEvaluator(fresh(), workers=2, retries=5,
+                                   shard_timeout_s=5.0, fault_plan=cplan,
+                                   speculate=False, tracer=tracer)
+        svc = EvalService(sharded, tracer=tracer)
+        ppa_eval.launches = 0
+        t0 = time.perf_counter()
+        res_c = CampaignRunner(svc, proxy=proxy, oracle=oracle,
+                               seed=0).run(budget=CAMPAIGN_BUDGET,
+                                           seeds=seeds)
+        chaos_campaign_s = time.perf_counter() - t0
+        n_launch = ppa_eval.launches
+        out["launches"] += n_launch
+        k = len(res_c.per_campaign)
+        check(np.array_equal(np.stack([s.idx for s in res_c.samples]),
+                             np.stack([s.idx for s in plain.samples]))
+              and [(t.campaign, t.step, t.objectives, t.regret, t.phv_frac)
+                   for t in res_c.telemetry]
+              == [(t.campaign, t.step, t.objectives, t.regret, t.phv_frac)
+                  for t in plain.telemetry]
+              and res_c.phv == plain.phv,
+              "campaigns through the chaotic service differ from the plain "
+              "evaluator's")
+        check(svc.fused_dispatches <= res_c.rounds + k + 2,
+              f"{svc.fused_dispatches} fused dispatches for {res_c.rounds} "
+              f"rounds of {k} campaigns")
+        sc = res_c.service_counters
+        check(set(sc) == SERVICE_COUNTER_KEYS,
+              f"service_counters keys {sorted(sc)}")
+        check(cplan.scheduled > len(cplan)
+              and sc["evaluator_retried"] + sc["evaluator_corrupt_rejected"]
+              > 0, "the chaos plan never fired in the campaigns")
+        frac = res_c.phv_frac_curve()
+        log(f"[14d] campaigns through EvalService(ShardedEvaluator x2, chaos "
+            f"seed {CHAOS_CAMPAIGN_SEED}): {k} campaigns, budget "
+            f"{CAMPAIGN_BUDGET}, equal to the plain cuda evaluator's "
+            f"(samples, regret, phv fraction {frac[-1]:.6f}); {res_c.rounds} "
+            f"rounds, {svc.fused_dispatches} fused service dispatches; "
+            f"injected {dict(sharded._pool.injected)}, retried "
+            f"{sc['evaluator_retried']}, corrupt_rejected "
+            f"{sc['evaluator_corrupt_rejected']}, resubmits "
+            f"{sc['campaign_resubmits']}, degraded {sc['degraded']}; "
+            f"ppa_eval launches {n_launch} (the QuanE probes); wall "
+            f"{chaos_campaign_s:.3f} s (plain {plain_s:.3f} s)")
+        # the ladder: the stalls dispatch fails, narrowing fails, the
+        # objectives proxy rung serves, through the kernel
+        lplan = FaultPlan([FaultEvent(0, 0, "crash"),
+                           FaultEvent(0, 2, "crash")])
+        lsh = ShardedEvaluator(fresh(), workers=2, retries=0,
+                               fault_plan=lplan, speculate=False,
+                               tracer=tracer)
+        lsvc = EvalService(lsh, tracer=tracer)
+        rows = idx[:4_096]
+        ppa_eval.launches = 0
+        fut = lsvc.submit(EvalRequest(rows, "stalls"), client="ladder")
+        lsvc.tick()
+        rep = fut.result()
+        n_launch = ppa_eval.launches
+        out["launches"] += n_launch
+        check(rep.detail == "objectives"
+              and dict(lsvc.degraded) == {"deadline": 0, "narrow": 1,
+                                          "proxy": 1, "cached": 1},
+              f"ladder: detail {rep.detail}, degraded {dict(lsvc.degraded)}")
+        check(n_launch == 1, f"ladder: {n_launch} ppa_eval launches, want "
+              f"the proxy rung's 1")
+        same_report(rep, fresh().evaluate(EvalRequest(rows, "objectives")),
+                    "ladder proxy rung")
+        lsh.close()
+        log(f"[14d] degrade ladder: stalls dispatch and its narrowed retry "
+            f"crash, the objectives proxy rung dispatches on the card "
+            f"({n_launch} ppa_eval launch) and the request is served from "
+            f"those cached rows, bit for bit equal; degraded "
+            f"{dict(lsvc.degraded)}")
+
+        # ---- 14e. the Perfetto trace of (c) and (d), the fleet report
+        spans = tracer.spans()
+        obj = trace_events(spans)
+        path = write_trace(os.path.join(work_dir, "trace.json"), spans)
+        errs = validate_trace_events(obj) + completeness_errors(spans)
+        check(errs == [], f"trace: {errs[:5]}")
+        names = [s.name for s in spans]
+        log(f"[14e] trace {os.path.relpath(path, ROOT)}: {len(spans)} spans "
+            f"(sweep.run {names.count('sweep.run')}, sweep.span "
+            f"{names.count('sweep.span')}, campaign.round "
+            f"{names.count('campaign.round')}, service.tick "
+            f"{names.count('service.tick')}, shard {names.count('shard')}), "
+            f"{len(obj['traceEvents'])} events; schema and completeness "
+            f"checks empty")
+        for line in fleet_report(svc).splitlines():
+            log(f"[14e] {line}")
+        sharded.close()
+
+        # ---- 14f. times
+        big = SPACE.sample(np.random.default_rng(15), DISPATCH_B)
+        saved = ppa_eval.launches
+        for w in DISPATCH_WORKERS:
+            sh = ShardedEvaluator(fresh(), workers=w, mode="thread")
+            try:
+                for _ in range(2):
+                    sh.objectives(big)                    # warm
+                ts = []
+                for _ in range(DISPATCH_CALLS):
+                    t0 = time.perf_counter()
+                    sh.objectives(big)
+                    ts.append(time.perf_counter() - t0)
+                log(f"[14f] one objectives dispatch at B {DISPATCH_B:,} "
+                    f"through {w} thread worker(s): median "
+                    f"{np.median(ts) * 1e3:.3f} ms, min {min(ts) * 1e3:.3f} "
+                    f"ms over {DISPATCH_CALLS} calls ({smi})")
+                if w == 2:
+                    profile_device(torch, lambda: [sh.objectives(big)
+                                                   for _ in range(3)],
+                                   "14f", f"3 objectives dispatches at B "
+                                   f"{DISPATCH_B:,} through 2 thread "
+                                   f"workers", "ppa_eval")
+            finally:
+                sh.close()
+        profile_device(torch, lambda: eng.run(
+            0, 4 * eng.chunk_size, workers=2,
+            fault_plan=FaultPlan([FaultEvent(0, 1, "crash")])), "14f",
+            "a 2-worker chaos sweep over 4 chunks (one crash)", "ppa_eval")
+        plain_eng = SweepEngine(ev_k, stall_topk=8, backend="cuda")
+        walls = {"off": [], "empty plan": []}
+        for what in ("off", "empty plan", "empty plan", "off"):
+            plan_ = FaultPlan() if what == "empty plan" else None
+            walls[what].append(plain_eng.run(0, stop,
+                                             fault_plan=plan_).seconds)
+        off, on = np.mean(walls["off"]), np.mean(walls["empty plan"])
+        log(f"[14f] chaos-off overhead: full sweep without a plan "
+            f"{'/'.join(f'{t:.3f}' for t in walls['off'])} s, with an empty "
+            f"FaultPlan {'/'.join(f'{t:.3f}' for t in walls['empty plan'])} "
+            f"s ({100 * (on - off) / off:+.1f}%); chaos sweep x2 "
+            f"{out['chaos_sweep_s']:.3f} s ({smi})")
+        tsvc = EvalService(ShardedEvaluator(fresh(), workers=2),
+                           max_rows_per_tick=TIER_TICK_ROWS)
+        rng = np.random.default_rng(16)
+        for _ in range(8):
+            for tier, n_rows in TIER_ROWS.items():
+                tsvc.submit(EvalRequest(SPACE.sample(rng, n_rows),
+                                        "objectives"),
+                            client=tier, tier=tier)
+        while tsvc.tick():
+            pass
+        tsvc.evaluator.close()
+        ppa_eval.launches = saved             # timing launches are not the path's
+        tiers = tsvc.telemetry()["tiers"]
+        log("[14f] service queue latency, 8 requests a tier in one burst "
+            "(rows " + ", ".join(f"{t} {n}" for t, n in TIER_ROWS.items())
+            + "): " + "; ".join(
+                f"{t} p50 {d['p50_ms']} ms p99 {d['p99_ms']} ms"
+                for t, d in tiers.items()))
+        camp = sc["tiers"]["interactive"]
+        log(f"[14f] campaign service, interactive tier: {camp['served']} "
+            f"requests, p50 {camp['p50_ms']} ms, p99 {camp['p99_ms']} ms")
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    log(f"[14] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1917,13 +2354,17 @@ def main() -> int:
     methods = phase13_methods(torch, dev, res_k, smi, os.path.join(
         ROOT, "build", "chip_smoke_campaigns"))
 
+    # ---- 14. the fault-tolerant evaluation path ------------------------------
+    faults = phase14_faults(torch, dev, res_k, smi, os.path.join(
+        ROOT, "build", "chip_smoke_faults"))
+
     kt = times["both"]                 # the main path's launch: a chunk
     kernels = [{
         "name": "ppa_eval", "route": "cuda",
         "source": "src/repro_torch/kernels/ppa_eval/ppa_eval.cu",
         "replaces": "src/repro/kernels/ppa_eval/kernel.py:42",
         "launches": (sweep_launches + loop_launches + zoo["launches"]
-                     + methods["launches"]),
+                     + methods["launches"] + faults["launches"]),
         "max_abs_err": max(max_abs_err, zoo["max_abs_err"]),
         "ms": kt["ms"], "plain_ms": kt["plain_ms"],
         "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],

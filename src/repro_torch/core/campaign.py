@@ -15,12 +15,16 @@ campaign then observes its (now cache-resident) result dispatch-free.  K
 campaigns at budget B therefore cost ~B/K + O(1) fused dispatches instead
 of B.
 
-The runner takes an ``Evaluator``: it owns the batching, one prefetched
-request per round.  (The reference's runner also accepts an ``EvalService``
-that coalesces the campaigns' requests itself; the port has no service
-yet.)  A round asks for stall attribution, which runs on torch ops on
-every backend; the ``cuda`` backend's ``ppa_eval`` launch serves only the
-objectives dispatches of the proxy tier (QuanE's sensitivity probes).
+With a plain ``Evaluator`` the runner owns the batching: one prefetched
+request per round.  With an :class:`~repro_torch.distributed.service.
+EvalService` each campaign submits its own ``stalls`` request on the
+``interactive`` tier (its label is the client) and the service's
+coalescing tick fuses them into one dispatch; a failed request is
+resubmitted once (``campaign_service_resubmits``), and the result's
+``service_counters`` is the service's ``telemetry()``.  A round asks for
+stall attribution, which runs on torch ops on every backend; the ``cuda``
+backend's ``ppa_eval`` launch serves the objectives dispatches of the
+proxy tier (QuanE's sensitivity probes) and a service's proxy rung.
 
 ``scenario=`` (or ``workloads=``) points the whole runner at ONE scenario
 of a multi-workload zoo-suite evaluator: the campaigns optimize that
@@ -59,8 +63,8 @@ from repro_torch.core.memory import Sample, TrajectoryMemory
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NOOP
 from repro_torch.perfmodel.designspace import DesignSpace, SPACE, A100_REFERENCE
-from repro_torch.perfmodel.evaluator import (Evaluator, OracleEvaluator,
-                                             as_evaluator)
+from repro_torch.perfmodel.evaluator import (EvalRequest, Evaluator,
+                                             OracleEvaluator, as_evaluator)
 
 if TYPE_CHECKING:                       # avoid perfmodel <-> core import cycle
     from repro_torch.perfmodel.sweep import SweepResult
@@ -137,8 +141,8 @@ class CampaignSetResult:
     # ^ final per-campaign scheduling weights (floor + gain EWMA) under
     #   the adaptive policy; None under uniform
     service_counters: Optional[dict] = None
-    # ^ the reference's EvalService.telemetry() snapshot when its runner
-    #   drove a service; the port has no service, so always None
+    # ^ EvalService.telemetry() snapshot (+ campaign_resubmits) when the
+    #   runner drove a service; None for a plain evaluator
     stall_histogram: Optional[Dict[str, int]] = None
     # ^ dominant-stall counts over all budgeted observations: which AHK
     #   rules fired (and how often) across the campaign set
@@ -261,18 +265,25 @@ class CampaignRunner:
                  primary_map: Optional[Dict[str, str]] = None,
                  registry: Optional[MetricsRegistry] = None,
                  tracer=None):
+        # deferred import: repro_torch.distributed pulls perfmodel (and
+        # through it this module) back in — binding it lazily breaks the
+        # cycle for processes whose import chain starts there
+        from repro_torch.distributed.service import EvalService
         self.space = space
         self.evaluator = as_evaluator(evaluator)
-        self.tracer = tracer if tracer is not None else NOOP
+        self._service = (self.evaluator
+                         if isinstance(self.evaluator, EvalService) else None)
+        # default to the service's tracer so campaign spans root the same
+        # causal tree its tick/dispatch spans grow under
+        self.tracer = (tracer if tracer is not None
+                       else getattr(self._service, "tracer", None) or NOOP)
         self.metrics = registry if registry is not None else MetricsRegistry()
         self._c_rounds = self.metrics.counter(
             "campaign_rounds", "fused-dispatch rounds driven")
         self._c_obs = self.metrics.counter(
             "campaign_observations", "budgeted observations, per campaign",
             labelnames=("campaign",))
-        # the reference's instrument set, so the v5 snapshot reads the
-        # same; without a service nothing is resubmitted and it stays 0
-        self.metrics.counter(
+        self._c_resubmits = self.metrics.counter(
             "campaign_service_resubmits",
             "failed service requests resubmitted once")
         if scenario is not None:
@@ -304,6 +315,38 @@ class CampaignRunner:
                              engine=self.ee, workloads=workloads,
                              primary_map=primary_map)
         self.ref_point = self.dse.ref_point
+
+    @property
+    def service_resubmits(self) -> int:
+        """Failed-request resubmissions across all :meth:`run` calls."""
+        return int(self._c_resubmits.value())
+
+    def _service_round(self, proposals) -> None:
+        """One round through the service: every campaign submits its own
+        ``stalls`` request on the interactive tier (campaign traffic is
+        latency-critical for the human in the loop, so background batch
+        and scavenger traffic cannot starve the rounds), the service's
+        tick fuses them, and a failed request gets ONE resubmission before
+        its error surfaces (worker loss heals between ticks)."""
+        svc = self._service
+
+        def submit(p):
+            return svc.submit(EvalRequest(p[2][None, :], detail="stalls"),
+                              client=p[0], tier="interactive")
+
+        futures = [submit(p) for p in proposals]
+        svc.tick()
+        while not all(f.done() for f in futures):
+            svc.tick()                       # row-capped service ticks
+        retried = []
+        for p, fut in zip(proposals, futures):
+            if fut.exception() is not None:
+                self._c_resubmits.inc()
+                retried.append(submit(p))
+        while retried and not all(f.done() for f in retried):
+            svc.tick()
+        for fut in retried:
+            fut.result()                     # a second failure is real
 
     # ------------------------------------------------------------------
     def seed_starts(self, seeds: Mapping[str, np.ndarray],
@@ -415,8 +458,15 @@ class CampaignRunner:
                         idx, directive = camp.propose()
                         proposals.append((label, camp, idx, directive))
                     # ---- the fused round dispatch: K candidates, ONE
-                    # dispatch (one prefetched EvalRequest)
-                    self.ee.prefetch(np.stack([p[2] for p in proposals]))
+                    # dispatch.  With a plain evaluator the RUNNER batches
+                    # (one prefetched EvalRequest); with an EvalService each
+                    # campaign submits its own request and the SERVICE's
+                    # coalescing tick fuses them.
+                    if self._service is not None:
+                        self._service_round(proposals)
+                    else:
+                        self.ee.prefetch(np.stack([p[2]
+                                                   for p in proposals]))
                     for label, camp, idx, directive in proposals:
                         sample = self.ee.evaluate(idx, step=camp.step,
                                                   directive=directive)
@@ -465,7 +515,9 @@ class CampaignRunner:
             budget_weights=({lb: round(ADAPTIVE_WEIGHT_FLOOR + g, 4)
                              for lb, g in gain_ewma.items()}
                             if self.policy == "adaptive" else None),
-            service_counters=None,
+            service_counters=(dict(self._service.telemetry(),
+                                   campaign_resubmits=self.service_resubmits)
+                              if self._service is not None else None),
             stall_histogram=dict(self.ee.stall_counts),
             rule_audit=self.dse.rule_audit().as_dict(),
             metrics=self.metrics.snapshot(),

@@ -6,9 +6,14 @@
 - :mod:`repro_torch.obs.trace` — ``Span``/``Tracer`` with per-thread
   buffers and explicit cross-thread parenting.  ``NOOP`` is the default.
 
-The exporters (Perfetto ``trace_event`` JSON, flat metrics CSV) and the
-fleet report are not ported yet.  This package is a leaf: it imports
-nothing from the rest of ``repro_torch``.
+- :mod:`repro_torch.obs.export` — Perfetto/Chrome ``trace_event`` JSON,
+  flat metrics JSON/CSV snapshots, span-tree validation and ASCII
+  rendering.
+- :mod:`repro_torch.obs.report` — ``python -m repro_torch.obs.report``
+  fleet dashboard from a live ``EvalService`` or a saved snapshot.
+
+This package is a leaf: it imports nothing from the rest of
+``repro_torch``.
 """
 
 from repro_torch.obs.metrics import (
@@ -22,6 +27,17 @@ from repro_torch.obs.metrics import (
 )
 from repro_torch.obs.trace import NOOP, NoopTracer, Span, Tracer
 
+from repro_torch.obs.export import (
+    build_tree,
+    completeness_errors,
+    metrics_csv_lines,
+    render_tree,
+    trace_events,
+    validate_trace_events,
+    write_metrics_json,
+    write_trace,
+)
+
 __all__ = [
     "Clock",
     "Counter",
@@ -34,4 +50,12 @@ __all__ = [
     "NoopTracer",
     "Span",
     "Tracer",
+    "build_tree",
+    "completeness_errors",
+    "metrics_csv_lines",
+    "render_tree",
+    "trace_events",
+    "validate_trace_events",
+    "write_metrics_json",
+    "write_trace",
 ]

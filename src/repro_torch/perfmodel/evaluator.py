@@ -354,6 +354,8 @@ class ModelEvaluator:
                 "and compass-knob set (their op terms fuse into one pass)")
         self.stacked = eligible if stacked is None else bool(stacked)
         self.dispatches = 0
+        # a sharded evaluator's thread workers share this evaluator
+        self._count_lock = threading.Lock()
         self._fns: Dict[tuple, Callable] = {}
         self._stacks: Dict[Tuple[str, ...], WorkloadStack] = {}
 
@@ -434,7 +436,8 @@ class ModelEvaluator:
                            f"have {self.workloads}")
         fn = self._fused_fn(request.detail, names)
         out = _bucketed_call(fn, request.idx, self.device)   # ONE dispatch
-        self.dispatches += 1
+        with self._count_lock:
+            self.dispatches += 1
         per = out["per_workload"]
         detail = request.detail
         rep = PPAReport(
@@ -626,7 +629,8 @@ _PAPER_EVALUATORS: Dict[tuple, "Evaluator"] = {}
 def get_evaluator(tier: str = "proxy", backend: Optional[str] = None,
                   *, oracle_stop: Optional[int] = None,
                   oracle_store=None,
-                  workers: int = 1, suite: str = "paper",
+                  workers: int = 1, mode: str = "auto",
+                  suite: str = "paper",
                   device: DeviceLike = None) -> Evaluator:
     """The paper-workload (or zoo-portfolio) evaluator per tier (memoized
     per device).
@@ -639,6 +643,12 @@ def get_evaluator(tier: str = "proxy", backend: Optional[str] = None,
     oracle_store: opt-in persistent sweep-artifact store for the oracle
              tier (``True`` = ``~/.cache/repro_torch-oracle/``, or a
              directory path).
+    workers: > 1 wraps the evaluator in a :class:`~repro_torch.distributed.
+             sharded.ShardedEvaluator` that fans each EvalRequest's batch
+             across N workers (`mode`: "thread" | "process" | "device" |
+             "inline" | "auto"); the report stays bit-identical to the
+             local path.  ``workers=1`` is the plain evaluator, whatever
+             the mode.
     suite: "paper" — the GPT-3 (ttft, tpot) pair, one scenario;
            "zoo"   — every assigned architecture config as a scenario
            (``<arch>:prefill`` / ``<arch>:decode`` workload pairs from
@@ -646,18 +656,19 @@ def get_evaluator(tier: str = "proxy", backend: Optional[str] = None,
            workloads in ONE stacked dispatch; ``.scenarios`` drives the
            portfolio sweep.
     device:  the torch device; None = the CUDA device (raises without one).
-
-    Sharded evaluation (``workers > 1``) is not ported yet and raises.
     """
     if tier not in TIERS:
         raise ValueError(f"tier must be one of {TIERS}, got {tier!r}")
     if suite not in SUITES:
         raise ValueError(f"suite must be one of {SUITES}, got {suite!r}")
-    if int(workers) != 1:
-        raise NotImplementedError("workers > 1 (sharded evaluation) is not "
-                                  "ported yet")
+    from repro_torch.distributed.sharded import MODES  # leaf dep
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    workers = max(1, int(workers))
+    if workers == 1:
+        mode = "auto"      # inert knobs: collapse onto the memoized base key
     dev = resolve_device(device)
-    key = (tier, backend, oracle_stop, suite,
+    key = (tier, backend, oracle_stop, workers, mode, suite,
            None if not oracle_store else str(oracle_store), str(dev))
     cached = _PAPER_EVALUATORS.get(key)
     if cached is not None:
@@ -666,8 +677,8 @@ def get_evaluator(tier: str = "proxy", backend: Optional[str] = None,
     if tier == "oracle":
         base_backend = backend or "roofline"
         base_tier = "target" if base_backend == "compass" else "proxy"
-        base = get_evaluator(base_tier, base_backend, suite=suite,
-                             device=dev)
+        base = get_evaluator(base_tier, base_backend, workers=workers,
+                             mode=mode, suite=suite, device=dev)
         ev: Evaluator = OracleEvaluator(base, stop=oracle_stop,
                                         oracle_store=oracle_store)
     else:
@@ -678,6 +689,9 @@ def get_evaluator(tier: str = "proxy", backend: Optional[str] = None,
         models = {nm: cls(wl) for nm, wl in wls.items()}
         ev = ModelEvaluator(models, tier=tier, backend=backend,
                             scenarios=scenarios, device=dev)
+        if workers > 1:
+            from repro_torch.distributed.sharded import ShardedEvaluator
+            ev = ShardedEvaluator(ev, workers=workers, mode=mode)
     _PAPER_EVALUATORS[key] = ev
     return ev
 

@@ -19,6 +19,13 @@ model (or the CUDA ``ppa_eval`` kernel) in fixed-size chunks, with
   one-process result exactly;
 * checkpoint/resume of partial sweeps (atomic, sha256-digested; a corrupt
   file is quarantined, never resumed);
+* fault injection and replay: ``run(fault_plan=, span_retry=)`` fires a
+  seeded :class:`~repro_torch.distributed.faults.FaultPlan` per (span,
+  chunk) and replays a crashed span from its own checkpoint (or from
+  scratch), so a chaotic sweep equals a clean one bit for bit;
+* observability: run/chunk/id counters and a per-chunk wall-time
+  histogram in a :class:`~repro_torch.obs.metrics.MetricsRegistry`
+  (``telemetry()``), and ``sweep.run`` / ``sweep.span`` trace spans;
 * ``chunk_size="auto"``: a short timed probe over ``chunk_candidates``
   picks the fastest chunk size (memoized per process);
 * **portfolio mode**: an evaluator carrying several
@@ -56,6 +63,9 @@ import torch
 
 from repro_torch.core.pareto import ParetoArchive
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import NOOP
+from repro_torch.runtime.fault import RetryPolicy, run_with_retries
 from repro_torch.perfmodel.designspace import DesignSpace, SPACE, A100_REFERENCE
 from repro_torch.perfmodel.hardware import derive_hardware
 from repro_torch.perfmodel.roofline import (_dominant_class, _seq_sum,
@@ -235,6 +245,11 @@ class SweepEngine:
     robust:
         Portfolio scalarization of the reference-normalized latencies:
         ``"worst"`` (max over scenarios) or ``"geomean"``.
+    registry / tracer:
+        Optional :class:`~repro_torch.obs.metrics.MetricsRegistry` and
+        tracer; the engine registers run/chunk/id counters and a per-chunk
+        wall time histogram, and wraps ``run`` / worker spans in trace
+        spans.  Defaults: a private registry, and the no-op tracer.
     """
 
     def __init__(self, ttft_model, tpot_model=None,
@@ -248,7 +263,9 @@ class SweepEngine:
                  robust: str = "worst",
                  chunk_candidates: Tuple[int, ...] = (65_536, 131_072,
                                                       262_144),
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 registry: Optional[MetricsRegistry] = None,
+                 tracer=None):
         scenarios = None
         if tpot_model is None and hasattr(ttft_model, "models"):
             evaluator = ttft_model
@@ -347,6 +364,17 @@ class SweepEngine:
         self.chunk_size = chunk_size
         self._iota = torch.arange(self.chunk_size, dtype=torch.int32,
                                   device=self.device)
+
+        self.tracer = tracer if tracer is not None else NOOP
+        self.metrics = registry if registry is not None else MetricsRegistry()
+        self._c_runs = self.metrics.counter(
+            "sweep_runs", "completed run() calls")
+        self._c_chunks = self.metrics.counter(
+            "sweep_chunks", "device chunk steps executed")
+        self._c_ids = self.metrics.counter(
+            "sweep_ids", "design ids evaluated (valid rows)")
+        self._h_chunk = self.metrics.histogram(
+            "sweep_chunk_s", "wall time per chunk step incl. host reduce (s)")
 
     def _init_portfolio(self, ref_point: Optional[np.ndarray]) -> None:
         """Union op table, per-workload gather layout and references."""
@@ -709,7 +737,9 @@ class SweepEngine:
             checkpoint_path: Optional[str] = None,
             checkpoint_every: Optional[int] = None,
             resume_from: Optional[str] = None,
-            progress: bool = False) -> SweepResult:
+            progress: bool = False,
+            fault_plan=None,
+            span_retry: Optional[RetryPolicy] = None) -> SweepResult:
         """Sweep flat ids [start, stop) and reduce to a SweepResult.
 
         ``workers=N`` splits the range into N contiguous chunk-aligned spans
@@ -724,34 +754,108 @@ class SweepEngine:
         Multi-worker runs keep one checkpoint file per worker
         (``{path}.w{i}of{N}``), so a resume must use the same range and
         worker count.
+
+        ``fault_plan`` injects a seeded :class:`~repro_torch.distributed.
+        faults.FaultPlan` into the span loop (worker = span index, dispatch
+        = chunk ordinal): a ``crash`` event aborts the span, which is then
+        REPLAYED under ``span_retry`` (default: 2 retries) from its own
+        last checkpoint if one exists, from scratch otherwise; a ``slow``
+        event sleeps its delay.  The streamed reduction is deterministic
+        either way, so the merged result equals a fault-free run bit for
+        bit.
         """
         stop = self.size if stop is None else min(int(stop), self.size)
         workers = max(1, int(workers))
+        tr = self.tracer
         t0 = time.perf_counter()
-        if workers == 1:
-            states = [self._run_range(
-                start, stop, checkpoint_path=checkpoint_path,
-                checkpoint_every=checkpoint_every, resume_from=resume_from,
-                progress=progress)]
-        else:
-            spans = self._worker_spans(start, stop, workers)
-            n = len(spans)
-            with ThreadPoolExecutor(max_workers=n,
-                                    thread_name_prefix="sweep") as ex:
-                futs = []
-                for w, (s0, s1) in enumerate(spans):
-                    suffix = f".w{w}of{n}"
-                    futs.append(ex.submit(
-                        self._run_range, s0, s1,
-                        checkpoint_path=(f"{checkpoint_path}{suffix}"
-                                         if checkpoint_path else None),
-                        checkpoint_every=checkpoint_every,
-                        resume_from=(f"{resume_from}{suffix}"
-                                     if resume_from else None),
-                        progress=progress, label=f"w{w}: ",
-                        fp_extra=f"|span={s0}:{s1}"))
-                states = [f.result() for f in futs]
+        with tr.span("sweep.run", start=int(start), stop=int(stop),
+                     workers=workers):
+            parent = tr.current_ctx()
+            if workers == 1:
+                states = [self._run_span(
+                    0, start, stop, checkpoint_path=checkpoint_path,
+                    checkpoint_every=checkpoint_every,
+                    resume_from=resume_from,
+                    progress=progress, label="", fp_extra="",
+                    fault_plan=fault_plan, span_retry=span_retry,
+                    trace_parent=parent)]
+            else:
+                spans = self._worker_spans(start, stop, workers)
+                n = len(spans)
+                with ThreadPoolExecutor(max_workers=n,
+                                        thread_name_prefix="sweep") as ex:
+                    futs = []
+                    for w, (s0, s1) in enumerate(spans):
+                        suffix = f".w{w}of{n}"
+                        futs.append(ex.submit(
+                            self._run_span, w, s0, s1,
+                            checkpoint_path=(f"{checkpoint_path}{suffix}"
+                                             if checkpoint_path else None),
+                            checkpoint_every=checkpoint_every,
+                            resume_from=(f"{resume_from}{suffix}"
+                                         if resume_from else None),
+                            progress=progress, label=f"w{w}: ",
+                            fp_extra=f"|span={s0}:{s1}",
+                            fault_plan=fault_plan, span_retry=span_retry,
+                            trace_parent=parent))
+                    states = [f.result() for f in futs]
+            self._c_runs.inc()
         return self._reduce_states(states, time.perf_counter() - t0)
+
+    def _run_span(self, worker: int, start: int, stop: int, *,
+                  checkpoint_path: Optional[str],
+                  checkpoint_every: Optional[int],
+                  resume_from: Optional[str], progress: bool,
+                  label: str, fp_extra: str,
+                  fault_plan=None,
+                  span_retry: Optional[RetryPolicy] = None,
+                  trace_parent=None) -> Dict:
+        """One worker span, replayed on crash: a failed attempt resumes
+        from the span's own atomic checkpoint when one exists, from
+        scratch otherwise — deterministic either way.
+
+        ``trace_parent`` is the sweep.run span ctx: worker spans run on
+        pool threads, so parenting is explicit, not thread-inherited."""
+        tr = self.tracer
+        sp = (tr.start("sweep.span", parent=trace_parent, detached=True,
+                       worker=worker, start=int(start), stop=int(stop))
+              if tr.enabled else None)
+
+        def attempt(resume: Optional[str]) -> Dict:
+            return self._run_range(
+                start, stop, checkpoint_path=checkpoint_path,
+                checkpoint_every=checkpoint_every, resume_from=resume,
+                progress=progress, label=label, fp_extra=fp_extra,
+                fault_plan=fault_plan, worker_slot=worker)
+
+        try:
+            if fault_plan is None and span_retry is None:
+                return attempt(resume_from)
+            policy = (span_retry if span_retry is not None
+                      else RetryPolicy(max_retries=2,
+                                       retryable=(RuntimeError,)))
+            resume = {"from": resume_from}
+
+            def restore(attempt_no: int) -> None:
+                if sp is not None:
+                    sp.attrs["replays"] = attempt_no
+                resume["from"] = None
+                if checkpoint_path:
+                    f = (checkpoint_path if checkpoint_path.endswith(".npz")
+                         else f"{checkpoint_path}.npz")
+                    if os.path.exists(f):
+                        resume["from"] = checkpoint_path
+
+            return run_with_retries(lambda: attempt(resume["from"]), restore,
+                                    policy)
+        except Exception as exc:
+            if sp is not None:
+                sp.attrs["error"] = str(exc)
+                tr.finish(sp, status="error")
+            raise
+        finally:
+            if sp is not None:
+                tr.finish(sp)      # idempotent: no-op on the error path
 
     def _worker_spans(self, start: int, stop: int,
                       workers: int) -> List[Tuple[int, int]]:
@@ -793,9 +897,11 @@ class SweepEngine:
                    checkpoint_every: Optional[int] = None,
                    resume_from: Optional[str] = None,
                    progress: bool = False, label: str = "",
-                   fp_extra: str = "") -> Dict:
+                   fp_extra: str = "", fault_plan=None,
+                   worker_slot: int = 0) -> Dict:
         """Stream one contiguous id span; returns its final state dict
-        (plus the resumed-eval count under ``"resumed"``)."""
+        (plus the resumed-eval count under ``"resumed"``).  ``fault_plan``
+        fires (``worker_slot``, chunk ordinal) before each chunk."""
         state = self._load(resume_from, fp_extra) if resume_from else None
         if state is None:          # no checkpoint, or quarantined as corrupt
             state = self._fresh_state(start)
@@ -805,6 +911,15 @@ class SweepEngine:
         t0 = time.perf_counter()
         chunk_i = 0
         while state["next"] < stop:
+            if fault_plan is not None:
+                ev = fault_plan.fire(worker_slot, chunk_i)
+                if ev is not None and ev.kind == "crash":
+                    from repro_torch.distributed.faults import WorkerFault
+                    raise WorkerFault(f"injected sweep crash: worker "
+                                      f"{worker_slot} chunk {chunk_i}")
+                if ev is not None and ev.kind == "slow":
+                    time.sleep(ev.delay_s)
+            t_chunk = time.perf_counter()
             s = state["next"]
             filt = np.stack([self._filter_from_archive(a, rows)
                              for a in archives])
@@ -820,6 +935,9 @@ class SweepEngine:
             state["next"] = min(s + self.chunk_size, stop)
             state["carry"] = carry
             chunk_i += 1
+            self._c_chunks.inc()
+            self._c_ids.inc(state["next"] - s)
+            self._h_chunk.observe(time.perf_counter() - t_chunk)
             if progress:
                 here = int(carry["n_eval"]) - n_eval_resumed
                 print(f"{label}sweep: {state['next']:,}/{stop:,} ids  "
@@ -922,6 +1040,16 @@ class SweepEngine:
         # resumed runs only time the ids swept in *this* process
         res.points_per_sec = (n_eval - resumed) / max(seconds, 1e-9)
         return res
+
+    # ------------------------------------------------------------------
+    def telemetry(self) -> dict:
+        """Registry view of the engine's streaming counters."""
+        return {
+            "runs": int(self._c_runs.value()),
+            "chunks": int(self._c_chunks.value()),
+            "ids": int(self._c_ids.value()),
+            "chunk_s": self._h_chunk.stats(),
+        }
 
     # ------------------------------------------------------------------
     def _save(self, path: str, state: Dict, fp_extra: str = "") -> None:

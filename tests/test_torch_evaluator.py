@@ -83,8 +83,10 @@ def test_cuda_backend_rules():
     assert np.array_equal(zoo_k.objectives(IDX[:50]),
                           zoo_r.objectives(IDX[:50]))
     assert zoo_k.dispatches == d0 + 1
-    with pytest.raises(NotImplementedError):
-        get_evaluator("proxy", workers=2, device="cpu")
+    # workers > 1 shards the kernel backend's dispatch: the same numbers
+    sharded = get_evaluator("proxy", backend="cuda", workers=2, device="cpu")
+    assert sharded.backend == "cuda" and sharded.workers == 2
+    assert np.array_equal(sharded.objectives(IDX), ev_k.objectives(IDX))
 
 
 def test_views_and_single_model_evaluators():

@@ -24,7 +24,9 @@ SUBPACKAGES = ("repro_torch", "repro_torch.perfmodel", "repro_torch.core",
                "repro_torch.kernels.ssm_scan", "repro_torch.models.moe",
                "repro_torch.core.baselines", "repro_torch.core.bench",
                "repro_torch.core.campaign", "repro_torch.obs",
-               "repro_torch.analysis.influence")
+               "repro_torch.analysis.influence", "repro_torch.runtime",
+               "repro_torch.distributed", "repro_torch.obs.export",
+               "repro_torch.obs.report")
 
 
 def _forbidden(name: str) -> bool:
@@ -73,7 +75,8 @@ def test_entry_points_default_to_the_card():
     calls = [lambda: get_evaluator("proxy"),
              lambda: make_evaluator({"a": gpt3_layer_prefill()}),
              lambda: ModelEvaluator({"a": m1}),
-             lambda: evaluator_for_model(m1)]
+             lambda: evaluator_for_model(m1),
+             lambda: get_evaluator("proxy", workers=2)]
     if torch.cuda.is_available():
         for call in calls:
             assert call().device.type == "cuda"

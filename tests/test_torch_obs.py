@@ -1,17 +1,38 @@
-"""The port's metrics registry and tracer against the reference's: the same
-calls on a manual clock give the same snapshot, flat map, CSV and spans."""
+"""The port's metrics registry, tracer, exporters and fleet report against
+the reference's: the same calls on a manual clock give the same snapshot,
+flat map, CSV and spans; the same spans give the same Perfetto events,
+tree checks and ASCII tree; the same snapshot gives the same dashboard;
+the service's telemetry keeps the reference's frozen key sets; and the
+sweep's spans form the reference's tree."""
 import json
 import sys
 import threading
 
+import numpy as np
 import pytest
 
+from repro.obs import export as j_export
 from repro.obs import metrics as j_metrics
+from repro.obs import report as j_report
 from repro.obs import trace as j_trace
+from repro.perfmodel import get_evaluator as j_get_evaluator
+from repro.perfmodel.sweep import SweepEngine as JSweepEngine
+from repro.distributed import FaultEvent as JFaultEvent
+from repro.distributed import FaultPlan as JFaultPlan
+from repro_torch.distributed import (DEGRADE_RUNGS, QOS_TIERS, EvalService,
+                                     FaultEvent, FaultPlan, ShardedEvaluator)
 from repro_torch.obs import (NOOP, Counter, CounterView, ManualClock,
-                             MetricsRegistry, Span, Tracer)
+                             MetricsRegistry, Span, Tracer, build_tree,
+                             completeness_errors, metrics_csv_lines,
+                             render_tree, trace_events, validate_trace_events,
+                             write_metrics_json, write_trace)
+from repro_torch.obs import export as t_export
 from repro_torch.obs import metrics as t_metrics
+from repro_torch.obs import report as t_report
 from repro_torch.obs import trace as t_trace
+from repro_torch.perfmodel import EvalRequest, ModelEvaluator, get_evaluator
+from repro_torch.perfmodel.designspace import SPACE
+from repro_torch.perfmodel.sweep import SweepEngine
 
 
 def _drive_registry(mod):
@@ -147,3 +168,168 @@ def test_counters_and_spans_lose_nothing_across_threads():
     assert h.count() == n_threads * n_each
     assert len(tr.spans()) == n_threads * n_each
     assert all(s.parent_id is None for s in tr.spans())
+
+
+# ---------------------------------------------------------------- exporters
+def _same_export(a: dict, b: dict) -> bool:
+    """Equal trace objects but for the exporter's own name."""
+    a, b = json.loads(json.dumps(a)), json.loads(json.dumps(b))
+    assert a["otherData"].pop("exporter") == "repro_torch.obs"
+    assert b["otherData"].pop("exporter") == "repro.obs"
+    return a == b
+
+
+def test_trace_export_equals_the_reference(tmp_path):
+    """Perfetto events, the schema check, the tree checks and the ASCII
+    tree of the same spans are the reference's."""
+    spans = _drive_tracer(t_trace, t_metrics)["spans"]
+    obj = trace_events(spans)
+    assert _same_export(obj, j_export.trace_events(spans))
+    assert validate_trace_events(obj) == [] == \
+        j_export.validate_trace_events(obj)
+    assert {e["ph"] for e in obj["traceEvents"]} == {"M", "X"}
+    assert render_tree(spans) == j_export.render_tree(spans)
+    assert "`-- " in render_tree(spans)
+    tid = spans[0]["trace_id"]
+    assert render_tree(spans, tid) == j_export.render_tree(spans, tid)
+    assert completeness_errors(spans) == j_export.completeness_errors(spans)
+    roots, kids = build_tree(spans)
+    j_roots, j_kids = j_export.build_tree(spans)
+    assert [s.as_dict() for s in roots] == [s.as_dict() for s in j_roots]
+    assert {k: [s.as_dict() for s in v] for k, v in kids.items()} == \
+        {k: [s.as_dict() for s in v] for k, v in j_kids.items()}
+    path = write_trace(str(tmp_path / "t.json"), spans)
+    assert json.load(open(path)) == json.loads(json.dumps(obj, default=str))
+    broken = [{"ph": "Q"}, {"ph": "X", "name": "x", "pid": 1, "tid": 1}]
+    assert validate_trace_events({"traceEvents": broken}) == \
+        j_export.validate_trace_events({"traceEvents": broken})
+    dangling = Span("x", "t1", "s9", "missing", "p", "th", 0.0, t_end=None)
+    errs = completeness_errors([dangling])
+    assert errs == j_export.completeness_errors([dangling.as_dict()])
+    assert any("dangling" in e for e in errs)
+    assert any("never finished" in e for e in errs)
+
+
+def test_metrics_csv_and_json_equal_the_reference(tmp_path):
+    got = _drive_registry(t_metrics)
+    assert metrics_csv_lines(got["flat"]) == \
+        j_export.metrics_csv_lines(got["flat"])
+    assert metrics_csv_lines(got["flat"])[0] == "metric,value"
+    a = write_metrics_json(str(tmp_path / "a.json"), got["snapshot"])
+    b = j_export.write_metrics_json(str(tmp_path / "b.json"),
+                                    got["snapshot"])
+    assert open(a).read() == open(b).read()
+
+
+# ------------------------------------------- service telemetry + dashboard
+SERVICE_KEYS = frozenset({"submits", "cache_hits", "fused_dispatches",
+                          "coalesced_requests", "degraded", "tiers"})
+EVALUATOR_KEYS = frozenset(
+    f"evaluator_{n}" for n in ("dispatches", "worker_dispatches", "retried",
+                               "straggler_redispatches", "timeouts",
+                               "corrupt_rejected", "resizes"))
+TIER_KEYS = frozenset({"weight", "served", "queued", "p50_ms", "p99_ms"})
+
+
+def _chaotic_service():
+    """A service over a 2-worker sharded evaluator whose first dispatch of
+    each worker crashes, on one manual clock (deterministic latencies)."""
+    clock = ManualClock()
+    plan = FaultPlan([FaultEvent(0, 0, "crash"), FaultEvent(1, 1, "crash")])
+    base = ModelEvaluator(get_evaluator("proxy", device="cpu").models,
+                          device="cpu")
+    sharded = ShardedEvaluator(base, workers=2, mode="thread",
+                               fault_plan=plan, speculate=False, clock=clock)
+    svc = EvalService(sharded, clock=clock)
+    rng = np.random.default_rng(7)
+    svc.evaluate(EvalRequest(SPACE.sample(rng, 8), detail="stalls"))
+    clock.advance(0.25)
+    for tier in QOS_TIERS:
+        svc.submit(EvalRequest(SPACE.sample(rng, 2), "objectives"),
+                   client=tier, tier=tier)
+    clock.advance(0.5)
+    svc.tick()
+    return svc, sharded
+
+
+def test_service_telemetry_keys_frozen_under_chaos():
+    """telemetry() keeps the reference's frozen key sets while retries are
+    firing (tests/test_obs.py)."""
+    from repro.distributed.service import DEGRADE_RUNGS as J_RUNGS
+    from repro.distributed.service import QOS_TIERS as J_TIERS
+    svc, sharded = _chaotic_service()
+    tel = svc.telemetry()
+    assert frozenset(tel) == SERVICE_KEYS | EVALUATOR_KEYS
+    assert (DEGRADE_RUNGS, QOS_TIERS) == (J_RUNGS, J_TIERS)
+    assert frozenset(tel["degraded"]) == {"deadline"} | set(DEGRADE_RUNGS)
+    assert frozenset(tel["tiers"]) == frozenset(QOS_TIERS)
+    for t in QOS_TIERS:
+        assert frozenset(tel["tiers"][t]) == TIER_KEYS
+    # on the manual clock: queued at 0.25 s, resolved at 0.75 s
+    assert tel["tiers"]["interactive"]["p50_ms"] == 500.0
+    assert tel["tiers"]["scavenger"]["p99_ms"] == 500.0
+    assert tel["evaluator_retried"] == 2
+    assert all(isinstance(tel[k], int)
+               for k in ("submits", "cache_hits", "fused_dispatches",
+                         "coalesced_requests"))
+    sharded.close()
+
+
+def test_fleet_report_equals_the_reference(tmp_path, capsys):
+    """The dashboard of one service snapshot is the reference's, line for
+    line after the title; the CLI renders the saved snapshot the same."""
+    svc, sharded = _chaotic_service()
+    snap = t_report.service_snapshot(svc)
+    assert set(snap) == {"telemetry", "metrics"}
+    assert set(snap["metrics"]) == {"service", "evaluator"}
+    fleet = snap["telemetry"]["fleet"]
+    assert (fleet["mode"], fleet["workers"], fleet["evictions"],
+            fleet["reregistrations"]) == ("thread", 2, 2, 2)
+    snap = json.loads(json.dumps(snap, default=str))
+    txt = t_report.fleet_report(snap)
+    ref = j_report.fleet_report(snap)
+    assert txt.splitlines()[0] == "== repro_torch.obs fleet report =="
+    assert txt.splitlines()[1:] == ref.splitlines()[1:]
+    for section in ("-- traffic --", "-- qos tiers (queue latency) --",
+                    "-- degradation rungs --", "-- fleet --",
+                    "-- shard timings (per worker slot) --"):
+        assert section in txt
+    assert t_report.fleet_report(svc) == txt           # a live service
+    path = t_report.save_snapshot(str(tmp_path / "snap.json"), svc)
+    assert t_report.main([path]) == 0
+    assert capsys.readouterr().out.strip() == txt
+    sharded.close()
+
+
+# ---------------------------------------------------------- sweep tracing
+def _tree(spans) -> list:
+    """Spans as (name, parent's name, status, attrs), sorted."""
+    by_id = {s["span_id"]: s for s in spans}
+    return sorted((s["name"], by_id[s["parent_id"]]["name"]
+                   if s["parent_id"] in by_id else None, s["status"],
+                   json.dumps(s["attrs"], sort_keys=True)) for s in spans)
+
+
+def test_sweep_spans_form_the_reference_tree():
+    """sweep.run roots one tree; each worker span is parented explicitly
+    under it (threads do not inherit), a replayed span carries its
+    replays; the reference's engine draws the same tree."""
+    ch = 8_192
+    tr, j_tr = Tracer(clock=ManualClock()), j_trace.Tracer(
+        clock=j_metrics.ManualClock())
+    eng = SweepEngine(get_evaluator("proxy", device="cpu"), chunk_size=ch,
+                      tracer=tr)
+    j_eng = JSweepEngine(j_get_evaluator("proxy"), chunk_size=ch,
+                         tracer=j_tr)
+    eng.run(0, 3 * ch, workers=2,
+            fault_plan=FaultPlan([FaultEvent(0, 1, "crash")]))
+    j_eng.run(0, 3 * ch, workers=2,
+              fault_plan=JFaultPlan([JFaultEvent(0, 1, "crash")]))
+    spans = [s.as_dict() for s in tr.spans()]
+    assert _tree(spans) == _tree([s.as_dict() for s in j_tr.spans()])
+    assert completeness_errors(spans) == []
+    assert validate_trace_events(trace_events(spans)) == []
+    names = [s["name"] for s in spans]
+    assert names.count("sweep.span") == 2 and names.count("sweep.run") == 1
+    replayed = [s for s in spans if "replays" in s["attrs"]]
+    assert len(replayed) == 1 and replayed[0]["attrs"]["worker"] == 0

@@ -175,8 +175,9 @@ def test_get_evaluator_zoo_suite():
     assert oracle.base.scenarios == ev.scenarios
     with pytest.raises(ValueError, match="suite"):
         get_evaluator("proxy", suite="menagerie", device="cpu")
-    with pytest.raises(NotImplementedError):
-        get_evaluator("proxy", suite="zoo", workers=2, device="cpu")
+    sharded = get_evaluator("proxy", suite="zoo", workers=2, device="cpu")
+    assert sharded.scenarios == ev.scenarios and sharded.workers == 2
+    assert np.array_equal(sharded.objectives(idx), y)
 
 
 # --------------------------------------------------- the portfolio sweep
