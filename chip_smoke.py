@@ -149,7 +149,29 @@ line is printed:
    objectives dispatch at B 131,072 through 1, 2 and 4 thread workers,
    the chaos-off overhead (full sweeps without a plan and with an empty
    one, in turns), the chaos sweep's wall, and the service's p50/p99
-   queue latency per QoS tier.
+   queue latency per QoS tier;
+15. the moe, vlm and audio families at full width in fp32 from a seeded
+   generator (every earlier model freed first): (a) internvl2-2b, full
+   depth: the token prefill at B 1, S 4096 (flash_attention x24) with 64
+   decode steps held to it at rtol = atol = 2e-3, then the vlm input (3,328
+   stub patch rows at the embedding's scale and 768 prompt embeddings;
+   flash_attention x24), the tokens' embeddings giving the tokens' logits
+   bit for bit, and ``serve`` at batch 4; (b) qwen2-moe-a2.7b, full depth
+   (shared experts): prefill (x24), 64 decode steps held to it (routing
+   flips printed), a profiler window over a prefill with the MoE's, its
+   expert products' and the shared expert's shares of device time, and
+   ``serve`` at batch 4 (capacity 1 a step: colliding assignments drop,
+   as in the reference); (c) arctic-480b cut to one layer (every published
+   width; the dense residual beside 128 experts, attention at a group of
+   7): prefill (x1), decode held to it, greedy serving at batch 4, peak
+   memory; (d) whisper-medium, full depth: prefill at B 8 of 1,500 seeded
+   frames and a teacher-forced decoder of S 448 (no kernel launch), 64
+   decode steps from the encoder output held to it, a profiled decode
+   step with the share of re-projecting the encoder output, ``serve`` at
+   batch 4 (frames drawn as ``serve`` draws them); (e) flash_attention
+   at the three new prefill shapes, (1, 4096, 16, 8, 128), (1, 4096, 16,
+   16, 128) and (1, 4096, 56, 8, 128), causal, fp32 and bf16: held against
+   its plain version, timed beside it, one SDPA call and its bound.
 
 Kernel launch counters are zeroed just before each part of the main path
 and read just after; every kernel of that part must have launched there.
@@ -277,29 +299,79 @@ def kernel_ms(torch, fn, warm: int = 3, iters: int = 50) -> float:
                        f"longest device sleep")
 
 
-def profile_device(torch, fn, tag: str, what: str, keep: str = None) -> None:
+def _ranged(torch, fn, label: str, when, stamps: dict):
+    """fn inside a profiler range named `label`, its stream time bracketed
+    by CUDA events appended to stamps[label] (on calls whose arguments
+    satisfy `when`, if given)."""
+    def wrapped(*args, **kw):
+        if when is not None and not when(*args, **kw):
+            return fn(*args, **kw)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with torch.profiler.record_function(label):
+            ev[0].record()
+            out = fn(*args, **kw)
+            ev[1].record()
+        stamps[label].append(ev)
+        return out
+    return wrapped
+
+
+def _under(e, label: str) -> bool:
+    while e is not None:
+        if e.name == label:
+            return True
+        e = e.cpu_parent
+    return False
+
+
+def profile_device(torch, fn, tag: str, what: str, keep: str = None,
+                   ranges=(), ops_under=()) -> dict:
     """Device time by kernel name over one call of fn(), and the device's
     idle share of the profiled window; kernels whose name holds `keep` are
-    listed even outside the top ten."""
+    listed even outside the top ten.  Each (module, attribute, label,
+    when) of `ranges` is wrapped for the window in a profiler range and in
+    a pair of CUDA events, and its stream time between them (device time
+    plus any wait for the host inside the range) is printed with its share
+    of the busy time; for each (label, op) of `ops_under`, the device time
+    of the kernels that op's calls inside the range launched.  (The
+    profiler's own attribution of a whole range counted some kernels twice
+    on the card: more device time than the range's stream time.)  Returns
+    {label or "label/op": share of busy time} (empty where the profiler
+    saw no device events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    labels = {r[2] for r in ranges}
+    stamps = {label: [] for label in labels}
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in ranges]
+    for mod, attr, label, when in ranges:
+        setattr(mod, attr, _ranged(torch, getattr(mod, attr), label, when,
+                                   stamps))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        for mod, attr, orig in saved:
+            setattr(mod, attr, orig)
     by_name: dict = {}
+    cpu_events = []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
+            if e.name in labels:              # the ranges' own annotations
+                continue
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        else:
+            cpu_events.append(e)
     busy = sum(us for _, us in by_name.values())
     if not by_name:
         log(f"[{tag}] profile: the profiler saw no device events; device "
             f"time not measured")
-        return
+        return {}
     log(f"[{tag}] profile {what}: wall {wall_us / 1e3:.3f} ms (profiled), "
         f"device busy {busy / 1e3:.3f} ms, idle share "
         f"{1.0 - busy / wall_us:.3f}")
@@ -309,6 +381,20 @@ def profile_device(torch, fn, tag: str, what: str, keep: str = None) -> None:
     for name, (n, us) in shown:
         log(f"[{tag}]   {us / busy:6.1%} {us / 1e3:8.3f} ms x{n:<4d} "
             f"{name[:90]}")
+    shares = {}
+    for label in sorted(labels):
+        ms = sum(a.elapsed_time(b) for a, b in stamps[label])
+        shares[label] = ms * 1e3 / busy
+        log(f"[{tag}]   range {label}: {len(stamps[label])} calls, stream "
+            f"time {ms:.3f} ms, {shares[label]:.1%} of busy")
+    for label, op in ops_under:
+        evs = [e for e in cpu_events
+               if e.name == op and _under(e.cpu_parent, label)]
+        us = sum(e.device_time_total for e in evs)
+        shares[f"{label}/{op}"] = us / busy
+        log(f"[{tag}]   {op} inside {label}: {len(evs)} calls, "
+            f"{us / 1e3:.3f} ms of device time, {us / busy:.1%} of busy")
+    return shares
 
 
 def pass_times(torch, fn, names, calls: int = 5) -> dict:
@@ -665,11 +751,14 @@ def build_full_width(torch, arch, dev, seed: int = 0, tag: str = "8"):
 
 
 def phase8_prefill(torch, model, batch: int, seq: int, dev,
-                   check_logits: bool = True, tag: str = "8") -> dict:
+                   check_logits: bool = True, tag: str = "8",
+                   frames=None) -> dict:
     """One counted prefill step, a timed second one, and the first
     N_DECODE positions decoded step by step against it: their logits are
     held to the prefill's at DECODE_TOL when `check_logits`, else only
-    reported (rwkv_decode_tie and phase 11 hold them)."""
+    reported (rwkv_decode_tie and phases 11 and 15 hold them).  With
+    `frames` (the audio family) the prefill reads them beside the tokens
+    and the decode cache holds their encoder output."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
     from repro_torch.kernels.ssm_scan import ssm_scan
@@ -678,10 +767,12 @@ def phase8_prefill(torch, model, batch: int, seq: int, dev,
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab, (batch, seq)), device=dev)
     prefill = make_prefill_step(model)
+    feed = {"tokens": toks} if frames is None else {"tokens": toks,
+                                                     "frames": frames}
     torch.cuda.synchronize()
     flash_attention.launches = rwkv6_scan.launches = ssm_scan.launches = 0
     t0 = time.perf_counter()
-    logits = prefill({"tokens": toks})
+    logits = prefill(feed)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     counts = {"flash_attention": flash_attention.launches,
@@ -695,7 +786,7 @@ def phase8_prefill(torch, model, batch: int, seq: int, dev,
     del logits
     saved = dict(counts)
     t0 = time.perf_counter()
-    prefill({"tokens": toks})
+    prefill(feed)
     torch.cuda.synchronize()
     second_s = time.perf_counter() - t0
     flash_attention.launches = saved["flash_attention"]
@@ -707,7 +798,9 @@ def phase8_prefill(torch, model, batch: int, seq: int, dev,
         f"(second); launches {counts}")
 
     step = make_serve_step(model)
-    cache = model.init_cache(batch, N_DECODE)
+    with torch.no_grad():
+        enc = None if frames is None else model.encode(frames)
+    cache = model.init_cache(batch, N_DECODE, enc_out=enc)
     worst = 0.0
     decoded = []
     t0 = time.perf_counter()
@@ -836,19 +929,24 @@ def rwkv_decode_tie(torch, model, toks, free_gap: float) -> float:
     return sens
 
 
-def profile_decode_step(torch, model, batch: int, tag: str) -> None:
+def profile_decode_step(torch, model, batch: int, tag: str, enc_out=None,
+                        ranges=(), ops_under=()) -> dict:
     """A profiler window over one decode step after 32 (the serve path's
-    unit of work), random tokens from a seeded generator."""
+    unit of work), random tokens from a seeded generator; `enc_out` is the
+    audio encoder's output the cache holds, `ranges` and `ops_under` as in
+    `profile_device`."""
     from repro_torch.launch.steps import make_serve_step
     step = make_serve_step(model)
     g = torch.Generator(device=model.device).manual_seed(1)
     toks = torch.randint(0, model.cfg.vocab, (batch, 33), generator=g,
                          device=model.device)
-    cache = model.init_cache(batch, 40)
+    cache = model.init_cache(batch, 40, enc_out=enc_out)
     for t in range(32):
         _, cache = step(cache, toks[:, t])
-    profile_device(torch, lambda: step(cache, toks[:, 32]), tag,
-                   f"one {model.cfg.name} decode step (B {batch}, after 32)")
+    return profile_device(
+        torch, lambda: step(cache, toks[:, 32]), tag,
+        f"one {model.cfg.name} decode step (B {batch}, after 32)",
+        ranges=ranges, ops_under=ops_under)
 
 
 def phase9_serve(torch, dev) -> dict:
@@ -872,40 +970,56 @@ def phase9_serve(torch, dev) -> dict:
     return out
 
 
-def phase10_lm_timings(torch, dev) -> dict:
-    """ms per launch at phase 8's shapes for each LM kernel and dtype."""
+def time_flash_attention(torch, dev, shape, tag: str, iters: int = 10
+                         ) -> dict:
+    """flash_attention, causal, at `shape` (B, S, H, KVH, hd) in each
+    dtype: held against its plain version at FA_TOL, timed per launch
+    (`kernel_ms`), beside its plain version, one
+    ``F.scaled_dot_product_attention`` call on the heads repeated (timed
+    only, never used by the port) and its bound on its route.  Leaves the
+    launch count as it found it; returns {dtype name: row}."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_cost,
                                                      flash_attention_plain)
-    from repro_torch.kernels.rwkv6_scan import (rwkv6_scan, rwkv6_scan_cost,
-                                                rwkv6_scan_plain)
+    saved = flash_attention.launches
+    b, s, h, kvh, hd = shape
     out = {}
-    saved = (flash_attention.launches, rwkv6_scan.launches)
-    b, s, h, kvh, hd = LLAMA[1], LLAMA[2], 32, 8, 64
     for dn, dt in _dtypes(torch).items():
         q, k, v = fa_inputs(torch, b, s, h, kvh, hd, dt, dev, seed=1)
-        k_ms = kernel_ms(torch, lambda: flash_attention(q, k, v), iters=20)
+        k_ms = kernel_ms(torch, lambda: flash_attention(q, k, v),
+                         iters=iters)
         e = hold(flash_attention(q, k, v), flash_attention_plain(q, k, v),
-                 FA_TOL[dn], f"flash_attention {dn} (timed)")
+                 FA_TOL[dn], f"flash_attention {dn} {shape} (timed)")
         p_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v),
                        warm=1, iters=3)
         qh, kh, vh = (x.permute(0, 2, 1, 3).repeat_interleave(
             h // x.shape[2], dim=1).contiguous() for x in (q, k, v))
         lib_ms = kernel_ms(torch, lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True), iters=20)
+            qh, kh, vh, is_causal=True), iters=iters)
         ops, nbytes = flash_attention_cost(b, s, s, h, kvh, hd, True,
                                            q.element_size())
         bd = fa_bound(ops, nbytes, dn)
-        out[("flash_attention", dn)] = {
-            "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-            "bound_ms": bd["bound_ms"], "max_abs_err": e,
-            "bound_by": bd["bound_by"]}
-        log(f"[10] flash_attention {dn} B={b} S={s} H={h} KVH={kvh} hd={hd} "
-            f"causal: kernel {k_ms:.3f} ms ({ops / k_ms / 1e9:.1f} TFLOP/s), "
-            f"plain {p_ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound "
+        out[dn] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                   "bound_ms": bd["bound_ms"], "max_abs_err": e,
+                   "bound_by": bd["bound_by"]}
+        log(f"[{tag}] flash_attention {dn} B={b} S={s} H={h} KVH={kvh} "
+            f"hd={hd} causal: kernel {k_ms:.3f} ms ({ops / k_ms / 1e9:.1f} "
+            f"TFLOP/s), plain {p_ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound "
             f"{bd['bound_ms']:.4f} ms ({bd['text']}); max abs err {e:.3g}")
         del q, k, v, qh, kh, vh
+    flash_attention.launches = saved
+    return out
+
+
+def phase10_lm_timings(torch, dev) -> dict:
+    """ms per launch at phase 8's shapes for each LM kernel and dtype."""
+    from repro_torch.kernels.rwkv6_scan import (rwkv6_scan, rwkv6_scan_cost,
+                                                rwkv6_scan_plain)
+    fa = time_flash_attention(torch, dev, (LLAMA[1], LLAMA[2], 32, 8, 64),
+                              "10", iters=20)
+    out = {("flash_attention", dn): row for dn, row in fa.items()}
+    saved = rwkv6_scan.launches
     b, t, h, hd = RWKV[1], RWKV[2], 64, 64
     for dn, dt in _dtypes(torch).items():
         args = rwkv_inputs(torch, b, t, h, hd, dt, dev, seed=1)
@@ -933,7 +1047,7 @@ def phase10_lm_timings(torch, dev) -> dict:
             f"(profiler, 5 calls): "
             + ", ".join(f"{n} {us / 1e3:.4f} ms ({cnt} launches recorded)"
                         for n, (us, cnt) in passes.items()))
-    flash_attention.launches, rwkv6_scan.launches = saved
+    rwkv6_scan.launches = saved
     return out
 
 
@@ -954,16 +1068,40 @@ def _routings(moe_mod):
     return records, restore
 
 
+def routing_flips(records, n_moe: int, tag: str, shown: int = 8) -> int:
+    """Print where decode's MoE routing differs from the prefill's over
+    the first N_DECODE positions, from `_routings` records of one counted
+    prefill, a timed one and N_DECODE decode steps at batch 1, each
+    calling `n_moe` MoE layers in order; returns the count of (position,
+    layer) pairs that differ."""
+    check(len(records) == (2 + N_DECODE) * n_moe,
+          f"{len(records)} MoE calls recorded, want {(2 + N_DECODE) * n_moe}")
+    flips = 0
+    for t in range(N_DECODE):
+        for layer in range(n_moe):
+            pre_idx, pre_probs = records[layer]
+            idx, probs = records[(2 + t) * n_moe + layer]
+            a, b = sorted(pre_idx[0, t].tolist()), sorted(idx[0, 0].tolist())
+            if a == b:
+                continue
+            flips += 1
+            if flips <= shown:
+                pa, pb = pre_probs[0, t], probs[0, 0]
+                log(f"[{tag}] MoE routing differs at position {t}, layer "
+                    f"{layer}: prefill experts {a} (probs "
+                    f"{pa[a].tolist()}), decode {b} (probs {pb[b].tolist()})")
+    log(f"[{tag}] MoE routing, prefill vs decode over {N_DECODE} positions "
+        f"x {n_moe} layers: {flips} (position, layer) pairs differ")
+    return flips
+
+
 def phase11_jamba(torch, dev) -> dict:
     """The hybrid path at full width, cut in depth: prefill (counted),
     decode tied to it, greedy serving, timings and a profiled prefill."""
     import dataclasses
 
-    import torch.nn.functional as F
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_cost,
-                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
     from repro_torch.kernels.ssm_scan import (ssm_scan, ssm_scan_cost,
                                               ssm_scan_plain)
@@ -986,20 +1124,7 @@ def phase11_jamba(torch, dev) -> dict:
                             "ssm_scan": 1},
           f"{arch} prefill launches {pre['counts']}, want flash_attention "
           f"x1 and ssm_scan x1")
-    # records: the counted prefill, the timed one, then one per decode step
-    check(len(records) == 2 + N_DECODE, f"{len(records)} MoE calls recorded")
-    pre_idx, pre_probs = records[0]
-    flips = []
-    for t, (idx, probs) in enumerate(records[2:2 + N_DECODE]):
-        a = sorted(pre_idx[0, t].tolist())
-        b = sorted(idx[0, 0].tolist())
-        if a != b:
-            flips.append(t)
-            log(f"[11] MoE routing differs at position {t}: prefill experts "
-                f"{a} (probs {pre_probs[0, t].tolist()}), decode {b} (probs "
-                f"{probs[0, 0].tolist()})")
-    log(f"[11] MoE top-2 routing, prefill vs decode over {N_DECODE} "
-        f"positions: {len(flips)} positions differ")
+    routing_flips(records, 1, "11")
     e_dec = hold(torch.as_tensor(pre["decoded"]),
                  torch.as_tensor(pre["head"]), DECODE_TOL,
                  f"{arch}: decode vs prefill logits")
@@ -1062,33 +1187,220 @@ def phase11_jamba(torch, dev) -> dict:
             f"state-steps, one a clock on 528 schedulers: {t_issue:.4f} ms; "
             f"no single PyTorch call computes it")
         del args
-    b, s_, h, kvh, hd = JAMBA_FA
-    for dn, dt in _dtypes(torch).items():
-        q, k, v = fa_inputs(torch, b, s_, h, kvh, hd, dt, dev, seed=1)
-        k_ms = kernel_ms(torch, lambda: flash_attention(q, k, v), iters=10)
-        e = hold(flash_attention(q, k, v), flash_attention_plain(q, k, v),
-                 FA_TOL[dn], f"flash_attention hd 128 {dn} (timed)")
-        p_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v),
-                       warm=1, iters=3)
-        qh, kh, vh = (x.permute(0, 2, 1, 3).repeat_interleave(
-            h // x.shape[2], dim=1).contiguous() for x in (q, k, v))
-        lib_ms = kernel_ms(torch, lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True), iters=10)
-        ops, nbytes = flash_attention_cost(b, s_, s_, h, kvh, hd, True,
-                                           q.element_size())
-        bd = fa_bound(ops, nbytes, dn)
-        out[("flash_attention_hd128", dn)] = {
-            "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-            "max_abs_err": e, "bound_ms": bd["bound_ms"],
-            "bound_by": bd["bound_by"]}
-        log(f"[11] flash_attention {dn} B={b} S={s_} H={h} KVH={kvh} "
-            f"hd={hd} causal: kernel {k_ms:.3f} ms ({ops / k_ms / 1e9:.1f} "
-            f"TFLOP/s), plain {p_ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound "
-            f"{bd['bound_ms']:.4f} ms ({bd['text']}); max abs err {e:.3g}")
-        del q, k, v, qh, kh, vh
+    out.update({("flash_attention_hd128", dn): row for dn, row in
+                time_flash_attention(torch, dev, JAMBA_FA, "11").items()})
     flash_attention.launches, ssm_scan.launches = saved
     torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------ remaining LM families
+VLM = ("internvl2-2b", 1, 4096)                     # arch, batch, seq
+QWEN_MOE = ("qwen2-moe-a2.7b", 1, 4096)
+ARCTIC = ("arctic-480b", 1, 4096)                   # cut to n_layers 1
+WHISPER = ("whisper-medium", 8, 448)                # the decoder's context
+# internvl2's stub image: up to 12 tiles and a thumbnail of 256 patch
+# embeddings each (the model card's dynamic tiling), before the prompt
+VLM_PATCH_ROWS = 13 * 256
+# flash_attention launches per prefill: one per causal self-attention
+# layer at S > 2048 (whisper's decoder runs at 448; its encoder and its
+# cross-attention are not causal)
+PHASE15_LAUNCHES = {"internvl2-2b": 24, "qwen2-moe-a2.7b": 24,
+                    "arctic-480b": 1, "whisper-medium": 0}
+# the shapes flash_attention meets there (B, S, H, KVH, hd): internvl2
+# (GQA 16/8), qwen2-moe (MHA 16/16) and arctic (a group of 7, 56/8)
+PHASE15_FA = ((1, 4096, 16, 8, 128), (1, 4096, 16, 16, 128),
+              (1, 4096, 56, 8, 128))
+
+
+def _moe_prefill(torch, model, dev, arch_seq, tag: str) -> dict:
+    """phase8_prefill of an MoE model with its routings recorded: the
+    flips printed, then decode held to the prefill at DECODE_TOL."""
+    from repro_torch.models import moe as moe_mod
+    _, batch, seq = arch_seq
+    records, restore = _routings(moe_mod)
+    try:
+        pre = phase8_prefill(torch, model, batch, seq, dev,
+                             check_logits=False, tag=tag)
+    finally:
+        restore()
+    pre["flips"] = routing_flips(records, model.cfg.n_layers, tag)
+    pre["decode_err"] = hold(torch.as_tensor(pre["decoded"]),
+                             torch.as_tensor(pre["head"]), DECODE_TOL,
+                             f"{model.cfg.name}: decode vs prefill logits")
+    return pre
+
+
+def phase15_families(torch, dev) -> dict:
+    """The moe, vlm and audio families at full width in fp32, weights from
+    a seeded generator: internvl2-2b and qwen2-moe-a2.7b at full depth,
+    arctic-480b cut to one layer, whisper-medium at full depth.  Prefills
+    (counted), decode tied to them, serving, profiles, and flash_attention
+    at the three new prefill shapes.  Returns the path's flash_attention
+    launches and the kernel's rows at those shapes."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import greedy_generate, serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[15] device memory allocated at the start: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    launches, walls = {}, {}
+
+    def want(name, counts):
+        check(counts["flash_attention"] == PHASE15_LAUNCHES[name]
+              and counts["rwkv6_scan"] == counts["ssm_scan"] == 0,
+              f"{name} prefill launches {counts}, want flash_attention x"
+              f"{PHASE15_LAUNCHES[name]} and no scan")
+
+    def served(name, fn):
+        """Greedy serving at batch 4, prompt 32, gen 16 through fn()."""
+        flash_attention.launches = 0
+        srv = fn()
+        check(srv["tokens"].shape == (4, 16), f"{name} serve tokens "
+              f"{srv['tokens'].shape}")
+        log(f"[15] serve {name} batch 4 prompt 32 gen 16: tokens "
+            f"{srv['tokens'].shape}, TTFT {srv['ttft_s'] * 1e3:.1f} ms, "
+            f"TPOT {srv['tpot_s'] * 1e3:.2f} ms; flash_attention launches "
+            f"{flash_attention.launches} (prefill by decode steps); first "
+            f"row {srv['tokens'][0][:8].tolist()}")
+
+    # ---- 15a. internvl2-2b: the token prefill, decode tied to it, then
+    # the vlm input (stub patch rows and prompt embeddings)
+    arch, batch, seq = VLM
+    model = build_full_width(torch, arch, dev, tag="15")
+    pre = phase8_prefill(torch, model, batch, seq, dev, tag="15")
+    want(arch, pre["counts"])
+    walls[arch] = pre["prefill_s"]
+    toks = pre["toks"]
+    g = torch.Generator(device=dev).manual_seed(15)
+    patches = torch.randn((batch, VLM_PATCH_ROWS, model.cfg.d_model),
+                          generator=g, device=dev) * 0.02
+    embeds = torch.cat([patches, model.embed[toks[:, VLM_PATCH_ROWS:]]],
+                       dim=1)
+    prefill = make_prefill_step(model)
+    flash_attention.launches = 0
+    logits = prefill({"embeds": embeds})
+    torch.cuda.synchronize()
+    launches[arch] = flash_attention.launches
+    check(launches[arch] == PHASE15_LAUNCHES[arch],
+          f"{arch} embeds prefill launched flash_attention "
+          f"{launches[arch]} times, want {PHASE15_LAUNCHES[arch]}")
+    check(logits.shape == (batch, seq, model.cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{arch} embeds prefill logits {tuple(logits.shape)} not finite")
+    del logits
+    t0 = time.perf_counter()
+    prefill({"embeds": embeds})
+    torch.cuda.synchronize()
+    walls[arch + " embeds"] = time.perf_counter() - t0
+    a = prefill({"tokens": toks})
+    b = prefill({"embeds": model.embed[toks]})
+    same = bool(torch.equal(a, b))
+    del a, b
+    check(same, f"{arch}: forward on the tokens' embeddings is not the "
+          f"tokens' forward bit for bit")
+    log(f"[15] {arch} prefill B={batch} S={seq} on embeds ({VLM_PATCH_ROWS} "
+        f"stub patch rows at 0.02, then {seq - VLM_PATCH_ROWS} prompt "
+        f"embeddings): flash_attention x{launches[arch]}, wall "
+        f"{walls[arch + ' embeds']:.3f} s (second call); the tokens' "
+        f"embeddings give the tokens' logits bit for bit")
+    del model, prefill, embeds, patches, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    served(arch, lambda: serve(arch, 4, 32, 16, smoke=False, seed=0,
+                               device=dev))
+
+    # ---- 15b. qwen2-moe-a2.7b: shared experts, 60 experts top-4
+    arch, batch, seq = QWEN_MOE
+    model = build_full_width(torch, arch, dev, tag="15")
+    pre = _moe_prefill(torch, model, dev, QWEN_MOE, "15")
+    want(arch, pre["counts"])
+    launches[arch] = pre["counts"]["flash_attention"]
+    walls[arch] = pre["prefill_s"]
+    step = make_prefill_step(model)
+    toks = pre["toks"]
+    moe_shares = profile_device(
+        torch, lambda: step({"tokens": toks}), "15",
+        f"one {arch} prefill (B {batch}, S {seq})", "fa_fwd",
+        ranges=[(moe_mod, "moe_block", "moe_block", None),
+                (moe_mod, "mlp", "moe.shared", None)],
+        ops_under=[("moe_block", "aten::einsum")])
+    del model, step, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    served(arch, lambda: serve(arch, 4, 32, 16, smoke=False, seed=0,
+                               device=dev))
+
+    # ---- 15c. arctic-480b cut to one layer: the dense residual beside
+    # 128 experts top-2, attention at a group of 7
+    arch, batch, seq = ARCTIC
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_arch(arch), n_layers=1)
+    model = build_full_width(torch, cfg, dev, tag="15")
+    pre = _moe_prefill(torch, model, dev, ARCTIC, "15")
+    want(arch, pre["counts"])
+    launches[arch] = pre["counts"]["flash_attention"]
+    walls[arch] = pre["prefill_s"]
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 32)), device=dev)
+    served(arch + " cut", lambda: greedy_generate(model, prompts, 16))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[15] {arch} cut: peak device memory {peak:.1f} GiB")
+    del model, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 15d. whisper-medium: 30 s of frames, teacher-forced decoder
+    arch, batch, seq = WHISPER
+    model = build_full_width(torch, arch, dev, tag="15")
+    g = torch.Generator(device=dev).manual_seed(15)
+    frames = torch.randn((batch, model.cfg.enc_ctx, model.cfg.d_model),
+                         generator=g, device=dev)
+    pre = phase8_prefill(torch, model, batch, seq, dev, tag="15",
+                         frames=frames)
+    want(arch, pre["counts"])
+    launches[arch] = pre["counts"]["flash_attention"]
+    walls[arch] = pre["prefill_s"]
+    with torch.no_grad():
+        model.encode(frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = model.encode(frames[:4])
+        torch.cuda.synchronize()
+    log(f"[15] {arch} encoder alone, B 4, {model.cfg.enc_ctx} frames: "
+        f"{time.perf_counter() - t0:.3f} s")
+    enc_ctx = model.cfg.enc_ctx
+    xattn = profile_decode_step(
+        torch, model, 4, "15", enc_out=enc,
+        ranges=[(attn_mod, "attention_block", "xattn", None),
+                (attn_mod, "linear", "xattn.kv_proj",
+                 lambda p, x: x.shape[-2] == enc_ctx)],
+        ops_under=[("xattn.kv_proj", "aten::matmul")])
+    del model, frames, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    served(arch, lambda: serve(arch, 4, 32, 16, smoke=False, seed=0,
+                               device=dev))
+
+    # ---- 15e. flash_attention at the three new prefill shapes
+    fa = {shape: time_flash_attention(torch, dev, shape, "15")
+          for shape in PHASE15_FA}
+    log(f"[15] prefill wall (second call): "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()))
+    log(f"[15] flash_attention launches per prefill: {launches}; MoE "
+        f"shares of qwen2-moe's prefill device time {moe_shares}; "
+        f"cross-attention shares of a whisper decode step {xattn}")
+    log(f"[15] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": sum(launches.values()), "fa": fa}
 
 
 # ------------------------------------------------------------- zoo slice
@@ -2358,6 +2670,9 @@ def main() -> int:
     faults = phase14_faults(torch, dev, res_k, smi, os.path.join(
         ROOT, "build", "chip_smoke_faults"))
 
+    # ---- 15. the moe, vlm and audio families at full width ------------------
+    families = phase15_families(torch, dev)
+
     kt = times["both"]                 # the main path's launch: a chunk
     kernels = [{
         "name": "ppa_eval", "route": "cuda",
@@ -2376,17 +2691,22 @@ def main() -> int:
             ("flash_attention",
              "src/repro_torch/kernels/flash_attention/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:25",
-             pre_llama["counts"]["flash_attention"] + jc["flash_attention"]),
+             pre_llama["counts"]["flash_attention"] + jc["flash_attention"]
+             + families["launches"]),
             ("rwkv6_scan", "src/repro_torch/kernels/rwkv6_scan/rwkv6_scan.cu",
              "src/repro/kernels/rwkv6_scan/kernel.py:25",
              pre_rwkv["counts"]["rwkv6_scan"]),
             ("ssm_scan", "src/repro_torch/kernels/ssm_scan/ssm_scan.cu",
              "src/repro/kernels/ssm_scan/kernel.py:24", jc["ssm_scan"])):
         t32 = lm_times[(name, "float32")]     # the main path runs fp32
+        err = max(lm_err[name], t32["max_abs_err"])
+        if name == "flash_attention":
+            err = max([err] + [row["float32"]["max_abs_err"]
+                               for row in families["fa"].values()])
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
-            "max_abs_err": max(lm_err[name], t32["max_abs_err"]),
+            "max_abs_err": err,
             "ms": t32["ms"], "plain_ms": t32["plain_ms"],
             "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
             "library_ms": t32["library_ms"]})

@@ -5,13 +5,14 @@
 
 Runs on the CUDA device unless ``--device cpu`` is given.  As in the
 reference, the prompt is prefilled by decode steps (cache-correct), then
-tokens are decoded greedily.
+tokens are decoded greedily; the audio family's encoder runs once first, on
+frames drawn from the seed after the prompts.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -27,14 +28,16 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def greedy_generate(model: Model, prompts: torch.Tensor,
-                    gen: int) -> Dict:
+def greedy_generate(model: Model, prompts: torch.Tensor, gen: int,
+                    enc_out: Optional[torch.Tensor] = None) -> Dict:
     """prompts (B, P) on the model's device -> {"tokens": (B, gen) int
     numpy, "ttft_s", "tpot_s"}: P decode steps over the prompt, then `gen`
-    greedy tokens.  Times are wall clock around synchronized work."""
+    greedy tokens; `enc_out` is the audio encoder's output, which every
+    step cross-attends to.  Times are wall clock around synchronized
+    work."""
     step = make_serve_step(model)
     b, prompt_len = prompts.shape
-    cache = model.init_cache(b, prompt_len + gen + 1)
+    cache = model.init_cache(b, prompt_len + gen + 1, enc_out=enc_out)
     dev = model.device
     _sync(dev)
     t0 = time.perf_counter()
@@ -62,7 +65,9 @@ def serve(arch: str, batch: int, prompt_len: int, gen: int, smoke: bool,
           device: DeviceLike = None) -> Dict:
     """Build `arch` (its smoke config with `smoke`) with weights drawn from
     a ``torch.Generator`` seeded with `seed`, take the reference's prompts
-    (``np.random.default_rng(seed)``) and run :func:`greedy_generate`."""
+    (``np.random.default_rng(seed)``) and, for the audio family, its
+    frames (B, enc_ctx, d) from the same generator, encode them once and
+    run :func:`greedy_generate`."""
     if not greedy:
         raise ValueError("only greedy decoding is implemented, as in the "
                          "reference")
@@ -75,7 +80,14 @@ def serve(arch: str, batch: int, prompt_len: int, gen: int, smoke: bool,
     rng = np.random.default_rng(seed)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt_len)),
                               device=dev)
-    return greedy_generate(model, prompts, gen)
+    enc = None
+    if cfg.family == "audio":
+        frames = torch.as_tensor(
+            rng.standard_normal((batch, cfg.enc_ctx, cfg.d_model)),
+            dtype=dtype, device=dev)
+        with torch.no_grad():
+            enc = model.encode(frames)
+    return greedy_generate(model, prompts, gen, enc_out=enc)
 
 
 def main() -> None:

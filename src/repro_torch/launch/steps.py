@@ -16,6 +16,8 @@ from repro_torch.models.transformer import Model
 
 def make_prefill_step(model: Model) -> Callable[[Dict[str, torch.Tensor]],
                                                 torch.Tensor]:
+    """The step takes the model's batch as it is: "tokens", or "embeds"
+    in their place (vlm), and "frames" beside them (audio)."""
     @torch.no_grad()
     def prefill_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         return model.forward(batch)

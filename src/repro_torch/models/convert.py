@@ -10,7 +10,8 @@ The hybrid family stacks Jamba blocks (``n_layers // attn_every``) on the
 leading dim, and inside a block its Mamba sub-layers, MoE FFNs and dense
 FFNs on a second dim: those split further into ``layers.<i>.mamba.<j>.``
 (and ``moe``, ``mlp``), while ``mamba_ln`` and ``ffn_ln`` stay stacked
-within the block.  No array is transposed.
+within the block.  The audio family's encoder stack ``enc_layers`` splits
+into ``enc_layers.<i>.`` as ``layers`` does.  No array is transposed.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ from repro_torch.models.transformer import FAMILIES
 
 # sub-layer lists inside a Jamba block, stacked on the block's second dim
 _BLOCK_LISTS = ("mamba.", "moe.", "mlp.")
+# top-level trees stacked on a leading layer dim
+_STACKS = ("layers", "enc_layers")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):
@@ -47,25 +50,32 @@ def params_from_jax(cfg: ArchConfig, tree: Mapping[str, Any]
     pass to ``Model.load_state_dict`` (which casts to the model's dtype and
     device)."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+        raise ValueError(f"unknown family {cfg.family!r}; the families are "
+                         f"{FAMILIES}")
     out: Dict[str, torch.Tensor] = {}
     for key, leaf in _flatten({k: v for k, v in tree.items()
-                               if k != "layers"}):
+                               if k not in _STACKS}):
         out[key] = _tensor(leaf)
     hybrid = cfg.family == "hybrid"
-    n = cfg.n_layers // cfg.attn_every if hybrid else cfg.n_layers
-    for key, leaf in _flatten(tree["layers"]):
-        stacked = _tensor(leaf)
-        if stacked.shape[0] != n:
-            raise ValueError(f"layers.{key}: leading dim {stacked.shape[0]} "
-                             f"!= {'blocks' if hybrid else 'n_layers'} {n}")
-        if key.startswith("rwkv_"):
-            key = "rwkv." + key[len("rwkv_"):]
-        for i in range(n):
-            if hybrid and key.startswith(_BLOCK_LISTS):
-                head, rest = key.split(".", 1)
-                for j, sub in enumerate(stacked[i]):
-                    out[f"layers.{i}.{head}.{j}.{rest}"] = sub
-            else:
-                out[f"layers.{i}.{key}"] = stacked[i]
+    depth = {"layers": (cfg.n_layers // cfg.attn_every if hybrid
+                        else cfg.n_layers),
+             "enc_layers": cfg.enc_layers}
+    for stack in _STACKS if cfg.family == "audio" else ("layers",):
+        n = depth[stack]
+        for key, leaf in _flatten(tree[stack]):
+            stacked = _tensor(leaf)
+            if stacked.shape[0] != n:
+                what = ("blocks" if hybrid else "n_layers") \
+                    if stack == "layers" else "enc_layers"
+                raise ValueError(f"{stack}.{key}: leading dim "
+                                 f"{stacked.shape[0]} != {what} {n}")
+            if key.startswith("rwkv_"):
+                key = "rwkv." + key[len("rwkv_"):]
+            for i in range(n):
+                if hybrid and key.startswith(_BLOCK_LISTS):
+                    head, rest = key.split(".", 1)
+                    for j, sub in enumerate(stacked[i]):
+                        out[f"{stack}.{i}.{head}.{j}.{rest}"] = sub
+                else:
+                    out[f"{stack}.{i}.{key}"] = stacked[i]
     return out

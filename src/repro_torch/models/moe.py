@@ -8,8 +8,9 @@ the tokens.  Overflow assignments drop (their contribution is the residual
 path only), by the reference's rule: positions are a cumulative count over
 the flattened (token, k) order, so earlier tokens win.  The expert FFN is
 a plain batched product (``torch.einsum``), as the reference leaves it to
-XLA.  Not ported yet: the shared expert of the ``moe`` family
-(``n_shared``) and expert sharding across cards (``moe_shard.py``).
+XLA.  The ``moe`` family's shared expert is one always-on gated MLP added
+to the routed output, as in the reference (no sigmoid gate on it).  Not
+ported yet: expert sharding across cards (``moe_shard.py``).
 """
 from __future__ import annotations
 
@@ -20,18 +21,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import empty_param, upcast
+from repro_torch.models.layers import MLP, empty_param, mlp, upcast
 
 
 class MoE(nn.Module):
     """``router`` (d, E) fp32, ``w_gate``/``w_up`` (E + pad, d, f) and
-    ``w_down`` (E + pad, f, d): the reference's names and layouts
-    (``init_moe`` without a shared expert).  ``expert_pad`` adds
-    zero-traffic experts; the router only ever emits ``n_experts``
-    logits."""
+    ``w_down`` (E + pad, f, d), and with ``n_shared`` a gated ``shared``
+    :class:`MLP` of width ``shared_ff``: the reference's names and layouts
+    (``init_moe``).  ``expert_pad`` adds zero-traffic experts; the router
+    only ever emits ``n_experts`` logits."""
 
     def __init__(self, d_model: int, expert_ff: int, n_experts: int, *,
-                 expert_pad: int = 0, dtype=torch.float32, device=None):
+                 n_shared: int = 0, shared_ff: int = 0, expert_pad: int = 0,
+                 dtype=torch.float32, device=None):
         super().__init__()
         e_tot = n_experts + expert_pad
         self.router = empty_param((d_model, n_experts), torch.float32,
@@ -39,9 +41,13 @@ class MoE(nn.Module):
         self.w_gate = empty_param((e_tot, d_model, expert_ff), dtype, device)
         self.w_up = empty_param((e_tot, d_model, expert_ff), dtype, device)
         self.w_down = empty_param((e_tot, expert_ff, d_model), dtype, device)
+        self.shared = (MLP(d_model, shared_ff, gated=True, dtype=dtype,
+                           device=device) if n_shared else None)
 
     def init_weights(self, gen: torch.Generator) -> None:
         init_moe(self, gen)
+        if self.shared is not None:
+            self.shared.init_weights(gen)
 
 
 def init_moe(p: MoE, gen: torch.Generator) -> None:
@@ -136,4 +142,7 @@ def moe_block(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
         0, flat, torch.ones_like(flat, dtype=me.dtype))[:n_experts] \
         / (t * top_k)
     aux = n_experts * torch.sum(me * ce)
+
+    if p.shared is not None:
+        out = out + mlp(p.shared, x)
     return out, aux

@@ -1,19 +1,20 @@
-"""Model assembly for the ``dense``, ``ssm`` (RWKV6) and ``hybrid`` (Jamba)
-families.
+"""Model assembly for every architecture family: ``dense``, ``moe``
+(shared experts; Arctic's dense residual), ``vlm`` (precomputed input
+embeddings), ``audio`` (Whisper's encoder-decoder), ``ssm`` (RWKV6) and
+``hybrid`` (Jamba).
 
 The port's counterpart of ``repro.models.transformer``.  :func:`build_model`
 -> :class:`Model`, an ``nn.Module`` exposing
 
 * ``init_weights(generator)``       -> fills every parameter (seeded)
 * ``forward(batch, collect_aux)``   -> logits (prefill) [, MoE aux loss]
-* ``init_cache(batch, max_len)``    -> decode cache
+* ``encode(frames)``                -> the audio encoder's output
+* ``init_cache(batch, max_len, enc_out)`` -> decode cache
 * ``decode_step(cache, tokens)``    -> (logits, cache)
 
 Layers are an ``nn.ModuleList`` (the reference scans over stacked
 parameters); :func:`repro_torch.models.convert.params_from_jax` unstacks a
-reference pytree into this layout.  The ``moe``, ``vlm`` and ``audio``
-families, and the training loss, are not ported yet: building one of those
-families raises ``NotImplementedError``.
+reference pytree into this layout.  The training loss is not ported yet.
 """
 from __future__ import annotations
 
@@ -30,18 +31,60 @@ from repro_torch.models import ssm as S
 from repro_torch.models.layers import (MLP, Linear, empty_param, linear, mlp,
                                        rms_norm)
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
+
+
+def _attention(cfg: ArchConfig, dtype, device) -> A.Attention:
+    return A.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                       cfg.qkv_bias, dtype=dtype, device=device)
 
 
 class DecoderLayer(nn.Module):
+    """``_init_decoder_layer``: ``ln1``/``attn``, with ``ln_x``/``xattn``
+    (cross-attention) in the audio family, ``ln2`` and the FFN: ``moe``
+    when the config has experts (plus Arctic's ``mlp`` beside it with
+    ``dense_residual``), else ``mlp``."""
+
     def __init__(self, cfg: ArchConfig, dtype, device):
         super().__init__()
         d = cfg.d_model
         self.ln1 = empty_param((d,), torch.float32, device)
         self.ln2 = empty_param((d,), torch.float32, device)
-        self.attn = A.Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                                cfg.qkv_bias, dtype=dtype, device=device)
-        self.mlp = MLP(d, cfg.d_ff, cfg.gated_mlp, dtype=dtype, device=device)
+        self.attn = _attention(cfg, dtype, device)
+        self.ln_x = self.xattn = None
+        if cfg.family == "audio":
+            self.ln_x = empty_param((d,), torch.float32, device)
+            self.xattn = _attention(cfg, dtype, device)
+        self.moe = self.mlp = None
+        if cfg.n_experts:
+            self.moe = M.MoE(d, cfg.expert_ff, cfg.n_experts,
+                             n_shared=cfg.n_shared_experts,
+                             shared_ff=cfg.d_ff, expert_pad=cfg.expert_pad,
+                             dtype=dtype, device=device)
+        if not cfg.n_experts or cfg.dense_residual:
+            self.mlp = MLP(d, cfg.d_ff, cfg.gated_mlp, dtype=dtype,
+                           device=device)
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        for ln in (self.ln1, self.ln2, self.ln_x):
+            if ln is not None:
+                ln.fill_(1.0)
+        for sub in (self.attn, self.xattn, self.moe, self.mlp):
+            if sub is not None:
+                sub.init_weights(gen)
+
+
+class EncoderLayer(nn.Module):
+    """``_init_encoder_layer``: ``ln1``/``attn`` (non-causal, no RoPE) and
+    ``ln2``/``mlp`` (plain GELU)."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = empty_param((d,), torch.float32, device)
+        self.ln2 = empty_param((d,), torch.float32, device)
+        self.attn = _attention(cfg, dtype, device)
+        self.mlp = MLP(d, cfg.d_ff, gated=False, dtype=dtype, device=device)
 
     def init_weights(self, gen: torch.Generator) -> None:
         self.ln1.fill_(1.0)
@@ -74,8 +117,7 @@ class JambaBlock(nn.Module):
     def __init__(self, cfg: ArchConfig, dtype, device):
         super().__init__()
         d, per = cfg.d_model, cfg.attn_every
-        self.attn = A.Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                                cfg.qkv_bias, dtype=dtype, device=device)
+        self.attn = _attention(cfg, dtype, device)
         self.attn_ln = empty_param((d,), torch.float32, device)
         self.mamba = nn.ModuleList(
             S.Mamba(d, cfg.d_state, cfg.d_conv, dtype=dtype, device=device)
@@ -108,9 +150,8 @@ class Model(nn.Module):
                  device: DeviceLike = None, moe_capacity: float = 1.25):
         super().__init__()
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
-                f"port builds {FAMILIES}")
+            raise ValueError(f"unknown family {cfg.family!r} ({cfg.name}); "
+                             f"the families are {FAMILIES}")
         self.cfg = cfg
         self.dtype = dtype
         self.moe_capacity = moe_capacity
@@ -127,6 +168,11 @@ class Model(nn.Module):
             layer = RWKVLayer if cfg.family == "ssm" else DecoderLayer
             n = cfg.n_layers
         self.layers = nn.ModuleList(layer(cfg, dtype, dev) for _ in range(n))
+        self.enc_layers = self.enc_norm = None
+        if cfg.family == "audio":
+            self.enc_layers = nn.ModuleList(
+                EncoderLayer(cfg, dtype, dev) for _ in range(cfg.enc_layers))
+            self.enc_norm = empty_param((cfg.d_model,), torch.float32, dev)
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> None:
@@ -138,23 +184,35 @@ class Model(nn.Module):
             self.lm_head.init_weights(gen)
         for lyr in self.layers:
             lyr.init_weights(gen)
+        if self.enc_layers is not None:
+            for lyr in self.enc_layers:
+                lyr.init_weights(gen)
+            self.enc_norm.fill_(1.0)
 
     # ==================================================================
     # forward (prefill)
     # ==================================================================
     def forward(self, batch: Dict[str, torch.Tensor],
                 collect_aux: bool = False):
-        """batch["tokens"]: (B, S) integer -> logits (B, S, vocab), and the
-        summed MoE aux loss (fp32 scalar) with `collect_aux`."""
+        """batch["tokens"]: (B, S) integer, or batch["embeds"]: (B, S, d)
+        precomputed input embeddings in its place (the vlm stub input);
+        the audio family also reads batch["frames"]: (B, enc_ctx, d).
+        -> logits (B, S, vocab), and the summed MoE aux loss (fp32 scalar)
+        with `collect_aux`."""
         cfg = self.cfg
-        x = self.embed[batch["tokens"]]
+        if "embeds" in batch:
+            x = batch["embeds"].to(self.dtype)
+        else:
+            x = self.embed[batch["tokens"]]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "ssm":
             x = self._rwkv_stack(x)
         elif cfg.family == "hybrid":
             x, aux = self._jamba_stack(x)
         else:
-            x = self._decoder_stack(x)
+            enc = (self.encode(batch["frames"]) if cfg.family == "audio"
+                   else None)
+            x, aux = self._decoder_stack(x, enc)
         x = rms_norm(self.final_norm, x, cfg.norm_eps)
         logits = self._logits(x)
         if collect_aux:
@@ -171,16 +229,62 @@ class Model(nn.Module):
             return torch.matmul(x, self.embed.t())
         return linear(self.lm_head, x)
 
-    def _decoder_stack(self, h: torch.Tensor) -> torch.Tensor:
+    def _rope_theta(self) -> Optional[float]:
+        return None if self.cfg.family == "audio" else self.cfg.rope_theta
+
+    def _cross(self, lp: DecoderLayer, h: torch.Tensor,
+               enc: Optional[torch.Tensor]) -> torch.Tensor:
+        """h plus cross-attention to `enc` (none without an encoder
+        output, as in the reference)."""
+        if enc is None:
+            return h
         cfg = self.cfg
+        return h + A.attention_block(
+            lp.xattn, rms_norm(lp.ln_x, h, cfg.norm_eps),
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=None, kv=enc)
+
+    def _ffn(self, lp: DecoderLayer, h: torch.Tensor):
+        """(FFN output, MoE aux loss) of the decoder layer on h."""
+        cfg = self.cfg
+        hin = rms_norm(lp.ln2, h, cfg.norm_eps)
+        if lp.moe is None:
+            return mlp(lp.mlp, hin), None
+        f, aux = self._moe(lp.moe, hin)
+        if lp.mlp is not None:                     # Arctic's dense residual
+            f = f + mlp(lp.mlp, hin)
+        return f, aux
+
+    def _decoder_stack(self, h: torch.Tensor,
+                       enc: Optional[torch.Tensor] = None):
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for lp in self.layers:
             a = A.attention_block(
                 lp.attn, rms_norm(lp.ln1, h, cfg.norm_eps),
                 n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
+                head_dim=cfg.head_dim, rope_theta=self._rope_theta())
+            h = self._cross(lp, h + a, enc)
+            f, al = self._ffn(lp, h)
+            if al is not None:
+                aux = aux + al
+            h = h + f
+        return h, aux
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The audio encoder (``_encoder_stack``): frames (B, enc_ctx, d),
+        cast to the model's dtype -> (B, enc_ctx, d), the input of every
+        decoder layer's cross-attention."""
+        cfg = self.cfg
+        h = frames.to(self.dtype)
+        for lp in self.enc_layers:
+            a = A.attention_block(
+                lp.attn, rms_norm(lp.ln1, h, cfg.norm_eps),
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.head_dim, rope_theta=None, causal=False)
             h = h + a
             h = h + mlp(lp.mlp, rms_norm(lp.ln2, h, cfg.norm_eps))
-        return h
+        return rms_norm(self.enc_norm, h, cfg.norm_eps)
 
     def _rwkv_stack(self, h: torch.Tensor) -> torch.Tensor:
         for i in range(len(self.layers)):
@@ -235,8 +339,11 @@ class Model(nn.Module):
     # ==================================================================
     # decode path
     # ==================================================================
-    def init_cache(self, batch_size: int, max_len: int) -> Dict:
-        """dense: {"k", "v": (L, B, max_len, kvH, hd), "len": 0};
+    def init_cache(self, batch_size: int, max_len: int,
+                   enc_out: Optional[torch.Tensor] = None) -> Dict:
+        """dense, moe, vlm: {"k", "v": (L, B, max_len, kvH, hd), "len": 0};
+        audio: the same and {"enc": `enc_out`} (without it decode skips
+        cross-attention, as the reference's does);
         ssm: {"layers": [per-layer RWKV state], "len": 0};
         hybrid: {"k", "v": (blocks, B, max_len, kvH, hd), "mamba":
         [per-block [per-Mamba-sub-layer state]], "len": 0}."""
@@ -259,6 +366,8 @@ class Model(nn.Module):
                                                   self.dtype, dev)
                                for _ in range(cfg.attn_every - 1)]
                               for _ in self.layers]
+        if cfg.family == "audio":
+            cache["enc"] = enc_out
         return cache
 
     def decode_step(self, cache: Dict, tokens: torch.Tensor
@@ -277,15 +386,18 @@ class Model(nn.Module):
         return self._logits(x)[:, 0], cache
 
     def _decoder_decode(self, cache: Dict, h: torch.Tensor):
+        """The encoder output's K/V are projected again at every step, as
+        the reference does (no cross-attention KV cache)."""
         cfg = self.cfg
+        enc = cache.get("enc")
         for i, lp in enumerate(self.layers):
             a, _ = A.cached_attention_step(
                 lp.attn, rms_norm(lp.ln1, h, cfg.norm_eps),
                 {"k": cache["k"][i], "v": cache["v"][i], "len": cache["len"]},
                 n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
-            h = h + a
-            h = h + mlp(lp.mlp, rms_norm(lp.ln2, h, cfg.norm_eps))
+                head_dim=cfg.head_dim, rope_theta=self._rope_theta())
+            h = self._cross(lp, h + a, enc)
+            h = h + self._ffn(lp, h)[0]
         return h, dict(cache, len=cache["len"] + 1)
 
     def _rwkv_decode(self, cache: Dict, h: torch.Tensor):

@@ -32,13 +32,15 @@ def _qkv(b, sq, sk, h, kvh, hd, dtype, dev, seed=0):
     return q, k, v
 
 
-# the reference's test shapes, the llama3.2-1b prefill shape, and one
-# ragged S (1, 65, 333: not a multiple of 16 or 64) with GQA and MHA at
-# every head dim
+# the reference's test shapes, the llama3.2-1b prefill shape, the
+# internvl2-2b, qwen2-moe-a2.7b and arctic-480b prefill shapes (GQA 16/8,
+# MHA 16/16 and a group of 7, 56/8, at hd 128), and one ragged S (1, 65,
+# 333: not a multiple of 16 or 64) with GQA and MHA at every head dim
 KERNEL_SHAPES = [
     (2, 128, 2, 2, 64), (1, 256, 4, 4, 128), (2, 64, 2, 2, 32),
     (1, 128, 1, 1, 64), (2, 333, 8, 2, 64), (1, 300, 4, 2, 16),
-    (1, 4096, 32, 8, 64)] + [
+    (1, 4096, 32, 8, 64), (1, 4096, 16, 8, 128), (1, 4096, 16, 16, 128),
+    (1, 4096, 56, 8, 128)] + [
     (b, s, h, kvh, hd) for hd in (16, 32, 64, 128)
     for b, s, h, kvh in ((2, 1, 4, 2), (1, 65, 4, 4), (1, 333, 6, 2))]
 

@@ -2,9 +2,10 @@
 width, with the reference's weights and numpy inputs: the routing
 (``gate_idx``, each assignment's slot and the ``keep`` mask) exactly, the
 output at rtol 1e-5 and the Switch aux loss, with and without forced drops
-(capacity factor 0.5), in one and two groups, and with pad experts.
-The reference is evaluated op by op, and its top-k and slot positions are
-read off the calls it makes."""
+(capacity factor 0.5), in one and two groups, and with pad experts; and
+with the ``moe`` family's shared expert (a gated MLP of its own width
+added to the routed output).  The reference is evaluated op by op, and
+its top-k and slot positions are read off the calls it makes."""
 import math
 
 import jax
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.models import layers as JL
 from repro.models import moe as JM
 from repro_torch.models import moe as TM
 
@@ -21,13 +23,25 @@ torch.set_num_threads(1)
 D, E, K, FF = 64, 4, 2, 64            # jamba's smoke widths
 
 
-def _pair(pad=0, seed=0):
-    jp = JM.init_moe(jax.random.key(seed), D, FF, E, 0, 0,
+def _pair(pad=0, seed=0, shared_ff=0):
+    n_shared = int(shared_ff > 0)
+    jp = JM.init_moe(jax.random.key(seed), D, FF, E, n_shared, shared_ff,
                      dtype=jnp.float32, expert_pad=pad)
-    p = TM.MoE(D, FF, E, expert_pad=pad, device="cpu")
+    p = TM.MoE(D, FF, E, n_shared=n_shared, shared_ff=shared_ff,
+               expert_pad=pad, device="cpu")
     p.load_state_dict({k: torch.tensor(np.asarray(v))
-                       for k, v in jp.items()}, strict=True)
+                       for k, v in _flat(jp).items()}, strict=True)
     return jp, p
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
 
 
 def _reference(jp, x, monkeypatch, **kw):
@@ -75,6 +89,34 @@ def test_moe_block_matches_reference(capacity_factor, n_groups, pad,
     out, aux = TM.moe_block(p, torch.tensor(x), n_experts=E, top_k=K, **kw)
     np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(float(aux), want_aux, rtol=1e-6)
+
+
+@pytest.mark.parametrize("capacity_factor,n_groups,pad", [
+    (1.25, 1, 0), (0.5, 2, 4)])
+def test_moe_block_with_shared_expert_matches_reference(
+        capacity_factor, n_groups, pad, monkeypatch):
+    """qwen2-moe's layout at smoke width: a shared expert of width 128
+    (the config's d_ff) beside the routed experts, with and without drops
+    and pad experts; its output is the routed output plus the shared
+    MLP's."""
+    jp, p = _pair(pad, seed=7 + pad, shared_ff=128)
+    assert p.shared is not None and p.shared.gated
+    assert tuple(p.shared.w_up.shape) == (D, 128)
+    x = np.random.default_rng(5).standard_normal((2, 16, D)) \
+        .astype(np.float32)
+    kw = dict(capacity_factor=capacity_factor, n_groups=n_groups)
+    want, want_aux, seen = _reference(jp, x, monkeypatch, **kw)
+    out, aux = TM.moe_block(p, torch.tensor(x), n_experts=E, top_k=K, **kw)
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(float(aux), want_aux, rtol=1e-6)
+    shared = p.shared
+    p.shared = None
+    routed, _ = TM.moe_block(p, torch.tensor(x), n_experts=E, top_k=K, **kw)
+    p.shared = shared
+    np.testing.assert_allclose(
+        (out - routed).numpy(),
+        np.asarray(JL.mlp(jp["shared"], jnp.asarray(x), gated=True)),
+        rtol=1e-4, atol=1e-5)
 
 
 def test_dropped_assignments_leave_the_kept_occupant_of_slot_zero():
