@@ -173,6 +173,36 @@ line is printed:
    16, 128) and (1, 4096, 56, 8, 128), causal, fp32 and bf16: held against
    its plain version, timed beside it, one SDPA call and its bound.
 
+16. training (the kernels' backward path): (a) flash_attention's backward
+   kernel against its plain version (float64, from the same lse) at
+   llama3.2-1b's (2, 4096, 32/8, 64), jamba's (1, 4096, 64/8, 128) and
+   qwen2-moe's (1, 4096, 16/16, 128) causal shapes and at ragged ones (S
+   1000 and 2049 causal, 1000 non-causal, Sq 1000 / Sk 777 non-causal;
+   these also against autograd through float64 attention), fp32 and bf16
+   (1e-4 / 2e-2 of max |ref|); two launches bit for bit; the forward's lse
+   against the plain version's (1e-5) and its output with lse bit for bit
+   the output without; (b) llama3.2-1b at full width cut to 2 layers, B 1,
+   S 4096, fp32: one loss.backward() through the kernels and one with the
+   attention routed to flash_attention_plain under autograd, every
+   gradient within 1e-3 of max |g|, the q/k/v weights' nonzero; (c)
+   llama3.2-1b at full width and depth, B 2, S 4096, fp32, remat, AdamW
+   at the reference's defaults on SyntheticLMDataset: 6 steps, each with
+   32 flash_attention launches (16 recomputed) and 16 backward ones and no
+   scan; losses and grad norms finite; step wall, tokens/s, peak memory
+   and a profiled step (GEMMs, fa_fwd, fa_bwd, log-softmax, the
+   optimizer, idle); (d) a smoke llama ``train()`` of 8 steps at B 2,
+   S 4096 with checkpoints every 4 (scratch under
+   ``build/chip_smoke_train/``, removed after), lost after step 4 and
+   resumed in a fresh model: losses, params and moments bit for bit the
+   uninterrupted run's under deterministic algorithms; (e) rwkv6 and
+   jamba smoke models refuse ``loss.backward()`` on the card
+   (NotImplementedError: the scans have no backward kernel); (f) the
+   backward kernel, its plain version and SDPA's backward (timed only) at
+   (a)'s full-size shapes against the bound (as for the forward: fp32 as
+   three TF32 products at 495 TFLOP/s, bf16 at 989 TFLOP/s; the kernel's
+   own SIMT route at 67 TFLOP/s printed beside it), and the forward with
+   lse against without.
+
 Kernel launch counters are zeroed just before each part of the main path
 and read just after; every kernel of that part must have launched there.
 The second to last line is ``{"kernels": [...]}``; the last line is
@@ -325,7 +355,7 @@ def _under(e, label: str) -> bool:
 
 
 def profile_device(torch, fn, tag: str, what: str, keep: str = None,
-                   ranges=(), ops_under=()) -> dict:
+                   ranges=(), ops_under=(), groups=None) -> dict:
     """Device time by kernel name over one call of fn(), and the device's
     idle share of the profiled window; kernels whose name holds `keep` are
     listed even outside the top ten.  Each (module, attribute, label,
@@ -333,11 +363,13 @@ def profile_device(torch, fn, tag: str, what: str, keep: str = None,
     a pair of CUDA events, and its stream time between them (device time
     plus any wait for the host inside the range) is printed with its share
     of the busy time; for each (label, op) of `ops_under`, the device time
-    of the kernels that op's calls inside the range launched.  (The
-    profiler's own attribution of a whole range counted some kernels twice
-    on the card: more device time than the range's stream time.)  Returns
-    {label or "label/op": share of busy time} (empty where the profiler
-    saw no device events)."""
+    of the kernels that op's calls inside the range launched; for each
+    label: predicate of `groups`, the share of busy time of the kernels
+    whose name it accepts.  (The profiler's own attribution of a whole
+    range counted some kernels twice on the card: more device time than
+    the range's stream time.)  Returns {label or "label/op": share of busy
+    time, "idle": the idle share} (empty where the profiler saw no device
+    events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     labels = {r[2] for r in ranges}
@@ -394,6 +426,12 @@ def profile_device(torch, fn, tag: str, what: str, keep: str = None,
         shares[f"{label}/{op}"] = us / busy
         log(f"[{tag}]   {op} inside {label}: {len(evs)} calls, "
             f"{us / 1e3:.3f} ms of device time, {us / busy:.1%} of busy")
+    for label, accept in (groups or {}).items():
+        hit = [(n, us) for name, (n, us) in by_name.items() if accept(name)]
+        shares[label] = sum(us for _, us in hit) / busy
+        log(f"[{tag}]   group {label}: {sum(n for n, _ in hit)} launches of "
+            f"{len(hit)} kernels, {shares[label]:.1%} of busy")
+    shares["idle"] = 1.0 - busy / wall_us
     return shares
 
 
@@ -582,7 +620,8 @@ def report_fa_build(torch, build_mod, fa_ops) -> None:
         for line in sass.splitlines():
             if "Function :" in line:
                 cur = inst(line)
-                hmma[cur] = 0
+                if cur:
+                    hmma[cur] = 0
             elif cur and re.search(r"\bHMMA\b", line):
                 hmma[cur] += 1
     if "flash_attention" not in build_mod.BUILD_LOGS:
@@ -601,6 +640,19 @@ def report_fa_build(torch, build_mod, fa_ops) -> None:
         check(h is None or h > 0, f"fa_fwd<{dn}, {hd}> has no HMMA")
     check(len(info) == 8 or not info, f"{len(info)} fa_fwd "
           f"instantiations reported, want 8")
+    bwd_name = re.compile(r"fa_bwd_(dot|dkdv|dq)I(f|13__nv_bfloat16)Li(\d+)E")
+
+    def bwd_inst(line):
+        m = bwd_name.search(line)
+        return m and (m.group(1), "float32" if m.group(2) == "f"
+                      else "bfloat16", int(m.group(3)))
+    bwd = ptxas_by_entry(build_mod.BUILD_LOGS.get("flash_attention", ""),
+                         bwd_inst)
+    for key in sorted(bwd):
+        log(f"[1]   fa_bwd_{key[0]}<{key[1]}, {key[2]}>: "
+            f"{bwd[key].get('regs')} registers, {bwd[key].get('spills')}")
+    check(len(bwd) == 24 or "flash_attention" not in build_mod.BUILD_LOGS,
+          f"{len(bwd)} fa_bwd instantiations reported, want 24")
 
 
 def report_rwkv_build(build_mod, rwkv_ops) -> None:
@@ -2352,7 +2404,397 @@ def phase14_faults(torch, dev, res_k, smi: str, work_dir: str,
     return out
 
 
+# ---------------------------------------------------------- training slice
+# flash_attention's backward: max |kernel - plain(float64)| / max |plain|
+FA_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+FA_LSE_TOL = 1e-5
+# (B, Sq, Sk, H, KVH, hd, causal): llama3.2-1b, jamba and qwen2-moe at
+# S 4096 (timed), then ragged causal and non-causal ones, Sq != Sk unmasked
+FA_BWD_FULL = {"llama3.2-1b": (2, 4096, 4096, 32, 8, 64, True),
+               "jamba": (1, 4096, 4096, 64, 8, 128, True),
+               "qwen2-moe": (1, 4096, 4096, 16, 16, 128, True)}
+FA_BWD_SMALL = [(1, 1000, 1000, 4, 2, 64, True),
+                (1, 2049, 2049, 4, 2, 64, True),
+                (1, 1000, 1000, 4, 2, 64, False),
+                (2, 1000, 777, 4, 2, 64, False)]
+TRAIN = ("llama3.2-1b", 2, 4096)                     # arch, batch, seq
+TRAIN_STEPS = 6
+GRAD_ROUTE_REL = 1e-3                                # 16b: kernel vs plain
+RESUME_STEPS, RESUME_EVERY = 8, 4
+
+
+def fa_bwd_inputs(torch, b, sq, sk, h, kvh, hd, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((b, sq, h, hd), (b, sk, kvh, hd), (b, sk, kvh, hd),
+                          (b, sq, h, hd))]
+
+
+def _fa_grads64(torch, q, k, v, do, causal: bool):
+    """(dq, dk, dv) by autograd through float64 full attention (heads
+    repeated), the oracle of 16a's small shapes."""
+    from repro_torch.models.attention import _repeat_kv
+    rep = q.shape[2] // k.shape[2]
+    qq, kk, vv = (x.double().requires_grad_(True) for x in (q, k, v))
+    scale = 1.0 / qq.shape[-1] ** 0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", qq, _repeat_kv(kk, rep)) * scale
+    if causal:
+        keep = (torch.arange(s.shape[-1], device=s.device)[None]
+                <= torch.arange(s.shape[-2], device=s.device)[:, None])
+        s = torch.where(keep, s, -torch.inf)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1),
+                       _repeat_kv(vv, rep))
+    return torch.autograd.grad(out, (qq, kk, vv), do.double())
+
+
+def phase16a_fa_bwd(torch, dev) -> dict:
+    """16a: the backward kernel against its plain version (float64, from
+    the same lse) at the three full-size shapes and the small ones, fp32
+    and bf16; two launches bit for bit; the forward's lse against the
+    plain version's, and its output with lse bit for bit the output
+    without.  Returns the max abs error over the fp32 checks."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+    from repro_torch.kernels.flash_attention.ops import (_forward,
+                                                         _plain_forward)
+    saved = (flash_attention.launches, flash_attention_bwd.launches)
+    max_abs = 0.0
+    cases = [(n, s) for n, s in FA_BWD_FULL.items()] + [
+        (f"small {s[:6]}", s) for s in FA_BWD_SMALL]
+    for name, (b, sq, sk, h, kvh, hd, causal) in cases:
+        for dn, dt in _dtypes(torch).items():
+            q, k, v, do = fa_bwd_inputs(torch, b, sq, sk, h, kvh, hd, dt, dev,
+                                        seed=sq + hd)
+            o, lse = _forward(q, k, v, causal, with_lse=True)
+            o_bare, _ = _forward(q, k, v, causal, with_lse=False)
+            check(torch.equal(o, o_bare), f"fa_bwd {name} {dn}: the "
+                  f"forward's output with lse differs from without")
+            lse_p = _plain_forward(q, k, v, causal)[1]
+            lse_err = float((lse - lse_p).abs().max())
+            check(lse_err <= FA_LSE_TOL * (1 + float(lse_p.abs().max())),
+                  f"fa_bwd {name} {dn}: lse off the plain version's by "
+                  f"{lse_err:.3g}")
+            got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+            again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                  f"fa_bwd {name} {dn}: two launches differ")
+            want = flash_attention_bwd_plain(
+                *(x.double() for x in (q, k, v, o, do)), lse.double(),
+                causal=causal)
+            oracles = [("plain float64", want)]
+            if name.startswith("small"):
+                oracles.append(("autograd float64",
+                                _fa_grads64(torch, q, k, v, do, causal)))
+            msgs = []
+            for what, ref in oracles:
+                errs = []
+                for g, w, part in zip(got, ref, ("dq", "dk", "dv")):
+                    check(bool(torch.isfinite(g).all()),
+                          f"fa_bwd {name} {dn} {part}: non-finite")
+                    diff = float((g.double() - w).abs().max())
+                    rel = diff / float(w.abs().max())
+                    check(rel <= FA_BWD_TOL[dn], f"fa_bwd {name} {dn} "
+                          f"{part} vs {what}: {rel:.3g} of max |ref| > "
+                          f"{FA_BWD_TOL[dn]}")
+                    errs.append(rel)
+                    if dn == "float32" and what == "plain float64":
+                        max_abs = max(max_abs, diff)
+                msgs.append(f"{what} rel err dq/dk/dv "
+                            + "/".join(f"{e:.3g}" for e in errs))
+            del want, oracles
+            log(f"[16a] fa_bwd {name} {dn}: " + "; ".join(msgs)
+                + f" (tol {FA_BWD_TOL[dn]}); two launches bitwise equal; "
+                f"lse max abs err {lse_err:.3g}; output with lse bitwise "
+                f"the output without")
+            torch.cuda.empty_cache()
+    flash_attention.launches, flash_attention_bwd.launches = saved
+    return {"max_abs_err": max_abs}
+
+
+def phase16f_fa_bwd_timings(torch, dev) -> dict:
+    """16f: at each full-size shape and type: the backward kernel, its
+    plain version (in the input type) and SDPA's backward (the library
+    call, timed only), the bound on the card's tensor cores (fa_bound)
+    beside the kernel's SIMT route; the forward with lse against without."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_cost,
+        flash_attention_bwd_plain)
+    from repro_torch.kernels.flash_attention.ops import _forward
+    saved = (flash_attention.launches, flash_attention_bwd.launches)
+    rows = {}
+    for name, (b, sq, sk, h, kvh, hd, causal) in FA_BWD_FULL.items():
+        for dn, dt in _dtypes(torch).items():
+            q, k, v, do = fa_bwd_inputs(torch, b, sq, sk, h, kvh, hd, dt,
+                                        dev)
+            o, lse = _forward(q, k, v, causal, with_lse=True)
+            k_ms = kernel_ms(torch, lambda: flash_attention_bwd(
+                q, k, v, o, do, lse, causal=causal), warm=1, iters=5)
+            p_ms = time_ms(torch, lambda: flash_attention_bwd_plain(
+                q, k, v, o, do, lse, causal=causal), warm=1, iters=2)
+            fwd_lse = kernel_ms(torch, lambda: _forward(
+                q, k, v, causal, with_lse=True), iters=20)
+            fwd_bare = kernel_ms(torch, lambda: _forward(
+                q, k, v, causal, with_lse=False), iters=20)
+            qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_(True)
+                          for x in (q, k.repeat_interleave(h // kvh, dim=2),
+                                    v.repeat_interleave(h // kvh, dim=2)))
+            out = F.scaled_dot_product_attention(qs, ks, vs,
+                                                 is_causal=causal)
+            dos = do.transpose(1, 2)
+            lib_ms = kernel_ms(torch, lambda: torch.autograd.grad(
+                out, (qs, ks, vs), dos, retain_graph=True), warm=1, iters=5)
+            ops, nbytes = flash_attention_bwd_cost(b, sq, sk, h, kvh, hd,
+                                                   causal, q.element_size())
+            bnd = fa_bound(ops, nbytes, dn)
+            simt = ("" if dn == "float32" else    # fa_bound prints fp32's
+                    f"; SIMT fp32 at 67 TFLOP/s, the kernel's route: "
+                    f"{ops / PEAK_FP32_PER_S * 1e3:.4f} ms")
+            rows[(name, dn)] = {"ms": k_ms, "plain_ms": p_ms,
+                                "library_ms": lib_ms,
+                                "bound_ms": bnd["bound_ms"],
+                                "bound_by": bnd["bound_by"],
+                                "fwd_lse_ms": fwd_lse, "fwd_ms": fwd_bare}
+            log(f"[16f] fa_bwd {name} {(b, sq, h, kvh, hd)} {dn}: kernel "
+                f"{k_ms:.3f} ms ({ops / k_ms / 1e9:.1f} TFLOP/s of the "
+                f"function's 5 products), plain {p_ms:.2f} ms, SDPA backward "
+                f"{lib_ms:.3f} ms (heads repeated), bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['text']}{simt}); forward "
+                f"with lse {fwd_lse:.3f} ms, without {fwd_bare:.3f} ms")
+            del out, qs, ks, vs, q, k, v, do, o, lse
+            torch.cuda.empty_cache()
+    flash_attention.launches, flash_attention_bwd.launches = saved
+    return rows
+
+
+def _train_batch(torch, cfg, batch: int, seq: int, dev, seed: int = 0):
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (batch, seq + 1)), device=dev)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def phase16b_grad_route(torch, dev) -> None:
+    """16b: llama3.2-1b at full width cut to 2 layers, B 1, S 4096, fp32:
+    one loss.backward() through the kernels, one with the attention
+    routed to flash_attention_plain under autograd (a switch of this
+    script only): every gradient within GRAD_ROUTE_REL of max |g|, every
+    q/k/v weight's nonzero."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_plain)
+    from repro_torch.models import attention as attn_mod
+    cfg = dataclasses.replace(get_arch(TRAIN[0]), n_layers=2)
+    model = build_full_width(torch, cfg, dev, tag="16b")
+    model.requires_grad_(True)
+    batch = _train_batch(torch, cfg, 1, TRAIN[2], dev, seed=3)
+    saved = (flash_attention.launches, flash_attention_bwd.launches)
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    loss_k = model.loss(batch)
+    loss_k.backward()
+    torch.cuda.synchronize()
+    counts = (flash_attention.launches, flash_attention_bwd.launches)
+    check(counts == (4, 2), f"16b: kernel route launched fwd/bwd {counts}, "
+          f"want 4/2 (2 layers, remat)")
+    grads_k = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    kernel = attn_mod.flash_attention
+    attn_mod.flash_attention = lambda q, k, v, causal=True: \
+        flash_attention_plain(q, k, v, causal=causal)
+    try:
+        loss_p = model.loss(batch)
+        loss_p.backward()
+        torch.cuda.synchronize()
+    finally:
+        attn_mod.flash_attention = kernel
+    check(flash_attention.launches == 4 and flash_attention_bwd.launches == 2,
+          "16b: the plain route launched a kernel")
+    flash_attention.launches, flash_attention_bwd.launches = saved
+    worst = ("", 0.0)
+    for n, p in model.named_parameters():
+        gp, gk = p.grad, grads_k[n]
+        scale = float(gp.abs().max())
+        rel = float((gk - gp).abs().max()) / max(scale, 1e-30)
+        check(rel <= GRAD_ROUTE_REL, f"16b: {n} gradient off the plain "
+              f"route's by {rel:.3g} of max |g|")
+        if rel > worst[1]:
+            worst = (n, rel)
+        if n.endswith((".attn.q.w", ".attn.k.w", ".attn.v.w")):
+            check(float(gk.abs().max()) > 0, f"16b: {n} has no gradient")
+    log(f"[16b] {cfg.name} (2 layers, full width) B=1 S={TRAIN[2]}: loss "
+        f"kernel {loss_k.item():.6f} plain {loss_p.item():.6f}; every "
+        f"gradient within {GRAD_ROUTE_REL} of max |g| of the plain route "
+        f"(worst {worst[0]} {worst[1]:.3g}); q/k/v weights' gradients "
+        f"nonzero; launches fwd 4 (remat) bwd 2")
+    del model, grads_k
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase16c_train(torch, dev) -> dict:
+    """16c: llama3.2-1b at full width and depth, B 2, S 4096, fp32, remat,
+    AdamW at the reference's defaults, SyntheticLMDataset: TRAIN_STEPS
+    steps, each launching flash_attention 32 times (16 + 16 recomputed)
+    and its backward 16 times, neither scan; step wall, tokens/s, peak
+    memory and a profiled step."""
+    from repro_torch.data import SyntheticLMDataset, make_batch_iter
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.optim import AdamWConfig, adamw_init
+    arch, b, s = TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    model = build_full_width(torch, arch, dev, tag="16c")
+    check(model.remat, "16c: the model must train with remat")
+    step = steps_mod.make_train_step(model, AdamWConfig())
+    state = adamw_init(dict(model.named_parameters()))
+    ds = SyntheticLMDataset(model.cfg.vocab, s, b)
+    walls, losses, gnorms, counts = [], [], [], []
+    for batch in make_batch_iter(ds, 0, TRAIN_STEPS, device=dev):
+        torch.cuda.synchronize()
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        rwkv6_scan.launches = ssm_scan.launches = 0
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append((flash_attention.launches, flash_attention_bwd.launches,
+                       rwkv6_scan.launches, ssm_scan.launches))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(c == (32, 16, 0, 0) for c in counts),
+          f"16c: launches per step (fwd, bwd, rwkv6, ssm) {counts}, want "
+          f"(32, 16, 0, 0)")
+    check(bool(np.isfinite(losses).all() and np.isfinite(gnorms).all()),
+          f"16c: losses {losses} grad norms {gnorms}")
+    med = float(np.median(walls[1:]))
+    log(f"[16c] {arch} train B={b} S={s} fp32 remat, AdamW defaults: "
+        f"losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in gnorms]}; step walls "
+        f"{[round(x, 3) for x in walls]} s, median of steps 2-{TRAIN_STEPS} "
+        f"{med:.3f} s, {b * s / med:,.0f} tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); launches per step "
+        f"fwd 32 bwd 16, no scan")
+    batch = next(iter(make_batch_iter(ds, TRAIN_STEPS, 1, device=dev)))
+    saved = (flash_attention.launches, flash_attention_bwd.launches)
+    shares = profile_device(
+        torch, lambda: step(state, batch), "16c",
+        "one llama3.2-1b train step (B 2, S 4096)", keep="fa_",
+        ranges=((steps_mod, "adamw_update", "adamw_update", None),),
+        groups={"fp32 GEMMs": lambda n: "gemm" in n.lower(),
+                "fa_fwd": lambda n: "fa_fwd" in n,
+                "fa_bwd": lambda n: "fa_bwd" in n,
+                "log-softmax": lambda n: "softmax" in n.lower()})
+    flash_attention.launches, flash_attention_bwd.launches = saved
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_s": med, "tokens_per_s": b * s / med, "peak": peak,
+            "fwd_launches": sum(c[0] for c in counts),
+            "bwd_launches": sum(c[1] for c in counts), "shares": shares}
+
+
+def phase16d_resume(torch, dev, work_dir: str) -> None:
+    """16d: a smoke llama train() of RESUME_STEPS steps at B 2, S 4096
+    (the kernels' branch), checkpoints every RESUME_EVERY; the run lost
+    after step RESUME_EVERY (its later checkpoint removed) resumes in a
+    fresh model with the same losses bit for bit and the same final
+    params and moments, under torch.use_deterministic_algorithms."""
+    import shutil
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    shutil.rmtree(work_dir, ignore_errors=True)
+    torch.use_deterministic_algorithms(True)
+    saved = (flash_attention.launches, flash_attention_bwd.launches)
+    try:
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        kw = dict(arch=TRAIN[0], steps=RESUME_STEPS, batch=2, seq=TRAIN[2],
+                  smoke=True, ckpt_dir=work_dir, ckpt_every=RESUME_EVERY,
+                  log_every=1000, device=dev)
+        whole = train(**kw)
+        n_fwd, n_bwd = flash_attention.launches, flash_attention_bwd.launches
+        cfg = get_arch(TRAIN[0]).smoke()
+        check((n_fwd, n_bwd) == (RESUME_STEPS * cfg.n_layers,) * 2,
+              f"16d: launches fwd/bwd {n_fwd}/{n_bwd}")
+        m = build_model(cfg, dtype=torch.float32, device=dev)
+        like = {"params": dict(m.named_parameters()),
+                "opt": adamw_init(dict(m.named_parameters()))}
+        end = restore_checkpoint(work_dir, RESUME_STEPS, like, device=dev)
+        shutil.rmtree(os.path.join(work_dir, f"step_{RESUME_STEPS:08d}"))
+        resumed = train(**kw)
+        check(resumed == whole[RESUME_EVERY:],
+              f"16d: resumed losses {resumed} != {whole[RESUME_EVERY:]}")
+        again = restore_checkpoint(work_dir, RESUME_STEPS, like, device=dev)
+        for part in ("params", "m", "v"):
+            a = again["params"] if part == "params" else again["opt"][part]
+            e = end["params"] if part == "params" else end["opt"][part]
+            check(all(torch.equal(a[n], e[n]) for n in e),
+                  f"16d: resumed final {part} differ")
+        check(torch.equal(again["opt"]["step"], end["opt"]["step"]),
+              "16d: resumed final step differs")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        flash_attention.launches, flash_attention_bwd.launches = saved
+        shutil.rmtree(work_dir, ignore_errors=True)
+    log(f"[16d] {cfg.name} train B=2 S={TRAIN[2]}, {RESUME_STEPS} steps, "
+        f"checkpoints every {RESUME_EVERY}: resumed from step "
+        f"{RESUME_EVERY} in a fresh model, losses {resumed} bit for bit the "
+        f"uninterrupted run's, final params, m, v and step equal "
+        f"(deterministic algorithms); launches fwd {n_fwd} bwd {n_bwd}")
+
+
+def phase16e_guard(torch, dev) -> None:
+    """16e: rwkv6 and jamba smoke models on the card refuse a loss that
+    would need a scan's backward (NotImplementedError); under no_grad
+    their loss is finite."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    for arch in ("rwkv6-7b", "jamba-1.5-large-398b"):
+        cfg = get_arch(arch).smoke()
+        m = build_model(cfg, dtype=torch.float32, device=dev)
+        m.init_weights(torch.Generator(device=dev).manual_seed(0))
+        m.requires_grad_(True)
+        batch = _train_batch(torch, cfg, 1, 64, dev)
+        try:
+            m.loss(batch).backward()
+        except NotImplementedError as e:
+            msg = str(e).split(";")[0]
+        else:
+            raise SmokeFailure(f"16e: {arch} trained through a scan kernel "
+                               f"that has no backward")
+        with torch.no_grad():
+            check(bool(torch.isfinite(m.loss(batch))),
+                  f"16e: {arch} no_grad loss")
+        log(f"[16e] {arch} smoke on the card: loss.backward() raised "
+            f"NotImplementedError ({msg}); no_grad loss finite")
+
+
+def phase16_training(torch, dev, work_dir: str) -> dict:
+    t0 = time.perf_counter()
+    fa_bwd = phase16a_fa_bwd(torch, dev)
+    phase16b_grad_route(torch, dev)
+    train = phase16c_train(torch, dev)
+    phase16d_resume(torch, dev, work_dir)
+    phase16e_guard(torch, dev)
+    fa_bwd["times"] = phase16f_fa_bwd_timings(torch, dev)
+    log(f"[16] phase 16 took {time.perf_counter() - t0:.1f} s")
+    return {"fa_bwd": fa_bwd, "train": train}
+
+
 def main() -> int:
+    # cuBLAS reads its workspace size once, at its first call: fix it here,
+    # before any, so that 16d's deterministic algorithms hold for every GEMM
+    # (32 MiB, the size PyTorch already picks on sm_90)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2673,6 +3115,10 @@ def main() -> int:
     # ---- 15. the moe, vlm and audio families at full width ------------------
     families = phase15_families(torch, dev)
 
+    # ---- 16. training: flash_attention's backward, a full-width step -------
+    training = phase16_training(torch, dev, os.path.join(
+        ROOT, "build", "chip_smoke_train"))
+
     kt = times["both"]                 # the main path's launch: a chunk
     kernels = [{
         "name": "ppa_eval", "route": "cuda",
@@ -2692,7 +3138,7 @@ def main() -> int:
              "src/repro_torch/kernels/flash_attention/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:25",
              pre_llama["counts"]["flash_attention"] + jc["flash_attention"]
-             + families["launches"]),
+             + families["launches"] + training["train"]["fwd_launches"]),
             ("rwkv6_scan", "src/repro_torch/kernels/rwkv6_scan/rwkv6_scan.cu",
              "src/repro/kernels/rwkv6_scan/kernel.py:25",
              pre_rwkv["counts"]["rwkv6_scan"]),
@@ -2710,6 +3156,16 @@ def main() -> int:
             "ms": t32["ms"], "plain_ms": t32["plain_ms"],
             "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
             "library_ms": t32["library_ms"]})
+    bwd = training["fa_bwd"]["times"][("llama3.2-1b", "float32")]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:25",
+        "launches": training["train"]["bwd_launches"],
+        "max_abs_err": training["fa_bwd"]["max_abs_err"],
+        "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+        "library_ms": bwd["library_ms"]})
     log(f"[end] total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -60,6 +60,7 @@ constexpr int kBQ = 64;                   // query rows per block
 constexpr int kThreads = 128;             // 4 warps x 16 rows
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Per-dtype tile shape.  BK: keys per tile (32 at fp32 hd 128, where 64
 // would leave one block per SM for lack of shared memory).  KST / VST:
@@ -357,8 +358,8 @@ template <typename T, int HD>
 // they run faster; the fp32 ones do not change.
 __global__ void __launch_bounds__(kThreads, 1)
 fa_fwd(const T* __restrict__ q, const T* __restrict__ k,
-       const T* __restrict__ v, T* __restrict__ o, int sq, int sk, int h,
-       int kvh, float scale_log2, int causal) {
+       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+       int sq, int sk, int h, int kvh, float scale_log2, int causal) {
   using C = Tile<T, HD>;
   constexpr int BK = C::BK;
   constexpr int NT = BK / 8;              // n8 score tiles per key tile
@@ -492,14 +493,17 @@ fa_fwd(const T* __restrict__ q, const T* __restrict__ k,
       for (int n = 0; n < ND; ++n)
         store2(orow + 8 * n + 2 * t, acc[n][2 * r] / den,
                acc[n][2 * r + 1] / den);
+      // the row's log-sum-exp of the natural-log scores, for the backward
+      if (lse != nullptr && t == 0)
+        lse[static_cast<size_t>(bh) * sq + row] = m[r] * kLn2 + logf(den);
     }
   }
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int sq, int sk, int h, int kvh, float scale,
-                   int causal, cudaStream_t stream) {
+                   float* lse, int b, int sq, int sk, int h, int kvh,
+                   float scale, int causal, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<T, HD>();
   cudaError_t err = cudaFuncSetAttribute(
       fa_fwd<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -508,24 +512,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
   fa_fwd<T, HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, h, kvh,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, h, kvh,
       scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
-                      void* o, int b, int sq, int sk, int h, int kvh,
-                      float scale, int causal, cudaStream_t stream) {
+                      void* o, float* lse, int b, int sq, int sk, int h,
+                      int kvh, float scale, int causal, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, b, sq, sk, h, kvh, scale,
+    case 16: return launch<T, 16>(q, k, v, o, lse, b, sq, sk, h, kvh, scale,
                                   causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, b, sq, sk, h, kvh, scale,
+    case 32: return launch<T, 32>(q, k, v, o, lse, b, sq, sk, h, kvh, scale,
                                   causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, b, sq, sk, h, kvh, scale,
+    case 64: return launch<T, 64>(q, k, v, o, lse, b, sq, sk, h, kvh, scale,
                                   causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, b, sq, sk, h, kvh, scale,
-                                    causal, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, b, sq, sk, h, kvh,
+                                    scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -541,6 +545,378 @@ int smem_hd(int hd) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward (FA2): given q, k, v, the forward's o and lse, and dO, computes
+// dq, dk, dv in the input type with fp32 accumulation.  With P = exp(S -
+// lse), S = q k^T * scale (masked entries have P = 0) and D = rowsum(dO o):
+//   dV = P^T dO,   dP = dO V^T,   dS = P (dP - D),
+//   dQ = scale dS K,   dK = scale dS^T Q.
+// Three kernels on the stream: bwd_dot (D), bwd_dkdv (a block per (b, KV
+// head, 64-key tile): it loops over the group's H / KVH query heads and
+// their query tiles, so GQA's sum over the group happens in registers and
+// no atomics are needed; dk and dv are the same bits every run), bwd_dq (a
+// block per (b, head, 64-row query tile), looping over the key tiles).  P
+// and dP are recomputed in both, which is 7 tile products against the
+// function's 5.
+//
+// What bounds it on an H100: at the llama3.2-1b shape (B 2, S 4096, H 32,
+// hd 64, causal) the function is 5 products, 343.7 GFLOP, against ~235 MB
+// (fp32): bound by operations.  This first version runs every product as
+// fp32 FMA on the SIMT cores (67 TFLOP/s, 5.13 ms at that shape) for both
+// types: operands are staged in shared memory as fp32 (rows padded to an
+// odd stride, so a column read by 16 lanes hits 16 banks), and each of the
+// 256 threads (16 x 16) owns a 4 x 4 grid of (row, key) entries spaced 16
+// apart, or 4 rows x hd/16 columns of an accumulator.  Tensor cores
+// (mma.sync / wgmma) are the next step.
+constexpr int kBB = 64;                   // query rows and keys per tile
+constexpr int kBwdThreads = 256;          // 16 x 16
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// D[(b h) sq + s] = sum_d dO[b, s, h, d] o[b, s, h, d]: one warp per row.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+fa_bwd_dot(const T* __restrict__ o, const T* __restrict__ dout,
+           float* __restrict__ delta, int rows, int sq, int h) {
+  const int row = blockIdx.x * (kBwdThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* orow = o + static_cast<size_t>(row) * HD;
+  const T* drow = dout + static_cast<size_t>(row) * HD;
+  float acc = 0.f;
+  for (int d = lane; d < HD; d += 32) acc += to_f(orow[d]) * to_f(drow[d]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int hh = row % h, s = (row / h) % sq, b = row / (h * sq);
+    delta[(static_cast<size_t>(b) * h + hh) * sq + s] = acc;
+  }
+}
+
+// Rows [r0, r0 + kBB) of one head (row stride `stride` elements) into an
+// fp32 tile of row stride HD + 1; rows at or past n are zero.
+template <typename T, int HD>
+__device__ __forceinline__ void stage(float* dst, const T* src,
+                                      size_t stride, int r0, int n) {
+  for (int i = threadIdx.x; i < kBB * HD; i += kBwdThreads) {
+    const int r = i / HD, c = i % HD;
+    dst[r * (HD + 1) + c] =
+        r0 + r < n ? to_f(src[static_cast<size_t>(r0 + r) * stride + c])
+                   : 0.f;
+  }
+}
+
+// s += Q K^T and dp += dO V^T over the head dim for rows ty + 16a and keys
+// tx + 16c of the tiles (fp32, row stride HD + 1).
+template <int HD>
+__device__ __forceinline__ void scores_dp(const float* qs, const float* dos,
+                                          const float* ks, const float* vs,
+                                          float (&s)[4][4], float (&dp)[4][4],
+                                          int ty, int tx) {
+  constexpr int ST = HD + 1;
+#pragma unroll 4
+  for (int d = 0; d < HD; ++d) {
+    float qa[4], da[4], kb[4], vb[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      qa[a] = qs[(ty + 16 * a) * ST + d];
+      da[a] = dos[(ty + 16 * a) * ST + d];
+      kb[a] = ks[(tx + 16 * a) * ST + d];
+      vb[a] = vs[(tx + 16 * a) * ST + d];
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[a][c] = fmaf(qa[a], kb[c], s[a][c]);
+        dp[a][c] = fmaf(da[a], vb[c], dp[a][c]);
+      }
+  }
+}
+
+// P and dS of the tile pair (q0, k0) for this thread's 4 x 4 entries, from
+// the scores and dP; masked entries (past sq or sk, or above the causal
+// diagonal) are 0.
+__device__ __forceinline__ void probs(float (&s)[4][4], float (&dp)[4][4],
+                                      const float* lses, const float* dls,
+                                      int q0, int k0, int sq, int sk,
+                                      int causal, float scale_log2, int ty,
+                                      int tx) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = ty + 16 * a, i = q0 + r;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = k0 + tx + 16 * c;
+      const bool ok = i < sq && j < sk && (!causal || j <= i);
+      const float p = ok ? ex2(s[a][c] * scale_log2 - lses[r]) : 0.f;
+      s[a][c] = p;
+      dp[a][c] = p * (dp[a][c] - dls[r]);
+    }
+  }
+}
+
+// Shared memory of one block: Q, dO, K, V tiles (kBB x (HD + 1)), `tiles`
+// kBB x (kBB + 1) ones (P and dS for dk/dv, dS alone for dq), and the query
+// rows' lse (log2 domain) and D.
+template <int HD>
+constexpr size_t bwd_smem_bytes(int tiles) {
+  return sizeof(float) *
+         (4 * kBB * (HD + 1) + tiles * kBB * (kBB + 1) + 2 * kBB);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, const T* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int h,
+            int kvh, float scale_log2, float scale, int causal) {
+  constexpr int ST = HD + 1, PT = kBB + 1, NC = HD / 16;
+  extern __shared__ float sm[];
+  float* qs = sm;
+  float* dos = qs + kBB * ST;
+  float* ks = dos + kBB * ST;
+  float* vs = ks + kBB * ST;
+  float* ps = vs + kBB * ST;
+  float* dss = ps + kBB * PT;
+  float* lses = dss + kBB * PT;
+  float* dls = lses + kBB;
+
+  const int k0 = blockIdx.x * kBB;        // tile 0 has the most work first
+  const int b = blockIdx.y / kvh, kh = blockIdx.y % kvh;
+  const int rep = h / kvh;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const size_t q_stride = static_cast<size_t>(h) * HD;
+  const size_t kv_stride = static_cast<size_t>(kvh) * HD;
+  const size_t kv_off = static_cast<size_t>(b) * sk * kv_stride + kh * HD;
+  stage<T, HD>(ks, k + kv_off, kv_stride, k0, sk);
+  stage<T, HD>(vs, v + kv_off, kv_stride, k0, sk);
+
+  float dka[4][NC], dva[4][NC];           // keys ty + 16a, dims tx + 16c
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dka[a][c] = dva[a][c] = 0.f;
+
+  const int q_begin = causal ? k0 : 0;    // earlier rows see none of these keys
+  for (int hh = kh * rep; hh < (kh + 1) * rep; ++hh) {
+    const size_t q_off = static_cast<size_t>(b) * sq * q_stride + hh * HD;
+    const float* lse_h = lse + (static_cast<size_t>(b) * h + hh) * sq;
+    const float* dl_h = delta + (static_cast<size_t>(b) * h + hh) * sq;
+    for (int q0 = q_begin; q0 < sq; q0 += kBB) {
+      __syncthreads();                    // the previous tiles are consumed
+      stage<T, HD>(qs, q + q_off, q_stride, q0, sq);
+      stage<T, HD>(dos, dout + q_off, q_stride, q0, sq);
+      if (tid < kBB) {
+        const bool ok = q0 + tid < sq;
+        lses[tid] = ok ? lse_h[q0 + tid] * kLog2e : 0.f;
+        dls[tid] = ok ? dl_h[q0 + tid] : 0.f;
+      }
+      __syncthreads();
+      float s[4][4] = {}, dp[4][4] = {};
+      scores_dp<HD>(qs, dos, ks, vs, s, dp, ty, tx);
+      probs(s, dp, lses, dls, q0, k0, sq, sk, causal, scale_log2, ty, tx);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          ps[(ty + 16 * a) * PT + tx + 16 * c] = s[a][c];
+          dss[(ty + 16 * a) * PT + tx + 16 * c] = dp[a][c];
+        }
+      __syncthreads();
+      // dV[j] += sum_i P[i][j] dO[i];  dK[j] += sum_i dS[i][j] Q[i]
+      const int i_end = min(kBB, sq - q0);
+#pragma unroll 2
+      for (int i = 0; i < i_end; ++i) {
+        float pa[4], sa[4], dov[NC], qv[NC];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          pa[a] = ps[i * PT + ty + 16 * a];
+          sa[a] = dss[i * PT + ty + 16 * a];
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          dov[c] = dos[i * ST + tx + 16 * c];
+          qv[c] = qs[i * ST + tx + 16 * c];
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            dva[a][c] = fmaf(pa[a], dov[c], dva[a][c]);
+            dka[a][c] = fmaf(sa[a], qv[c], dka[a][c]);
+          }
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int j = k0 + ty + 16 * a;
+    if (j >= sk) continue;
+    const size_t off = kv_off + static_cast<size_t>(j) * kv_stride;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      dk[off + tx + 16 * c] = from_f<T>(dka[a][c] * scale);
+      dv[off + tx + 16 * c] = from_f<T>(dva[a][c]);
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const T* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          T* __restrict__ dq, int sq, int sk, int h, int kvh,
+          float scale_log2, float scale, int causal) {
+  constexpr int ST = HD + 1, PT = kBB + 1, NC = HD / 16;
+  extern __shared__ float sm[];
+  float* qs = sm;
+  float* dos = qs + kBB * ST;
+  float* ks = dos + kBB * ST;
+  float* vs = ks + kBB * ST;
+  float* dss = vs + kBB * ST;
+  float* lses = dss + kBB * PT;
+  float* dls = lses + kBB;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBB;  // longest tiles first
+  const int b = blockIdx.y / h, hh = blockIdx.y % h;
+  const int kh = hh / (h / kvh);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const size_t q_stride = static_cast<size_t>(h) * HD;
+  const size_t kv_stride = static_cast<size_t>(kvh) * HD;
+  const size_t q_off = static_cast<size_t>(b) * sq * q_stride + hh * HD;
+  const size_t kv_off = static_cast<size_t>(b) * sk * kv_stride + kh * HD;
+  stage<T, HD>(qs, q + q_off, q_stride, q0, sq);
+  stage<T, HD>(dos, dout + q_off, q_stride, q0, sq);
+  if (tid < kBB) {
+    const bool ok = q0 + tid < sq;
+    const size_t r = (static_cast<size_t>(b) * h + hh) * sq + q0 + tid;
+    lses[tid] = ok ? lse[r] * kLog2e : 0.f;
+    dls[tid] = ok ? delta[r] : 0.f;
+  }
+
+  float dqa[4][NC];                       // rows ty + 16a, dims tx + 16c
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dqa[a][c] = 0.f;
+
+  const int k_end = causal ? min(sk, q0 + kBB) : sk;
+  for (int k0 = 0; k0 < k_end; k0 += kBB) {
+    __syncthreads();                      // the previous tiles are consumed
+    stage<T, HD>(ks, k + kv_off, kv_stride, k0, sk);
+    stage<T, HD>(vs, v + kv_off, kv_stride, k0, sk);
+    __syncthreads();
+    float s[4][4] = {}, dp[4][4] = {};
+    scores_dp<HD>(qs, dos, ks, vs, s, dp, ty, tx);
+    probs(s, dp, lses, dls, q0, k0, sq, sk, causal, scale_log2, ty, tx);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        dss[(ty + 16 * a) * PT + tx + 16 * c] = dp[a][c];
+    __syncthreads();
+    // dQ[i] += sum_j dS[i][j] K[j]
+    const int j_end = min(kBB, sk - k0);
+#pragma unroll 2
+    for (int j = 0; j < j_end; ++j) {
+      float sa[4], kv[NC];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) sa[a] = dss[(ty + 16 * a) * PT + j];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) kv[c] = ks[j * ST + tx + 16 * c];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) dqa[a][c] = fmaf(sa[a], kv[c], dqa[a][c]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = q0 + ty + 16 * a;
+    if (i >= sq) continue;
+    T* row = dq + q_off + static_cast<size_t>(i) * q_stride;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      row[tx + 16 * c] = from_f<T>(dqa[a][c] * scale);
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const float* lse,
+                       float* delta, void* dq, void* dk, void* dv, int b,
+                       int sq, int sk, int h, int kvh, float scale,
+                       int causal, cudaStream_t stream) {
+  constexpr size_t bytes = bwd_smem_bytes<HD>(2);
+  constexpr size_t dq_bytes = bwd_smem_bytes<HD>(1);
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_bwd_dkdv<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fa_bwd_dq<T, HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(dq_bytes));
+  if (err != cudaSuccess) return err;
+  const int rows = b * sq * h;
+  const int per = kBwdThreads / 32;
+  fa_bwd_dot<T, HD><<<(rows + per - 1) / per, kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, sq,
+      h);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = scale * kLog2e;
+  fa_bwd_dkdv<T, HD><<<dim3((sk + kBB - 1) / kBB, b * kvh), kBwdThreads,
+                       bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, h, kvh, scale_log2,
+      scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fa_bwd_dq<T, HD><<<dim3((sq + kBB - 1) / kBB, b * h), kBwdThreads,
+                     dq_bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), sq, sk, h, kvh, scale_log2, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_hd(int hd, const void* q, const void* k,
+                          const void* v, const void* o, const void* dout,
+                          const float* lse, float* delta, void* dq, void* dk,
+                          void* dv, int b, int sq, int sk, int h, int kvh,
+                          float scale, int causal, cudaStream_t stream) {
+#define REPRO_FA_BWD(HD)                                                  \
+  case HD:                                                                \
+    return launch_bwd<T, HD>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, \
+                             sq, sk, h, kvh, scale, causal, stream);
+  switch (hd) {
+    REPRO_FA_BWD(16)
+    REPRO_FA_BWD(32)
+    REPRO_FA_BWD(64)
+    REPRO_FA_BWD(128)
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_FA_BWD
+}
+
+
 }  // namespace
 
 extern "C" {
@@ -548,19 +924,47 @@ extern "C" {
 // Launches the kernel on `stream` (a cudaStream_t) and returns the
 // cudaError_t of the launch (0 on success).  dtype: 0 fp32, 1 bf16.
 // q, o: (b, sq, h, hd); k, v: (b, sk, kvh, hd); contiguous, 16-byte
-// aligned; h a multiple of kvh; hd in {16, 32, 64, 128}.
+// aligned; h a multiple of kvh; hd in {16, 32, 64, 128}.  lse: null, or
+// (b, h, sq) fp32 to receive each row's log-sum-exp (the backward's input).
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int b, int sq, int sk, int h, int kvh,
-                           int hd, int dtype, float scale, int causal,
-                           void* stream) {
+                           void* o, void* lse, int b, int sq, int sk, int h,
+                           int kvh, int hd, int dtype, float scale,
+                           int causal, void* stream) {
   if (b <= 0 || sq <= 0 || sk <= 0 || kvh <= 0 || h % kvh != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (dtype) {
     case 0: return static_cast<int>(launch_hd<float>(
-        hd, q, k, v, o, b, sq, sk, h, kvh, scale, causal, s));
+        hd, q, k, v, o, l, b, sq, sk, h, kvh, scale, causal, s));
     case 1: return static_cast<int>(launch_hd<__nv_bfloat16>(
-        hd, q, k, v, o, b, sq, sk, h, kvh, scale, causal, s));
+        hd, q, k, v, o, l, b, sq, sk, h, kvh, scale, causal, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The backward on `stream`: three kernels (D, then dk/dv, then dq); returns
+// the first cudaError_t (0 on success).  q, o, dout, dq: (b, sq, h, hd);
+// k, v, dk, dv: (b, sk, kvh, hd); lse and delta (workspace): (b, h, sq)
+// fp32.  Same types and shapes as flash_attention_launch.
+int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
+                               const void* o, const void* dout,
+                               const void* lse, void* delta, void* dq,
+                               void* dk, void* dv, int b, int sq, int sk,
+                               int h, int kvh, int hd, int dtype, float scale,
+                               int causal, void* stream) {
+  if (b <= 0 || sq <= 0 || sk <= 0 || kvh <= 0 || h % kvh != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  switch (dtype) {
+    case 0: return static_cast<int>(launch_bwd_hd<float>(
+        hd, q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, sk, h, kvh, scale,
+        causal, s));
+    case 1: return static_cast<int>(launch_bwd_hd<__nv_bfloat16>(
+        hd, q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, sk, h, kvh, scale,
+        causal, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -74,13 +74,23 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype.
 
     A CUDA tensor launches the kernel (counted in ``rwkv6_scan.launches``);
-    a CPU tensor runs :func:`rwkv6_scan_plain`, which also takes float64.
+    a CPU tensor runs :func:`rwkv6_scan_plain`, which also takes float64
+    and keeps autograd.  The kernel has no backward yet: on a CUDA tensor
+    a call that would need one (grad mode on and an input that requires
+    grad) raises ``NotImplementedError`` rather than return an output cut
+    from the graph.
     """
     _check(r, k, v, w, u)
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, w, u)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: unsupported device {r.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad
+                                       for x in (r, k, v, w, u)):
+        raise NotImplementedError(
+            "rwkv6_scan: the CUDA kernel has no backward yet, so the ssm "
+            "family cannot train on the card (ROADMAP.md §1, 'rwkv6_scan "
+            "backward kernel'); run the forward under torch.no_grad()")
     if r.dtype not in DTYPES:
         raise TypeError(f"rwkv6_scan: the kernel takes {list(DTYPES)}, got "
                         f"{r.dtype}")

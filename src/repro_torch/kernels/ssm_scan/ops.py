@@ -70,13 +70,23 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dtype.
 
     A CUDA tensor launches the kernel (counted in ``ssm_scan.launches``);
-    a CPU tensor runs :func:`ssm_scan_plain`, which also takes float64.
+    a CPU tensor runs :func:`ssm_scan_plain`, which also takes float64
+    and keeps autograd.  The kernel has no backward yet: on a CUDA tensor
+    a call that would need one (grad mode on and an input that requires
+    grad) raises ``NotImplementedError`` rather than return an output cut
+    from the graph.
     """
     _check(u, dt, a, b, c)
     if u.device.type == "cpu":
         return ssm_scan_plain(u, dt, a, b, c)
     if u.device.type != "cuda":
         raise ValueError(f"ssm_scan: unsupported device {u.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad
+                                       for x in (u, dt, a, b, c)):
+        raise NotImplementedError(
+            "ssm_scan: the CUDA kernel has no backward yet, so the hybrid "
+            "family cannot train on the card (ROADMAP.md §1, 'ssm_scan "
+            "backward kernel'); run the forward under torch.no_grad()")
     if u.dtype not in DTYPES:
         raise TypeError(f"ssm_scan: the kernel takes {list(DTYPES)}, got "
                         f"{u.dtype}")

@@ -9,8 +9,11 @@ over from JAX loads without transposes.  Norm math runs in fp32 whatever
 the activation dtype (fp64 in an fp64 model, which the tests use as a
 rounding-free witness; :func:`upcast`).
 
-Parameters are created empty on the module's device; the owning model
+Parameters are created empty on the module's device, and without
+``requires_grad`` (every inference path needs none); the owning model
 fills them from an explicit ``torch.Generator`` (:meth:`init_weights`).
+A trainer turns gradients on with ``model.requires_grad_()``, as
+``launch.steps.make_train_step`` does.
 """
 from __future__ import annotations
 

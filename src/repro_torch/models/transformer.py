@@ -8,13 +8,18 @@ The port's counterpart of ``repro.models.transformer``.  :func:`build_model`
 
 * ``init_weights(generator)``       -> fills every parameter (seeded)
 * ``forward(batch, collect_aux)``   -> logits (prefill) [, MoE aux loss]
+* ``loss(batch)``                   -> scalar LM loss (+ MoE aux)
 * ``encode(frames)``                -> the audio encoder's output
 * ``init_cache(batch, max_len, enc_out)`` -> decode cache
 * ``decode_step(cache, tokens)``    -> (logits, cache)
 
 Layers are an ``nn.ModuleList`` (the reference scans over stacked
 parameters); :func:`repro_torch.models.convert.params_from_jax` unstacks a
-reference pytree into this layout.  The training loss is not ported yet.
+reference pytree into this layout.  With ``remat`` (the reference's
+default) each layer body runs under ``torch.utils.checkpoint`` while grad
+mode is on, as the reference's scan body runs under ``jax.checkpoint``:
+its activations are recomputed in the backward instead of kept.  Under
+``torch.no_grad`` (prefill, decode, serve) it runs as is.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -144,10 +150,12 @@ class Model(nn.Module):
     """One architecture's LM, parameters empty until :meth:`init_weights`
     or ``load_state_dict``.  ``device=None`` means the CUDA device.
     ``moe_capacity`` is the MoE token-dropping capacity factor; set it to
-    ``n_experts`` to disable drops."""
+    ``n_experts`` to disable drops.  ``remat`` recomputes each layer's
+    activations in the backward (see the module docstring)."""
 
     def __init__(self, cfg: ArchConfig, dtype=torch.bfloat16,
-                 device: DeviceLike = None, moe_capacity: float = 1.25):
+                 device: DeviceLike = None, moe_capacity: float = 1.25,
+                 remat: bool = True):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r} ({cfg.name}); "
@@ -155,6 +163,7 @@ class Model(nn.Module):
         self.cfg = cfg
         self.dtype = dtype
         self.moe_capacity = moe_capacity
+        self.remat = remat
         self.device = resolve_device(device)
         dev = self.device
         self.embed = empty_param((cfg.vocab, cfg.d_model), dtype, dev)
@@ -219,6 +228,28 @@ class Model(nn.Module):
             return logits, aux
         return logits
 
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token NLL (fp32 log-softmax) over the positions with
+        ``batch["labels"] >= 0``, plus 0.01 x the MoE aux loss.  Its
+        gradients reach the parameters once ``requires_grad_()`` has
+        turned them on (they are built without)."""
+        logits, aux = self.forward(batch, collect_aux=True)
+        labels = batch["labels"]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None].long())
+        mask = (labels >= 0).float()
+        nll = -(ll[..., 0] * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return nll + 0.01 * aux
+
+    def _layer(self, body, *args):
+        """body(*args), under activation checkpointing when ``remat`` and
+        grad mode are on (the model draws no random numbers, so no RNG
+        state is kept for the recompute)."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(body, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return body(*args)
+
     def _moe(self, p: M.MoE, hin: torch.Tensor):
         cfg = self.cfg
         return M.moe_block(p, hin, n_experts=cfg.n_experts, top_k=cfg.top_k,
@@ -257,67 +288,81 @@ class Model(nn.Module):
 
     def _decoder_stack(self, h: torch.Tensor,
                        enc: Optional[torch.Tensor] = None):
-        cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for lp in self.layers:
-            a = A.attention_block(
-                lp.attn, rms_norm(lp.ln1, h, cfg.norm_eps),
-                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                head_dim=cfg.head_dim, rope_theta=self._rope_theta())
-            h = self._cross(lp, h + a, enc)
-            f, al = self._ffn(lp, h)
+            h, al = self._layer(self._decoder_layer, lp, h, enc)
             if al is not None:
                 aux = aux + al
-            h = h + f
         return h, aux
+
+    def _decoder_layer(self, lp: DecoderLayer, h: torch.Tensor,
+                       enc: Optional[torch.Tensor]):
+        """One decoder layer on h -> (h, MoE aux loss or None)."""
+        cfg = self.cfg
+        a = A.attention_block(
+            lp.attn, rms_norm(lp.ln1, h, cfg.norm_eps),
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=self._rope_theta())
+        h = self._cross(lp, h + a, enc)
+        f, al = self._ffn(lp, h)
+        return h + f, al
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """The audio encoder (``_encoder_stack``): frames (B, enc_ctx, d),
         cast to the model's dtype -> (B, enc_ctx, d), the input of every
         decoder layer's cross-attention."""
-        cfg = self.cfg
         h = frames.to(self.dtype)
         for lp in self.enc_layers:
-            a = A.attention_block(
-                lp.attn, rms_norm(lp.ln1, h, cfg.norm_eps),
-                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                head_dim=cfg.head_dim, rope_theta=None, causal=False)
-            h = h + a
-            h = h + mlp(lp.mlp, rms_norm(lp.ln2, h, cfg.norm_eps))
-        return rms_norm(self.enc_norm, h, cfg.norm_eps)
+            h = self._layer(self._encoder_layer, lp, h)
+        return rms_norm(self.enc_norm, h, self.cfg.norm_eps)
+
+    def _encoder_layer(self, lp: EncoderLayer, h: torch.Tensor):
+        cfg = self.cfg
+        a = A.attention_block(
+            lp.attn, rms_norm(lp.ln1, h, cfg.norm_eps),
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=None, causal=False)
+        h = h + a
+        return h + mlp(lp.mlp, rms_norm(lp.ln2, h, cfg.norm_eps))
 
     def _rwkv_stack(self, h: torch.Tensor) -> torch.Tensor:
         for i in range(len(self.layers)):
-            h, _ = self.rwkv_layer(i, h)
+            h = self._layer(lambda j, x: self.rwkv_layer(j, x)[0], i, h)
         return h
 
     def _jamba_stack(self, h: torch.Tensor):
-        cfg = self.cfg
-        per = cfg.attn_every
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for bp in self.layers:
-            mi = di = 0
-            for i in range(per):
-                if i == 0:
-                    a = A.attention_block(
-                        bp.attn, rms_norm(bp.attn_ln, h, cfg.norm_eps),
-                        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
-                    h = h + a
-                else:
-                    m, _ = S.mamba_block(
-                        bp.mamba[i - 1],
-                        rms_norm(bp.mamba_ln[i - 1], h, cfg.norm_eps))
-                    h = h + m
-                hin = rms_norm(bp.ffn_ln[i], h, cfg.norm_eps)
-                if i % 2 == 0:
-                    f, al = self._moe(bp.moe[mi], hin)
-                    aux = aux + al
-                    mi += 1
-                else:
-                    f = mlp(bp.mlp[di], hin)
-                    di += 1
-                h = h + f
+            h, al = self._layer(self._jamba_block, bp, h)
+            aux = aux + al
+        return h, aux
+
+    def _jamba_block(self, bp: JambaBlock, h: torch.Tensor):
+        """One Jamba period on h -> (h, its MoE aux loss)."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        mi = di = 0
+        for i in range(cfg.attn_every):
+            if i == 0:
+                a = A.attention_block(
+                    bp.attn, rms_norm(bp.attn_ln, h, cfg.norm_eps),
+                    n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                    head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
+                h = h + a
+            else:
+                m, _ = S.mamba_block(
+                    bp.mamba[i - 1],
+                    rms_norm(bp.mamba_ln[i - 1], h, cfg.norm_eps))
+                h = h + m
+            hin = rms_norm(bp.ffn_ln[i], h, cfg.norm_eps)
+            if i % 2 == 0:
+                f, al = self._moe(bp.moe[mi], hin)
+                aux = aux + al
+                mi += 1
+            else:
+                f = mlp(bp.mlp[di], hin)
+                di += 1
+            h = h + f
         return h, aux
 
     def rwkv_layer(self, i: int, h: torch.Tensor,
@@ -440,7 +485,8 @@ class Model(nn.Module):
 
 
 def build_model(cfg: ArchConfig, dtype=torch.bfloat16,
-                device: DeviceLike = None,
-                moe_capacity: float = 1.25) -> Model:
+                device: DeviceLike = None, moe_capacity: float = 1.25,
+                remat: bool = True) -> Model:
     """An unfilled :class:`Model` on `device` (None: the CUDA device)."""
-    return Model(cfg, dtype=dtype, device=device, moe_capacity=moe_capacity)
+    return Model(cfg, dtype=dtype, device=device, moe_capacity=moe_capacity,
+                 remat=remat)

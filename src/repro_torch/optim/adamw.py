@@ -1,0 +1,86 @@
+"""AdamW + cosine schedule + global-norm clipping over a parameter dict.
+
+The port's counterpart of ``repro.optim.adamw``.  Parameters, gradients
+and moments are plain ``Dict[str, Tensor]`` keyed as ``named_parameters()``
+keys them; the state is ``{"m", "v"}`` (fp32 dicts) plus ``"step"`` (a
+0-d int32 tensor), as the reference's pytree is.  The update follows the
+reference's order: clip by the global norm, bias-correct, then add
+``weight_decay * p`` to the step after the division (no decoupled lr
+factor), which is why ``torch.optim.AdamW`` (decay applied as
+``p *= 1 - lr * wd`` before the step) is not used.  JAX's update returns
+new arrays; this one writes the parameters and moments in place, which
+saves a copy of each at full width.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Tuple
+
+import torch
+
+Tensors = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+
+
+def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup, then a cosine decay to 0 at ``total_steps``; fp32."""
+    s = torch.as_tensor(step).to(torch.float32)
+    warm = torch.clamp(s / max(cfg.warmup_steps, 1), max=1.0)
+    prog = torch.clamp((s - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0, 1)
+    return cfg.lr * warm * 0.5 * (1 + torch.cos(math.pi * prog))
+
+
+def adamw_init(params: Tensors) -> dict:
+    """Zero fp32 moments beside each parameter, and step 0."""
+    zeros = lambda: {n: torch.zeros_like(p, dtype=torch.float32)
+                     for n, p in params.items()}
+    dev = next(iter(params.values())).device
+    return {"m": zeros(), "v": zeros(),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def global_norm(tensors: Tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor, in fp32."""
+    total = sum(torch.sum(torch.square(x.float())) for x in tensors.values())
+    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, grads: Tensors, opt_state: dict,
+                 params: Tensors) -> Tuple[dict, dict]:
+    """One AdamW step: writes `params` and the moments in place; returns
+    the new state and ``{"grad_norm", "lr"}`` (0-d fp32 tensors)."""
+    step = opt_state["step"] + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    lr = cosine_lr(cfg, step)
+    sf = step.to(torch.float32)
+    bc1 = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
+                                     device=sf.device), sf)
+    bc2 = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
+                                     device=sf.device), sf)
+    m_all, v_all = opt_state["m"], opt_state["v"]
+    for name, p in params.items():
+        g = grads[name].float() * scale
+        m, v = m_all[name], v_all[name]
+        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
+        pf = p.float()
+        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
+            + cfg.weight_decay * pf
+        p.copy_(pf - lr * delta)
+    return ({"m": m_all, "v": v_all, "step": step},
+            {"grad_norm": gnorm, "lr": lr})

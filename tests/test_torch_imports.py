@@ -26,7 +26,9 @@ SUBPACKAGES = ("repro_torch", "repro_torch.perfmodel", "repro_torch.core",
                "repro_torch.core.campaign", "repro_torch.obs",
                "repro_torch.analysis.influence", "repro_torch.runtime",
                "repro_torch.distributed", "repro_torch.obs.export",
-               "repro_torch.obs.report")
+               "repro_torch.obs.report", "repro_torch.optim",
+               "repro_torch.data", "repro_torch.checkpoint",
+               "repro_torch.launch.steps", "repro_torch.launch.train")
 
 
 def _forbidden(name: str) -> bool:
@@ -131,6 +133,28 @@ def test_lm_entry_points_default_to_the_card():
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 call()
     assert Model(cfg, device="cpu").embed.device.type == "cpu"
+
+
+def test_training_entry_points_default_to_the_card(tmp_path):
+    """train, the batch iterator and restore take the CUDA device unless
+    asked for the CPU."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.data import SyntheticLMDataset, make_batch_iter
+    from repro_torch.launch.train import train
+    save_checkpoint(str(tmp_path), 1, {"w": torch.ones(2)})
+    calls = [lambda: train("llama3.2-1b", 1, 1, 8, True, None),
+             lambda: make_batch_iter(SyntheticLMDataset(8, 4, 1), 0, 1),
+             lambda: restore_checkpoint(str(tmp_path), 1,
+                                        {"w": torch.ones(2)})]
+    if torch.cuda.is_available():
+        assert restore_checkpoint(str(tmp_path), 1, {"w": torch.ones(2)})[
+            "w"].device.type == "cuda"
+    else:
+        for call in calls:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+    assert len(train("llama3.2-1b", 1, 1, 8, True, None,
+                     device="cpu")) == 1
 
 
 def test_kernel_libraries_are_keyed_by_their_own_flags():
