@@ -14,7 +14,9 @@ line is printed:
    time; ppa_eval's registers and spills (ptxas) and SASS instructions
    (cuobjdump); each flash_attention instantiation's registers, spills
    (ptxas) and shared memory, and its tensor-core (HMMA) instructions in the
-   built library's SASS (cuobjdump, where the toolkit has it; none fails);
+   built library's SASS (cuobjdump, where the toolkit has it; none fails),
+   the same for the backward's ``fa_bwd_dkdv`` and ``fa_bwd_dq`` (16
+   instantiations) and registers and spills of ``fa_bwd_dot``;
    each rwkv6_scan instantiation's (state and output pass) registers,
    spills and shared memory; each ssm_scan (``ssm_fwd``) instantiation's
    registers, spills and shared memory;
@@ -197,11 +199,13 @@ line is printed:
    uninterrupted run's under deterministic algorithms; (e) rwkv6 and
    jamba smoke models refuse ``loss.backward()`` on the card
    (NotImplementedError: the scans have no backward kernel); (f) the
-   backward kernel, its plain version and SDPA's backward (timed only) at
-   (a)'s full-size shapes against the bound (as for the forward: fp32 as
-   three TF32 products at 495 TFLOP/s, bf16 at 989 TFLOP/s; the kernel's
-   own SIMT route at 67 TFLOP/s printed beside it), and the forward with
-   lse against without.
+   backward kernel (and the device time of each of its three kernels),
+   its plain version and SDPA's backward (timed only) at (a)'s full-size
+   shapes against the bound (as for the forward: fp32 as three TF32
+   products at 495 TFLOP/s, bf16 at 989 TFLOP/s; the function's 5
+   products) and the design's own floor (its 7 products at the same
+   rates), the earlier SIMT kernel's recorded times printed beside, and
+   the forward with lse against without.
 
 Kernel launch counters are zeroed just before each part of the main path
 and read just after; every kernel of that part must have launched there.
@@ -438,23 +442,37 @@ def profile_device(torch, fn, tag: str, what: str, keep: str = None,
 def pass_times(torch, fn, names, calls: int = 5) -> dict:
     """Mean device time (us) of one launch of each kernel whose name holds
     one of `names`, and how many launches the profiler recorded, from a
-    window over `calls` calls of fn().  In a long process the profiler can
-    drop events, so the mean is over the launches it recorded."""
+    window over `calls` calls of fn().  Late in a long process a window
+    can lose its first kernel records (phase 10 saw windows of 2 and of 5
+    of 5 calls in turn, phase 16f none of 3), so each window opens with a
+    few short device sleeps, and up to three windows are taken until
+    every launch is recorded; the mean is over the fullest window's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    best = None
+    for _ in range(3):
         torch.cuda.synchronize()
-    seen = {n: [] for n in names}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            for n in names:
-                if n in e.name:
-                    seen[n].append(e.time_range.elapsed_us())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(16):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen = {n: [] for n in names}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                for n in names:
+                    if n in e.name:
+                        seen[n].append(e.time_range.elapsed_us())
+        if best is None or (min(map(len, seen.values()))
+                            > min(map(len, best.values()))):
+            best = seen
+        if min(map(len, best.values())) >= calls:
+            break
     return {n: (sum(us) / len(us) if us else float("nan"), len(us))
-            for n, us in seen.items()}
+            for n, us in best.items()}
 
 
 # ---------------------------------------------------------------- LM slice
@@ -564,10 +582,10 @@ def hold(got, want, tol: float, what: str) -> float:
     return float(np.max(np.abs(g - w)))
 
 
-def fa_bound(ops: int, nbytes: int, dn: str) -> dict:
+def fa_bound(ops: int, nbytes: int, dn: str, simt: bool = True) -> dict:
     """The least time for flash_attention's work on its route: the larger
     of its bytes at the HBM rate and its tensor-core operations at their
-    peak; with the SIMT fp32 figure for comparison."""
+    peak; with the SIMT fp32 figure for comparison (`simt`)."""
     mult, rate, route = FA_ROUTE[dn]
     t_ops = mult * ops / rate * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -578,7 +596,7 @@ def fa_bound(ops: int, nbytes: int, dn: str) -> dict:
                     f"{nbytes / 1e6:.1f} MB at 3.35 TB/s: {t_bytes:.4f} ms"
                     + (f"; SIMT fp32 at 67 TFLOP/s: "
                        f"{ops / PEAK_FP32_PER_S * 1e3:.4f} ms"
-                       if dn == "float32" else "")}
+                       if simt and dn == "float32" else "")}
 
 
 def ptxas_by_entry(log_text: str, inst) -> dict:
@@ -597,10 +615,32 @@ def ptxas_by_entry(log_text: str, inst) -> dict:
     return info
 
 
+def sass_hmma(build_mod, fa_ops, inst) -> dict:
+    """{inst(function line): HMMA instructions in its SASS} from
+    cuobjdump of the flash_attention library; {} without cuobjdump."""
+    import re
+    cob = os.path.join(os.path.dirname(build_mod.find_nvcc()), "cuobjdump")
+    if not os.path.exists(cob):
+        return {}
+    lib = build_mod.library_path(fa_ops.SOURCE, fa_ops.FLAGS)
+    sass = subprocess.run([cob, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    hmma, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = inst(line)
+            if cur:
+                hmma[cur] = 0
+        elif cur and re.search(r"\bHMMA\b", line):
+            hmma[cur] += 1
+    return hmma
+
+
 def report_fa_build(torch, build_mod, fa_ops) -> None:
-    """Registers and spills (ptxas) and shared memory of each fa_fwd
-    instantiation, and the tensor-core instructions in its SASS; fails if
-    cuobjdump is there and an instantiation has none."""
+    """Registers and spills (ptxas) and shared memory of each fa_fwd,
+    fa_bwd_dkdv and fa_bwd_dq instantiation, and the tensor-core
+    instructions in its SASS; fails if cuobjdump is there and one has
+    none."""
     import re
     name = re.compile(r"fa_fwdI(f|13__nv_bfloat16)Li(\d+)E")
 
@@ -608,26 +648,20 @@ def report_fa_build(torch, build_mod, fa_ops) -> None:
         m = name.search(line)
         return m and ("float32" if m.group(1) == "f" else "bfloat16",
                       int(m.group(2)))
+    bwd_name = re.compile(r"fa_bwd_(dot|dkdv|dq)I(f|13__nv_bfloat16)Li(\d+)E")
+
+    def bwd_inst(line):
+        m = bwd_name.search(line)
+        return m and (m.group(1), "float32" if m.group(2) == "f"
+                      else "bfloat16", int(m.group(3)))
     info = ptxas_by_entry(build_mod.BUILD_LOGS.get("flash_attention", ""),
                           inst)
-    hmma = {}
-    cob = os.path.join(os.path.dirname(build_mod.find_nvcc()), "cuobjdump")
-    if os.path.exists(cob):
-        lib = build_mod.library_path(fa_ops.SOURCE, fa_ops.FLAGS)
-        sass = subprocess.run([cob, "-sass", str(lib)], capture_output=True,
-                              text=True, check=True, timeout=300).stdout
-        cur = None
-        for line in sass.splitlines():
-            if "Function :" in line:
-                cur = inst(line)
-                if cur:
-                    hmma[cur] = 0
-            elif cur and re.search(r"\bHMMA\b", line):
-                hmma[cur] += 1
+    hmma = sass_hmma(build_mod, fa_ops,
+                     lambda line: inst(line) or bwd_inst(line))
     if "flash_attention" not in build_mod.BUILD_LOGS:
         log("[1]   flash_attention was built by an earlier run: ptxas "
             "not reported")
-        info = {key: {} for key in hmma}
+        info = {key: {} for key in hmma if len(key) == 2}
     dts = _dtypes(torch)
     for dn, hd in sorted(info):
         i = info[(dn, hd)]
@@ -640,19 +674,28 @@ def report_fa_build(torch, build_mod, fa_ops) -> None:
         check(h is None or h > 0, f"fa_fwd<{dn}, {hd}> has no HMMA")
     check(len(info) == 8 or not info, f"{len(info)} fa_fwd "
           f"instantiations reported, want 8")
-    bwd_name = re.compile(r"fa_bwd_(dot|dkdv|dq)I(f|13__nv_bfloat16)Li(\d+)E")
-
-    def bwd_inst(line):
-        m = bwd_name.search(line)
-        return m and (m.group(1), "float32" if m.group(2) == "f"
-                      else "bfloat16", int(m.group(3)))
     bwd = ptxas_by_entry(build_mod.BUILD_LOGS.get("flash_attention", ""),
                          bwd_inst)
+    if not bwd:
+        bwd = {key: {} for key in hmma if len(key) == 3}
     for key in sorted(bwd):
-        log(f"[1]   fa_bwd_{key[0]}<{key[1]}, {key[2]}>: "
-            f"{bwd[key].get('regs')} registers, {bwd[key].get('spills')}")
-    check(len(bwd) == 24 or "flash_attention" not in build_mod.BUILD_LOGS,
-          f"{len(bwd)} fa_bwd instantiations reported, want 24")
+        part, dn, hd = key
+        text = (f"[1]   fa_bwd_{part}<{dn}, {hd}>: {bwd[key].get('regs')} "
+                f"registers, {bwd[key].get('spills')}")
+        if part != "dot":                 # the two passes on the tensor cores
+            h = hmma.get(key)
+            text += (f"; shared memory "
+                     f"{fa_ops.bwd_smem_bytes(hd, dts[dn])[part]} B; "
+                     + (f"{h} HMMA in SASS" if h is not None else
+                        "SASS not read (no cuobjdump)"))
+            check(h is None or h > 0, f"fa_bwd_{part}<{dn}, {hd}> has no "
+                  f"HMMA")
+        log(text)
+    check(len(bwd) == 24 or not bwd, f"{len(bwd)} fa_bwd instantiations "
+          f"reported, want 24")
+    n_mma = sum(1 for key in hmma if len(key) == 3 and key[0] != "dot")
+    check(n_mma == 16 or not hmma, f"{n_mma} fa_bwd_dkdv / fa_bwd_dq "
+          f"instantiations in the SASS, want 16")
 
 
 def report_rwkv_build(build_mod, rwkv_ops) -> None:
@@ -2417,6 +2460,15 @@ FA_BWD_SMALL = [(1, 1000, 1000, 4, 2, 64, True),
                 (1, 2049, 2049, 4, 2, 64, True),
                 (1, 1000, 1000, 4, 2, 64, False),
                 (2, 1000, 777, 4, 2, 64, False)]
+# the backward's three kernels, timed apart in 16f
+FA_BWD_PASSES = ("fa_bwd_dot", "fa_bwd_dkdv", "fa_bwd_dq")
+# the earlier backward's times (fp32 FMA on the SIMT cores for both types)
+# at FA_BWD_FULL, from earlier runs of this script on NVIDIA H100 80GB HBM3
+# at 700.00 W (PERF.md), printed beside the current kernel's
+FA_BWD_EARLIER_MS = {
+    "llama3.2-1b": {"float32": "21.468-21.805", "bfloat16": "20.855-20.970"},
+    "jamba": {"float32": "54.872-55.376", "bfloat16": "54.045-54.205"},
+    "qwen2-moe": {"float32": "13.509-13.52", "bfloat16": "13.508-13.695"}}
 TRAIN = ("llama3.2-1b", 2, 4096)                     # arch, batch, seq
 TRAIN_STEPS = 6
 GRAD_ROUTE_REL = 1e-3                                # 16b: kernel vs plain
@@ -2513,10 +2565,13 @@ def phase16a_fa_bwd(torch, dev) -> dict:
 
 
 def phase16f_fa_bwd_timings(torch, dev) -> dict:
-    """16f: at each full-size shape and type: the backward kernel, its
-    plain version (in the input type) and SDPA's backward (the library
-    call, timed only), the bound on the card's tensor cores (fa_bound)
-    beside the kernel's SIMT route; the forward with lse against without."""
+    """16f: at each full-size shape and type: the backward kernel (and the
+    device time of each of its three kernels), its plain version (in the
+    input type) and SDPA's backward (the library call, timed only), the
+    bound on the card's tensor cores (fa_bound, the function's 5 products)
+    beside the design's own floor (its 7 products at the same rate) and
+    the earlier kernel's recorded times; the forward with lse against
+    without."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_cost,
@@ -2529,8 +2584,11 @@ def phase16f_fa_bwd_timings(torch, dev) -> dict:
             q, k, v, do = fa_bwd_inputs(torch, b, sq, sk, h, kvh, hd, dt,
                                         dev)
             o, lse = _forward(q, k, v, causal, with_lse=True)
-            k_ms = kernel_ms(torch, lambda: flash_attention_bwd(
-                q, k, v, o, do, lse, causal=causal), warm=1, iters=5)
+
+            def bwd():
+                return flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+            k_ms = kernel_ms(torch, bwd, warm=1, iters=5)
+            parts = pass_times(torch, bwd, FA_BWD_PASSES, calls=3)
             p_ms = time_ms(torch, lambda: flash_attention_bwd_plain(
                 q, k, v, o, do, lse, causal=causal), warm=1, iters=2)
             fwd_lse = kernel_ms(torch, lambda: _forward(
@@ -2547,21 +2605,28 @@ def phase16f_fa_bwd_timings(torch, dev) -> dict:
                 out, (qs, ks, vs), dos, retain_graph=True), warm=1, iters=5)
             ops, nbytes = flash_attention_bwd_cost(b, sq, sk, h, kvh, hd,
                                                    causal, q.element_size())
-            bnd = fa_bound(ops, nbytes, dn)
-            simt = ("" if dn == "float32" else    # fa_bound prints fp32's
-                    f"; SIMT fp32 at 67 TFLOP/s, the kernel's route: "
-                    f"{ops / PEAK_FP32_PER_S * 1e3:.4f} ms")
+            bnd = fa_bound(ops, nbytes, dn, simt=False)
+            mult, rate, route = FA_ROUTE[dn]
+            floor_ms = mult * ops * 7 / 5 / rate * 1e3
             rows[(name, dn)] = {"ms": k_ms, "plain_ms": p_ms,
                                 "library_ms": lib_ms,
                                 "bound_ms": bnd["bound_ms"],
                                 "bound_by": bnd["bound_by"],
+                                "floor_ms": floor_ms,
                                 "fwd_lse_ms": fwd_lse, "fwd_ms": fwd_bare}
             log(f"[16f] fa_bwd {name} {(b, sq, h, kvh, hd)} {dn}: kernel "
                 f"{k_ms:.3f} ms ({ops / k_ms / 1e9:.1f} TFLOP/s of the "
-                f"function's 5 products), plain {p_ms:.2f} ms, SDPA backward "
-                f"{lib_ms:.3f} ms (heads repeated), bound "
-                f"{bnd['bound_ms']:.4f} ms ({bnd['text']}{simt}); forward "
-                f"with lse {fwd_lse:.3f} ms, without {fwd_bare:.3f} ms")
+                f"function's 5 products; device time "
+                + ", ".join(f"{n} {us / 1e3:.3f} ms ({k} of 3 launches "
+                            f"recorded)" if k else f"{n} not recorded"
+                            for n, (us, k) in parts.items())
+                + f"; the earlier SIMT kernel {FA_BWD_EARLIER_MS[name][dn]} "
+                f"ms), plain {p_ms:.2f} ms, SDPA backward {lib_ms:.3f} ms "
+                f"(heads repeated), bound {bnd['bound_ms']:.4f} ms "
+                f"({bnd['text']}), the design's 7 products {floor_ms:.4f} "
+                f"ms ({mult} x {ops * 7 / 5 / 1e9:.1f} GFLOP {route}: "
+                f"{k_ms / floor_ms:.2f}x); forward with lse {fwd_lse:.3f} "
+                f"ms, without {fwd_bare:.3f} ms")
             del out, qs, ks, vs, q, k, v, do, o, lse
             torch.cuda.empty_cache()
     flash_attention.launches, flash_attention_bwd.launches = saved

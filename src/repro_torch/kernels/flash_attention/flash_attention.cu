@@ -551,37 +551,309 @@ int smem_hd(int hd) {
 // lse), S = q k^T * scale (masked entries have P = 0) and D = rowsum(dO o):
 //   dV = P^T dO,   dP = dO V^T,   dS = P (dP - D),
 //   dQ = scale dS K,   dK = scale dS^T Q.
-// Three kernels on the stream: bwd_dot (D), bwd_dkdv (a block per (b, KV
-// head, 64-key tile): it loops over the group's H / KVH query heads and
-// their query tiles, so GQA's sum over the group happens in registers and
-// no atomics are needed; dk and dv are the same bits every run), bwd_dq (a
-// block per (b, head, 64-row query tile), looping over the key tiles).  P
-// and dP are recomputed in both, which is 7 tile products against the
-// function's 5.
+// Three kernels on the stream, every product on the tensor cores through
+// mma.sync (fp32: three TF32 m16n8k8 products of split operands, as in the
+// forward; bf16: one m16n8k16 product, P and dS rounded to bf16):
+// - fa_bwd_dot: D, one warp a row.
+// - fa_bwd_dkdv: a block per (b, KV head, 64 keys), 4 warps of 16 keys.
+//   For each query tile of each query head of the GQA group it computes
+//   S^T = K Q^T and dP^T = V dO^T (the forward's `scores` shape, keys as
+//   M, K and V the A fragments: in registers, or at fp32 hd >= 64 and at hd
+//   128 in shared memory), P^T = exp2(S^T scale log2e - lse) and dS^T =
+//   P^T (dP^T - D) (lse and D indexed by the column, staged per tile), then
+//   dV += P^T dO and dK += dS^T Q (the forward's `add_pv` shape: the score
+//   accumulators are the A fragments as they stand).  P^T and dS^T never
+//   leave registers; Q, dO, lse and D tiles are double-buffered by
+//   cp.async (single-buffered at fp32 hd 128, see BwdTile).
+// - fa_bwd_dq: a block per (b, head, 64 query rows), 4 warps of 16 rows;
+//   Q and dO are the A fragments (registers, or shared memory as above), K
+//   and V tiles double-buffered by cp.async (as above); S, dP, then dQ +=
+//   dS K.
+// So P and dP are computed in both passes: 7 tile products against the
+// function's 5.  Folding dQ into the dk/dv pass would need dQ summed across
+// blocks with fp32 atomics, whose order changes from run to run; here the
+// GQA group's sum stays in one block's registers and every output is
+// written once, so two launches give the same bits.
+// fp32 sums each tile's products in an accumulator of its own before adding
+// it to the running dK, dV or dQ (the forward's add_pv rule: dK and dV sum
+// 16,384 rows at llama3.2-1b).  The head-dim contraction is read in natural
+// order here (k index t <-> d 8s + t) with every staged row padded to 4
+// (mod 8) words, so that a tile read both ways -- rows as the B operand of
+// a score product, columns as the B operand of a gradient product -- is
+// free of bank conflicts both ways (fp32: scalar loads; bf16: ldmatrix and
+// ldmatrix.trans).  Causal tiles above the diagonal are skipped, a warp
+// skips a tile in which all its pairs are masked, the mask is applied only
+// in tiles that cross the diagonal (and, in dq, the end of the keys: in
+// dk/dv a key or query row past the end is zero and adds nothing), and
+// both grids put the longest blocks first.
 //
 // What bounds it on an H100: at the llama3.2-1b shape (B 2, S 4096, H 32,
-// hd 64, causal) the function is 5 products, 343.7 GFLOP, against ~235 MB
-// (fp32): bound by operations.  This first version runs every product as
-// fp32 FMA on the SIMT cores (67 TFLOP/s, 5.13 ms at that shape) for both
-// types: operands are staged in shared memory as fp32 (rows padded to an
-// odd stride, so a column read by 16 lanes hits 16 banks), and each of the
-// 256 threads (16 x 16) owns a 4 x 4 grid of (row, key) entries spaced 16
-// apart, or 4 rows x hd/16 columns of an accumulator.  Tensor cores
-// (mma.sync / wgmma) are the next step.
-constexpr int kBB = 64;                   // query rows and keys per tile
-constexpr int kBwdThreads = 256;          // 16 x 16
+// KVH 8, hd 64, causal) the function is 5 products, 343.7 GFLOP, against
+// ~337 MB (fp32): bound by operations, 2.08 ms as 3xTF32 at 495 TFLOP/s
+// (0.35 ms in bf16 at 989).  The 7 products of this design floor it at
+// 2.92 ms (0.49 ms in bf16).  The products run on mma.sync, which does not
+// reach the wgmma rate: each warp loads its own B fragments from shared
+// memory (in bf16 a 512-byte ldmatrix.x4 for two m16n8k16 products, about
+// half the tensor cores' rate at 128 bytes a clock), and fp32 spends
+// integer and FP32 instruction slots on the operand splits.  Q, dO (dk/dv) and
+// K, V (dq) tiles are read again from L2 by every block that needs them.
+constexpr int kBwdThreads = 256;          // fa_bwd_dot: 8 rows a block
+constexpr int kBR = 64;                   // dkdv: keys, dq: query rows
+
+// Per-dtype backward tile.  BQ: query rows a dkdv block stages a step; BK:
+// keys a dq block stages a step (32 at fp32 hd 128, for the shared
+// memory).  ST: row stride (elements) of every staged tile, 4 (mod 8)
+// words, each row 16-byte aligned for cp.async.  kSmemA: the A fragments
+// (K and V in dkdv, Q and dO in dq) are staged in shared memory and read
+// per use instead of held in registers: in fp32 from hd 64 (the compiler
+// keeps their splits in registers too) and at hd 128, where the dK and dV
+// accumulators alone take 128 registers.  kStages: staged tiles in flight;
+// at fp32 hd 128 one, so that two blocks share an SM (double-buffered, one
+// 135 KB block a SM ran jamba's fp32 backward in 24.7 ms against 18.1).
+// kMinBlocks: bf16 up to hd 64 is held to 168 registers for three blocks
+// a SM (1.84 ms against 1.97 at llama3.2-1b, for 12 and 24 bytes of
+// spills in dkdv and dq at hd 64).  Times: bench.py, H100 SXM at 700 W.
+template <typename T, int HD> struct BwdTile {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int BQ = HD == 128 ? 32 : 64;
+  static constexpr int BK = kF32 && HD == 128 ? 32 : 64;
+  static constexpr int ST = kF32 ? HD + 4 : HD + 8;
+  static constexpr bool kSmemA = kF32 ? HD >= 64 : HD == 128;
+  static constexpr int kStages = kF32 && HD == 128 ? 1 : 2;
+  static constexpr int kMinBlocks = !kF32 && HD <= 64 ? 3 : 1;
+};
+
+template <typename T, int HD>
+constexpr size_t bwd_dkdv_smem() {       // Q, dO [S][BQ][ST]; K, V; lse, D
+  using C = BwdTile<T, HD>;
+  return sizeof(T) * (2 * C::kStages * C::BQ * C::ST
+                      + (C::kSmemA ? 2 * kBR * C::ST : 0))
+         + sizeof(float) * 2 * C::kStages * C::BQ;
+}
+
+template <typename T, int HD>
+constexpr size_t bwd_dq_smem() {         // K, V [S][BK][ST]; Q, dO
+  using C = BwdTile<T, HD>;
+  return sizeof(T) * (2 * C::kStages * C::BK * C::ST
+                      + (C::kSmemA ? 2 * kBR * C::ST : 0));
+}
+
+// 4-byte global -> shared copy; zero-fills when `ok` is false.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// Four 8x8 b16 matrices; lane l gives the row address of matrix l / 8,
+// row l % 8.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// The A fragments of a warp's 16 rows (keys in dkdv, query rows in dq), by
+// head-dim step s.  fp32: m16n8k8, k index t <-> d 8s + t, t + 4 <-> d 8s +
+// t + 4; bf16: m16n8k16, k indices 2t, 2t + 1 <-> d 16s + 2t, + 1 and 2t +
+// 8, 2t + 9 <-> d 16s + 2t + 8, + 9.  In registers (raw, loaded once) or,
+// with kSmemA, read from the staged tile per use.
+template <typename T, int HD> struct AFrag;
+template <int HD> struct AFrag<float, HD> {
+  using C = BwdTile<float, HD>;
+  float x[C::kSmemA ? 1 : HD / 8][4];
+  const float* p;                         // kSmemA: row g, column t
+  __device__ __forceinline__ void load(const float* r0, const float* r1,
+                                       int t) {
+#pragma unroll
+    for (int s = 0; s < HD / 8; ++s) {
+      x[s][0] = r0 ? r0[8 * s + t] : 0.f;
+      x[s][1] = r1 ? r1[8 * s + t] : 0.f;
+      x[s][2] = r0 ? r0[8 * s + t + 4] : 0.f;
+      x[s][3] = r1 ? r1[8 * s + t + 4] : 0.f;
+    }
+  }
+  __device__ __forceinline__ void set(const float* tile, int row0,
+                                      int lane) {
+    p = tile + (row0 + (lane >> 2)) * C::ST + (lane & 3);
+  }
+  __device__ __forceinline__ void get(int s, float (&y)[4]) const {
+    if constexpr (C::kSmemA) {
+      y[0] = p[8 * s];
+      y[1] = p[8 * C::ST + 8 * s];
+      y[2] = p[8 * s + 4];
+      y[3] = p[8 * C::ST + 8 * s + 4];
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) y[i] = x[s][i];
+    }
+  }
+};
+template <int HD> struct AFrag<__nv_bfloat16, HD> {
+  using C = BwdTile<__nv_bfloat16, HD>;
+  uint32_t x[C::kSmemA ? 1 : HD / 16][4];
+  const __nv_bfloat16* p;                 // kSmemA: the lane's ldmatrix row
+  __device__ __forceinline__ void load(const __nv_bfloat16* r0,
+                                       const __nv_bfloat16* r1, int t) {
+#pragma unroll
+    for (int s = 0; s < HD / 16; ++s) {
+      const int d = 16 * s + 2 * t;
+      x[s][0] = r0 ? *reinterpret_cast<const uint32_t*>(r0 + d) : 0u;
+      x[s][1] = r1 ? *reinterpret_cast<const uint32_t*>(r1 + d) : 0u;
+      x[s][2] = r0 ? *reinterpret_cast<const uint32_t*>(r0 + d + 8) : 0u;
+      x[s][3] = r1 ? *reinterpret_cast<const uint32_t*>(r1 + d + 8) : 0u;
+    }
+  }
+  // matrices: rows 0-7 / 8-15 of the warp's 16 by columns 0-7 / 8-15
+  __device__ __forceinline__ void set(const __nv_bfloat16* tile, int row0,
+                                      int lane) {
+    p = tile + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * C::ST
+        + (lane >> 4) * 8;
+  }
+  __device__ __forceinline__ void get(int s, uint32_t (&y)[4]) const {
+    if constexpr (C::kSmemA) {
+      ldmatrix_x4(y, p + 16 * s);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) y[i] = x[s][i];
+    }
+  }
+};
+
+// c[j] += A B^T, B^T's column n of n8 tile j being row 8j + n of the staged
+// tile bt (a query row in dkdv, a key in dq); contracted over the head dim
+// in AFrag's order.
+template <int HD, int NJ>
+__device__ __forceinline__ void bwd_scores(const AFrag<float, HD>& af,
+                                           const float* bt,
+                                           float (&c)[NJ][4], int lane) {
+  constexpr int ST = BwdTile<float, HD>::ST;
+  const float* b = bt + (lane >> 2) * ST + (lane & 3);
+#pragma unroll
+  for (int s = 0; s < HD / 8; ++s) {
+    float x[4];
+    af.get(s, x);
+    uint32_t ab[4], as[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(x[i], ab[i], as[i]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float* r = b + 8 * j * ST + 8 * s;
+      uint32_t bb0, bs0, bb1, bs1;
+      split_tf32(r[0], bb0, bs0);
+      split_tf32(r[4], bb1, bs1);
+      mma_tf32(c[j], as, bb0, bb1);       // the small terms first
+      mma_tf32(c[j], ab, bs0, bs1);
+      mma_tf32(c[j], ab, bb0, bb1);
+    }
+  }
+}
+
+template <int HD, int NJ>
+__device__ __forceinline__ void bwd_scores(const AFrag<__nv_bfloat16, HD>& af,
+                                           const __nv_bfloat16* bt,
+                                           float (&c)[NJ][4], int lane) {
+  constexpr int ST = BwdTile<__nv_bfloat16, HD>::ST;
+  // matrices: rows 0-7 / 8-15 of an n8 tile pair by columns 0-7 / 8-15
+  const __nv_bfloat16* b =
+      bt + ((lane & 7) + (lane >> 4) * 8) * ST + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int s = 0; s < HD / 16; ++s) {
+    uint32_t a[4];
+    af.get(s, a);
+#pragma unroll
+    for (int jp = 0; jp < NJ / 2; ++jp) {
+      uint32_t r[4];
+      ldmatrix_x4(r, b + 16 * jp * ST + 16 * s);
+      mma_bf16(c[2 * jp], a, r[0], r[1]);
+      mma_bf16(c[2 * jp + 1], a, r[2], r[3]);
+    }
+  }
+}
+
+// acc[n] += C B for head-dim columns 8n .. 8n + 7: C the 16 x 8NJ tile held
+// in score accumulators c (P^T or dS^T in dkdv, dS in dq), B rows 0 ..
+// 8NJ - 1 of the staged tile bt.  fp32: the k order t <-> column 8j + 2t,
+// t + 4 <-> 8j + 2t + 1 makes c[j] the A fragment (c0, c2, c1, c3); the
+// tile's products are summed in an accumulator of their own, up to 8
+// output n8 tiles at a time, and added to acc once (see add_pv).
+template <int HD, int NJ>
+__device__ __forceinline__ void bwd_add(const float (&c)[NJ][4],
+                                        const float* bt,
+                                        float (&acc)[HD / 8][4], int lane) {
+  constexpr int ST = BwdTile<float, HD>::ST;
+  constexpr int ND = HD / 8, NC = ND < 8 ? ND : 8;
+  const float* b = bt + 2 * (lane & 3) * ST + (lane >> 2);
+#pragma unroll
+  for (int n0 = 0; n0 < ND; n0 += NC) {
+    float tile[NC][4];
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) tile[n][i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t ab[4], as[4];
+      split_tf32(c[j][0], ab[0], as[0]);
+      split_tf32(c[j][2], ab[1], as[1]);
+      split_tf32(c[j][1], ab[2], as[2]);
+      split_tf32(c[j][3], ab[3], as[3]);
+      const float* r = b + 8 * j * ST + 8 * n0;
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(r[8 * n], bb0, bs0);
+        split_tf32(r[ST + 8 * n], bb1, bs1);
+        mma_tf32(tile[n], as, bb0, bb1);
+        mma_tf32(tile[n], ab, bs0, bs1);
+        mma_tf32(tile[n], ab, bb0, bb1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n0 + n][i] += tile[n][i];
+  }
+}
+
+// bf16: two adjacent n8 tiles of c packed to bf16x2 are the k16 A fragment
+// as they stand; B's fragments come from ldmatrix.trans.
+template <int HD, int NJ>
+__device__ __forceinline__ void bwd_add(const float (&c)[NJ][4],
+                                        const __nv_bfloat16* bt,
+                                        float (&acc)[HD / 8][4], int lane) {
+  constexpr int ST = BwdTile<__nv_bfloat16, HD>::ST;
+  const __nv_bfloat16* b =
+      bt + (((lane >> 3) & 1) * 8 + (lane & 7)) * ST + (lane >> 4) * 8;
+#pragma unroll
+  for (int s = 0; s < NJ / 2; ++s) {
+    const uint32_t a[4] = {pack_bf16(c[2 * s][0], c[2 * s][1]),
+                           pack_bf16(c[2 * s][2], c[2 * s][3]),
+                           pack_bf16(c[2 * s + 1][0], c[2 * s + 1][1]),
+                           pack_bf16(c[2 * s + 1][2], c[2 * s + 1][3])};
+#pragma unroll
+    for (int np = 0; np < HD / 16; ++np) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, b + 16 * s * ST + 16 * np);
+      mma_bf16(acc[2 * np], a, r[0], r[1]);
+      mma_bf16(acc[2 * np + 1], a, r[2], r[3]);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&a)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[n][i] = 0.f;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
 }
 
 // D[(b h) sq + s] = sum_d dO[b, s, h, d] o[b, s, h, d]: one warp per row.
@@ -605,254 +877,273 @@ fa_bwd_dot(const T* __restrict__ o, const T* __restrict__ dout,
   }
 }
 
-// Rows [r0, r0 + kBB) of one head (row stride `stride` elements) into an
-// fp32 tile of row stride HD + 1; rows at or past n are zero.
+// grid (b * kvh, key tiles): tile 0, whose causal loop is the longest, is
+// in the first row of blocks to launch.
 template <typename T, int HD>
-__device__ __forceinline__ void stage(float* dst, const T* src,
-                                      size_t stride, int r0, int n) {
-  for (int i = threadIdx.x; i < kBB * HD; i += kBwdThreads) {
-    const int r = i / HD, c = i % HD;
-    dst[r * (HD + 1) + c] =
-        r0 + r < n ? to_f(src[static_cast<size_t>(r0 + r) * stride + c])
-                   : 0.f;
-  }
-}
-
-// s += Q K^T and dp += dO V^T over the head dim for rows ty + 16a and keys
-// tx + 16c of the tiles (fp32, row stride HD + 1).
-template <int HD>
-__device__ __forceinline__ void scores_dp(const float* qs, const float* dos,
-                                          const float* ks, const float* vs,
-                                          float (&s)[4][4], float (&dp)[4][4],
-                                          int ty, int tx) {
-  constexpr int ST = HD + 1;
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    float qa[4], da[4], kb[4], vb[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      qa[a] = qs[(ty + 16 * a) * ST + d];
-      da[a] = dos[(ty + 16 * a) * ST + d];
-      kb[a] = ks[(tx + 16 * a) * ST + d];
-      vb[a] = vs[(tx + 16 * a) * ST + d];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[a][c] = fmaf(qa[a], kb[c], s[a][c]);
-        dp[a][c] = fmaf(da[a], vb[c], dp[a][c]);
-      }
-  }
-}
-
-// P and dS of the tile pair (q0, k0) for this thread's 4 x 4 entries, from
-// the scores and dP; masked entries (past sq or sk, or above the causal
-// diagonal) are 0.
-__device__ __forceinline__ void probs(float (&s)[4][4], float (&dp)[4][4],
-                                      const float* lses, const float* dls,
-                                      int q0, int k0, int sq, int sk,
-                                      int causal, float scale_log2, int ty,
-                                      int tx) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = ty + 16 * a, i = q0 + r;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = k0 + tx + 16 * c;
-      const bool ok = i < sq && j < sk && (!causal || j <= i);
-      const float p = ok ? ex2(s[a][c] * scale_log2 - lses[r]) : 0.f;
-      s[a][c] = p;
-      dp[a][c] = p * (dp[a][c] - dls[r]);
-    }
-  }
-}
-
-// Shared memory of one block: Q, dO, K, V tiles (kBB x (HD + 1)), `tiles`
-// kBB x (kBB + 1) ones (P and dS for dk/dv, dS alone for dq), and the query
-// rows' lse (log2 domain) and D.
-template <int HD>
-constexpr size_t bwd_smem_bytes(int tiles) {
-  return sizeof(float) *
-         (4 * kBB * (HD + 1) + tiles * kBB * (kBB + 1) + 2 * kBB);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kThreads, BwdTile<T, HD>::kMinBlocks)
 fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int h,
             int kvh, float scale_log2, float scale, int causal) {
-  constexpr int ST = HD + 1, PT = kBB + 1, NC = HD / 16;
-  extern __shared__ float sm[];
-  float* qs = sm;
-  float* dos = qs + kBB * ST;
-  float* ks = dos + kBB * ST;
-  float* vs = ks + kBB * ST;
-  float* ps = vs + kBB * ST;
-  float* dss = ps + kBB * PT;
-  float* lses = dss + kBB * PT;
-  float* dls = lses + kBB;
+  using C = BwdTile<T, HD>;
+  constexpr int BQ = C::BQ, ST = C::ST, NJ = BQ / 8, ND = HD / 8;
+  constexpr int S = C::kStages;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);     // [S][BQ][ST]
+  T* dos = qs + S * BQ * ST;              // [S][BQ][ST]
+  T* kvs = dos + S * BQ * ST;             // K, V [kBR][ST] if C::kSmemA
+  float* ls = reinterpret_cast<float*>(kvs + (C::kSmemA ? 2 * kBR * ST : 0));
+  float* dls = ls + S * BQ;               // lse, D [S][BQ]
 
-  const int k0 = blockIdx.x * kBB;        // tile 0 has the most work first
-  const int b = blockIdx.y / kvh, kh = blockIdx.y % kvh;
+  const int b = blockIdx.x / kvh, kh = blockIdx.x % kvh;
+  const int k0 = blockIdx.y * kBR;
   const int rep = h / kvh;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw0 = k0 + 16 * warp;         // the warp's first key
   const size_t q_stride = static_cast<size_t>(h) * HD;
   const size_t kv_stride = static_cast<size_t>(kvh) * HD;
   const size_t kv_off = static_cast<size_t>(b) * sk * kv_stride + kh * HD;
-  stage<T, HD>(ks, k + kv_off, kv_stride, k0, sk);
-  stage<T, HD>(vs, v + kv_off, kv_stride, k0, sk);
 
-  float dka[4][NC], dva[4][NC];           // keys ty + 16a, dims tx + 16c
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dka[a][c] = dva[a][c] = 0.f;
-
-  const int q_begin = causal ? k0 : 0;    // earlier rows see none of these keys
-  for (int hh = kh * rep; hh < (kh + 1) * rep; ++hh) {
-    const size_t q_off = static_cast<size_t>(b) * sq * q_stride + hh * HD;
-    const float* lse_h = lse + (static_cast<size_t>(b) * h + hh) * sq;
-    const float* dl_h = delta + (static_cast<size_t>(b) * h + hh) * sq;
-    for (int q0 = q_begin; q0 < sq; q0 += kBB) {
-      __syncthreads();                    // the previous tiles are consumed
-      stage<T, HD>(qs, q + q_off, q_stride, q0, sq);
-      stage<T, HD>(dos, dout + q_off, q_stride, q0, sq);
-      if (tid < kBB) {
-        const bool ok = q0 + tid < sq;
-        lses[tid] = ok ? lse_h[q0 + tid] * kLog2e : 0.f;
-        dls[tid] = ok ? dl_h[q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      float s[4][4] = {}, dp[4][4] = {};
-      scores_dp<HD>(qs, dos, ks, vs, s, dp, ty, tx);
-      probs(s, dp, lses, dls, q0, k0, sq, sk, causal, scale_log2, ty, tx);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          ps[(ty + 16 * a) * PT + tx + 16 * c] = s[a][c];
-          dss[(ty + 16 * a) * PT + tx + 16 * c] = dp[a][c];
-        }
-      __syncthreads();
-      // dV[j] += sum_i P[i][j] dO[i];  dK[j] += sum_i dS[i][j] Q[i]
-      const int i_end = min(kBB, sq - q0);
-#pragma unroll 2
-      for (int i = 0; i < i_end; ++i) {
-        float pa[4], sa[4], dov[NC], qv[NC];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          pa[a] = ps[i * PT + ty + 16 * a];
-          sa[a] = dss[i * PT + ty + 16 * a];
-        }
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          dov[c] = dos[i * ST + tx + 16 * c];
-          qv[c] = qs[i * ST + tx + 16 * c];
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            dva[a][c] = fmaf(pa[a], dov[c], dva[a][c]);
-            dka[a][c] = fmaf(sa[a], qv[c], dka[a][c]);
-          }
-      }
-    }
+  AFrag<T, HD> kf, vf;                    // keys >= sk are zeros
+  if constexpr (C::kSmemA) {
+    load_tile<T, HD, kBR, ST>(kvs, k + kv_off, kv_stride, k0, sk, tid);
+    load_tile<T, HD, kBR, ST>(kvs + kBR * ST, v + kv_off, kv_stride, k0, sk,
+                              tid);
+    kf.set(kvs, 16 * warp, lane);
+    vf.set(kvs + kBR * ST, 16 * warp, lane);
+  } else {
+    const int r0 = kw0 + g, r1 = r0 + 8;
+    const size_t o0 = kv_off + static_cast<size_t>(r0) * kv_stride;
+    const size_t o1 = o0 + 8 * kv_stride;
+    kf.load(r0 < sk ? k + o0 : nullptr, r1 < sk ? k + o1 : nullptr, t);
+    vf.load(r0 < sk ? v + o0 : nullptr, r1 < sk ? v + o1 : nullptr, t);
   }
+
+  // steps: (query head of the group, query tile); rows before k0 see none
+  // of these keys under the causal mask
+  const int q_begin = causal ? k0 : 0;
+  const int n_qt = q_begin < sq ? (sq - q_begin + BQ - 1) / BQ : 0;
+  const int n_steps = rep * n_qt;
+  auto stage = [&](int it, int buf) {
+    const int hh = kh * rep + it / n_qt;
+    const int q0 = q_begin + (it % n_qt) * BQ;
+    const size_t q_off = static_cast<size_t>(b) * sq * q_stride + hh * HD;
+    load_tile<T, HD, BQ, ST>(qs + buf * BQ * ST, q + q_off, q_stride, q0, sq,
+                             tid);
+    load_tile<T, HD, BQ, ST>(dos + buf * BQ * ST, dout + q_off, q_stride, q0,
+                             sq, tid);
+    const size_t r = (static_cast<size_t>(b) * h + hh) * sq;
+    if (tid < 2 * BQ) {                   // rows >= sq: lse = D = 0
+      const int i = tid % BQ;
+      const bool ok = q0 + i < sq;
+      const float* src = tid < BQ ? lse + r : delta + r;
+      cp_async4((tid < BQ ? ls : dls) + buf * BQ + i, ok ? src + q0 + i : src,
+                ok);
+    }
+  };
+  if (n_steps > 0) stage(0, 0);
+  cp_async_commit();
+
+  float dka[ND][4], dva[ND][4];
+  zero(dka);
+  zero(dva);
+  for (int it = 0; it < n_steps; ++it) {
+    if (S == 1) {
+      if (it > 0) {
+        stage(it, 0);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+    } else if (it + 1 < n_steps) {        // next tile in flight
+      stage(it + 1, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int buf = S == 1 ? 0 : it & 1;
+    const int q0 = q_begin + (it % n_qt) * BQ;
+    // a warp whose keys are all past the end, or (causal) all after the
+    // tile's last row, has nothing to add
+    if (kw0 < sk && (!causal || q0 + BQ - 1 >= kw0)) {
+      const T* qt = qs + buf * BQ * ST;
+      const T* dt = dos + buf * BQ * ST;
+      const float* lt = ls + buf * BQ;
+      const float* dlt = dls + buf * BQ;
+      float sc[NJ][4];
+      zero(sc);
+      bwd_scores<HD, NJ>(kf, qt, sc, lane);          // S^T = K Q^T
+      // P^T: rows keys kw0 + g (+ 8), columns queries q0 + 8j + 2t (+ 1)
+      const bool masked = causal && q0 < kw0 + 15;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int j = k0 + ty + 16 * a;
-    if (j >= sk) continue;
-    const size_t off = kv_off + static_cast<size_t>(j) * kv_stride;
+      for (int j = 0; j < NJ; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lt + 8 * j + 2 * t);
+        const float nl[2] = {-l2.x * kLog2e, -l2.y * kLog2e};
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      dk[off + tx + 16 * c] = from_f<T>(dka[a][c] * scale);
-      dv[off + tx + 16 * c] = from_f<T>(dva[a][c]);
+        for (int i = 0; i < 4; ++i) {
+          float p = ex2(fmaf(sc[j][i], scale_log2, nl[i & 1]));
+          if (masked && kw0 + g + 8 * (i >> 1) > q0 + 8 * j + 2 * t + (i & 1))
+            p = 0.f;
+          sc[j][i] = p;
+        }
+      }
+      bwd_add<HD, NJ>(sc, dt, dva, lane);            // dV += P^T dO
+      float dp[NJ][4];
+      zero(dp);
+      bwd_scores<HD, NJ>(vf, dt, dp, lane);          // dP^T = V dO^T
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(dlt + 8 * j + 2 * t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dp[j][i] = sc[j][i] * (dp[j][i] - (i & 1 ? d2.y : d2.x));
+      }
+      bwd_add<HD, NJ>(dp, qt, dka, lane);            // dK += dS^T Q
+    }
+    __syncthreads();                      // the tile is consumed
+  }
+  cp_async_wait<0>();                     // K, V when there was no step
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kw0 + g + 8 * r;
+    if (key >= sk) continue;
+    const size_t off = kv_off + static_cast<size_t>(key) * kv_stride + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      store2(dk + off + 8 * n, dka[n][2 * r] * scale,
+             dka[n][2 * r + 1] * scale);
+      store2(dv + off + 8 * n, dva[n][2 * r], dva[n][2 * r + 1]);
     }
   }
 }
 
+// grid (b * h, query tiles), walked from the last query tile down so that
+// the longest blocks launch first.
 template <typename T, int HD>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kThreads, BwdTile<T, HD>::kMinBlocks)
 fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
           T* __restrict__ dq, int sq, int sk, int h, int kvh,
           float scale_log2, float scale, int causal) {
-  constexpr int ST = HD + 1, PT = kBB + 1, NC = HD / 16;
-  extern __shared__ float sm[];
-  float* qs = sm;
-  float* dos = qs + kBB * ST;
-  float* ks = dos + kBB * ST;
-  float* vs = ks + kBB * ST;
-  float* dss = vs + kBB * ST;
-  float* lses = dss + kBB * PT;
-  float* dls = lses + kBB;
+  using C = BwdTile<T, HD>;
+  constexpr int BK = C::BK, ST = C::ST, NJ = BK / 8, ND = HD / 8;
+  constexpr int S = C::kStages;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);     // [S][BK][ST]
+  T* vs = ks + S * BK * ST;               // [S][BK][ST]
+  T* qds = vs + S * BK * ST;              // Q, dO [kBR][ST] if C::kSmemA
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBB;  // longest tiles first
-  const int b = blockIdx.y / h, hh = blockIdx.y % h;
+  const int bh = blockIdx.x;
+  const int b = bh / h, hh = bh % h;
   const int kh = hh / (h / kvh);
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBR;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wq0 = q0 + 16 * warp;         // the warp's first row
+  const int row0 = wq0 + g, row1 = row0 + 8;
   const size_t q_stride = static_cast<size_t>(h) * HD;
   const size_t kv_stride = static_cast<size_t>(kvh) * HD;
   const size_t q_off = static_cast<size_t>(b) * sq * q_stride + hh * HD;
   const size_t kv_off = static_cast<size_t>(b) * sk * kv_stride + kh * HD;
-  stage<T, HD>(qs, q + q_off, q_stride, q0, sq);
-  stage<T, HD>(dos, dout + q_off, q_stride, q0, sq);
-  if (tid < kBB) {
-    const bool ok = q0 + tid < sq;
-    const size_t r = (static_cast<size_t>(b) * h + hh) * sq + q0 + tid;
-    lses[tid] = ok ? lse[r] * kLog2e : 0.f;
-    dls[tid] = ok ? delta[r] : 0.f;
+
+  const int k_end = causal ? min(sk, q0 + kBR) : sk;
+  const int n_tiles = (k_end + BK - 1) / BK;
+  load_tile<T, HD, BK, ST>(ks, k + kv_off, kv_stride, 0, sk, tid);
+  load_tile<T, HD, BK, ST>(vs, v + kv_off, kv_stride, 0, sk, tid);
+  AFrag<T, HD> qf, df;                    // rows >= sq are zeros
+  if constexpr (C::kSmemA) {
+    load_tile<T, HD, kBR, ST>(qds, q + q_off, q_stride, q0, sq, tid);
+    load_tile<T, HD, kBR, ST>(qds + kBR * ST, dout + q_off, q_stride, q0, sq,
+                              tid);
+    qf.set(qds, 16 * warp, lane);
+    df.set(qds + kBR * ST, 16 * warp, lane);
+  } else {
+    const size_t o0 = q_off + static_cast<size_t>(row0) * q_stride;
+    const size_t o1 = o0 + 8 * q_stride;
+    qf.load(row0 < sq ? q + o0 : nullptr, row1 < sq ? q + o1 : nullptr, t);
+    df.load(row0 < sq ? dout + o0 : nullptr,
+            row1 < sq ? dout + o1 : nullptr, t);
+  }
+  cp_async_commit();
+  float nl[2], dl[2];                     // -lse log2(e) and D of the rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? row1 : row0;
+    const size_t i = (static_cast<size_t>(b) * h + hh) * sq + row;
+    nl[r] = row < sq ? -lse[i] * kLog2e : 0.f;
+    dl[r] = row < sq ? delta[i] : 0.f;
   }
 
-  float dqa[4][NC];                       // rows ty + 16a, dims tx + 16c
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dqa[a][c] = 0.f;
-
-  const int k_end = causal ? min(sk, q0 + kBB) : sk;
-  for (int k0 = 0; k0 < k_end; k0 += kBB) {
-    __syncthreads();                      // the previous tiles are consumed
-    stage<T, HD>(ks, k + kv_off, kv_stride, k0, sk);
-    stage<T, HD>(vs, v + kv_off, kv_stride, k0, sk);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    scores_dp<HD>(qs, dos, ks, vs, s, dp, ty, tx);
-    probs(s, dp, lses, dls, q0, k0, sq, sk, causal, scale_log2, ty, tx);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        dss[(ty + 16 * a) * PT + tx + 16 * c] = dp[a][c];
-    __syncthreads();
-    // dQ[i] += sum_j dS[i][j] K[j]
-    const int j_end = min(kBB, sk - k0);
-#pragma unroll 2
-    for (int j = 0; j < j_end; ++j) {
-      float sa[4], kv[NC];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) sa[a] = dss[(ty + 16 * a) * PT + j];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) kv[c] = ks[j * ST + tx + 16 * c];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) dqa[a][c] = fmaf(sa[a], kv[c], dqa[a][c]);
+  float dqa[ND][4];
+  zero(dqa);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BK;
+    if (S == 1) {
+      if (it > 0) {
+        load_tile<T, HD, BK, ST>(ks, k + kv_off, kv_stride, k0, sk, tid);
+        load_tile<T, HD, BK, ST>(vs, v + kv_off, kv_stride, k0, sk, tid);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+    } else if (it + 1 < n_tiles) {        // next tile in flight
+      const int nb = (it + 1) & 1;
+      load_tile<T, HD, BK, ST>(ks + nb * BK * ST, k + kv_off, kv_stride,
+                               k0 + BK, sk, tid);
+      load_tile<T, HD, BK, ST>(vs + nb * BK * ST, v + kv_off, kv_stride,
+                               k0 + BK, sk, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    // (causal) a warp whose rows all precede the tile has nothing to add
+    if (!causal || k0 <= wq0 + 15) {
+      const T* kt = ks + (S == 1 ? 0 : it & 1) * BK * ST;
+      const T* vt = vs + (S == 1 ? 0 : it & 1) * BK * ST;
+      float sc[NJ][4];
+      zero(sc);
+      bwd_scores<HD, NJ>(qf, kt, sc, lane);          // S = Q K^T
+      // P: rows wq0 + g (+ 8), columns keys k0 + 8j + 2t (+ 1); masked
+      // where the tile crosses the end of the keys or the warp's diagonal
+      const bool masked = k0 + BK > sk || (causal && k0 + BK - 1 > wq0);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float p = ex2(fmaf(sc[j][i], scale_log2, nl[i >> 1]));
+          if (masked) {
+            const int key = k0 + 8 * j + 2 * t + (i & 1);
+            if (key >= sk || (causal && key > (i < 2 ? row0 : row1))) p = 0.f;
+          }
+          sc[j][i] = p;
+        }
+      float dp[NJ][4];
+      zero(dp);
+      bwd_scores<HD, NJ>(df, vt, dp, lane);          // dP = dO V^T
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dp[j][i] = sc[j][i] * (dp[j][i] - dl[i >> 1]);
+      bwd_add<HD, NJ>(dp, kt, dqa, lane);            // dQ += dS K
+    }
+    __syncthreads();                      // the tile is consumed
   }
+
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty + 16 * a;
-    if (i >= sq) continue;
-    T* row = dq + q_off + static_cast<size_t>(i) * q_stride;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? row1 : row0;
+    if (row >= sq) continue;
+    T* out = dq + q_off + static_cast<size_t>(row) * q_stride + 2 * t;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      row[tx + 16 * c] = from_f<T>(dqa[a][c] * scale);
+    for (int n = 0; n < ND; ++n)
+      store2(out + 8 * n, dqa[n][2 * r] * scale, dqa[n][2 * r + 1] * scale);
   }
 }
 
@@ -862,8 +1153,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        float* delta, void* dq, void* dk, void* dv, int b,
                        int sq, int sk, int h, int kvh, float scale,
                        int causal, cudaStream_t stream) {
-  constexpr size_t bytes = bwd_smem_bytes<HD>(2);
-  constexpr size_t dq_bytes = bwd_smem_bytes<HD>(1);
+  constexpr size_t bytes = bwd_dkdv_smem<T, HD>();
+  constexpr size_t dq_bytes = bwd_dq_smem<T, HD>();
   cudaError_t err = cudaFuncSetAttribute(
       fa_bwd_dkdv<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -880,16 +1171,16 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const float scale_log2 = scale * kLog2e;
-  fa_bwd_dkdv<T, HD><<<dim3((sk + kBB - 1) / kBB, b * kvh), kBwdThreads,
-                       bytes, stream>>>(
+  fa_bwd_dkdv<T, HD><<<dim3(b * kvh, (sk + kBR - 1) / kBR), kThreads, bytes,
+                       stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, h, kvh, scale_log2,
       scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fa_bwd_dq<T, HD><<<dim3((sq + kBB - 1) / kBB, b * h), kBwdThreads,
-                     dq_bytes, stream>>>(
+  fa_bwd_dq<T, HD><<<dim3(b * h, (sq + kBR - 1) / kBR), kThreads, dq_bytes,
+                     stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), sq, sk, h, kvh, scale_log2, scale, causal);
@@ -914,6 +1205,22 @@ cudaError_t launch_bwd_hd(int hd, const void* q, const void* k,
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_FA_BWD
+}
+
+template <typename T>
+int bwd_smem_hd(int hd, int which) {
+#define REPRO_FA_BWD_SMEM(HD)                                             \
+  case HD:                                                                \
+    return static_cast<int>(which ? bwd_dq_smem<T, HD>()                  \
+                                  : bwd_dkdv_smem<T, HD>());
+  switch (hd) {
+    REPRO_FA_BWD_SMEM(16)
+    REPRO_FA_BWD_SMEM(32)
+    REPRO_FA_BWD_SMEM(64)
+    REPRO_FA_BWD_SMEM(128)
+    default: return -1;
+  }
+#undef REPRO_FA_BWD_SMEM
 }
 
 
@@ -975,6 +1282,16 @@ int flash_attention_smem_bytes(int hd, int dtype) {
   switch (dtype) {
     case 0: return smem_hd<float>(hd);
     case 1: return smem_hd<__nv_bfloat16>(hd);
+    default: return -1;
+  }
+}
+
+// Dynamic shared memory (bytes) of one backward block for (hd, dtype):
+// which 0 is fa_bwd_dkdv, 1 fa_bwd_dq; -1 if the pair is not built.
+int flash_attention_bwd_smem_bytes(int hd, int dtype, int which) {
+  switch (dtype) {
+    case 0: return bwd_smem_hd<float>(hd, which);
+    case 1: return bwd_smem_hd<__nv_bfloat16>(hd, which);
     default: return -1;
   }
 }

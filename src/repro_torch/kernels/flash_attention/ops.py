@@ -30,8 +30,9 @@ tolerance where one TF32 product misses it.  The note at the top of
 ``flash_attention.cu`` gives the tiling and the fragment orders.
 ``torch.backends.cuda.matmul.allow_tf32`` plays no part: the split is the
 kernel's own.  The reference has no backward kernel (it differentiates
-its chunked attention with JAX); the backward here is fp32 FMA on the
-SIMT cores for both types, see the note above it in the source.
+its chunked attention with JAX); the backward here is FA2 on the same
+``mma.sync`` routes (a dk/dv pass and a dq pass, no atomics), see the note
+above it in the source.
 """
 from __future__ import annotations
 
@@ -211,6 +212,8 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_bwd_launch.restype = i
         lib.flash_attention_smem_bytes.argtypes = [i, i]
         lib.flash_attention_smem_bytes.restype = i
+        lib.flash_attention_bwd_smem_bytes.argtypes = [i, i, i]
+        lib.flash_attention_bwd_smem_bytes.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib._repro_typed = True
@@ -221,6 +224,16 @@ def smem_bytes(hd: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one block of the kernel at (hd, dtype), as
     the built library states it (builds the library if needed)."""
     return int(_library().flash_attention_smem_bytes(hd, DTYPES[dtype]))
+
+
+def bwd_smem_bytes(hd: int, dtype: torch.dtype) -> dict:
+    """Dynamic shared memory of one block of each backward pass at (hd,
+    dtype), {"dkdv": bytes, "dq": bytes}, as the built library states it
+    (builds the library if needed)."""
+    lib = _library()
+    return {name: int(lib.flash_attention_bwd_smem_bytes(hd, DTYPES[dtype],
+                                                         which))
+            for which, name in enumerate(("dkdv", "dq"))}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -80,6 +80,27 @@ def test_backward_matches_plain(cuda, b, sq, sk, h, kvh, hd, causal, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_backward_long_group_sums_match_plain(cuda, hd, dtype):
+    """dK and dV of one KV head summed over a group of 8 query heads at S
+    4096 (up to 32,768 rows a key under the causal mask, on the tensor
+    cores): each query tile's products are summed on their own before the
+    running sum, so the sum's rounding stays within the tolerance."""
+    b, sq, sk, h, kvh = 1, 4096, 4096, 8, 1
+    q, k, v, do = _inputs(b, sq, sk, h, kvh, hd, dtype, cuda, seed=hd)
+    o, lse = _forward(q, k, v, True, with_lse=True)
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(
+        *(x.double() for x in (q, k, v, o, do)), lse.double(), causal=True)
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert torch.isfinite(g).all()
+        err = _rel_err(g, w, scale)
+        assert err <= TOL[dtype], f"{what}: {err:.3g}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_forward_lse_matches_plain_and_leaves_the_output(cuda, causal,
                                                          dtype):
