@@ -207,6 +207,30 @@ line is printed:
    rates), the earlier SIMT kernel's recorded times printed beside, and
    the forward with lse against without.
 
+17. the DSE service (``repro_torch.serve``), as
+   ``examples/serve_cluster.py`` wires it, every proxy evaluation on
+   ``backend="cuda"`` (the target tier has no kernel and runs its torch
+   ops on the card): (a) ShardedEvaluator(mode="socket") over two
+   in-thread HMAC-signed WorkerServers, the GPT-3 pair at B 131,072 and
+   65,536, objectives / ppa / stalls, proxy and target tiers, each
+   report bit for bit the in-process evaluator's and one ppa_eval launch
+   per objectives shard (the workers are threads of this process); (b)
+   the zoo evaluator (20 tables) through one socket worker, its spec
+   through the restricted loader; (c) two spawned workers announcing to
+   a Registrar, a membership-driven evaluator through a crash, a hang
+   (3 s shard deadline) and a SIGKILL mid-stream, 12 stalls reports at
+   B 65,536 equal to the plain run, a replacement joining; (d) a
+   budget-20 LUMINA run with a Gateway as its evaluator and campaigns at
+   budget 60 (both policies) on the EvalService the gateway fronts, over
+   the spawned fleet, equal to the plain cuda runs; an exhausted tenant
+   budget raising RetryAfter with a finite hint; the gateway's snapshot
+   through fleet_report; (e) timings, no target: one objectives dispatch
+   at B 131,072 through 1 and 2 socket workers in-thread and spawned
+   beside a thread pool, the heartbeat RTT, the bytes of a B 131,072
+   stalls report frame and its encode / decode / sign / verify times, the
+   device's idle share during a 2-worker socket dispatch, and the TLS
+   path where ``openssl`` is on PATH (said so where it is not).
+
 Kernel launch counters are zeroed just before each part of the main path
 and read just after; every kernel of that part must have launched there.
 The second to last line is ``{"kernels": [...]}``; the last line is
@@ -220,6 +244,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -2125,6 +2150,7 @@ def phase14_faults(torch, dev, res_k, smi: str, work_dir: str,
     from repro_torch.perfmodel.designspace import SPACE
     from repro_torch.perfmodel.evaluator import EvalRequest
     from repro_torch.runtime import RetryPolicy
+    from repro_torch.serve import Gateway
     t_phase = time.perf_counter()
     out = {"launches": 0}
     stop = SPACE.size if stop is None else int(stop)
@@ -2375,7 +2401,7 @@ def phase14_faults(torch, dev, res_k, smi: str, work_dir: str,
             f"{names.count('service.tick')}, shard {names.count('shard')}), "
             f"{len(obj['traceEvents'])} events; schema and completeness "
             f"checks empty")
-        for line in fleet_report(svc).splitlines():
+        for line in fleet_report(Gateway(svc)).splitlines():
             log(f"[14e] {line}")
         sharded.close()
 
@@ -2855,6 +2881,411 @@ def phase16_training(torch, dev, work_dir: str) -> dict:
     return {"fa_bwd": fa_bwd, "train": train}
 
 
+# ------------------------------------------------------------- serve slice
+PHASE17_B = (SWEEP_CHUNK, 65_536)   # 17a: a sweep chunk and half of one
+PHASE17_KEYS = {"chip": b"phase-17-signing-secret"}
+PHASE17_ZOO_B = {"objectives": SWEEP_CHUNK, "ppa": 4_096, "stalls": 4_096}
+PHASE17_FLEET_B, PHASE17_FLEET_EVALS = 65_536, 12
+PHASE17_TIMEOUT_S = 3.0          # 17c's shard deadline (a healthy shard: ms)
+PHASE17_TTL_S = 2.0              # 17c's membership lease
+PHASE17_CALLS = 5                # 17e: timed dispatches per configuration
+
+
+def _spawn_fleet(n: int, options) -> list:
+    """`n` spawned worker processes started together (each imports torch
+    and opens its own CUDA context; the parent built ppa_eval)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.serve import start_worker_process
+    with ThreadPoolExecutor(n) as ex:
+        return list(ex.map(lambda _: start_worker_process(options=options),
+                           range(n)))
+
+
+def _median_ms(fn, calls: int) -> tuple:
+    ts = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts)), float(min(ts))
+
+
+def phase17_serve(torch, dev, res_k, smi: str, work_dir: str) -> dict:
+    """The DSE service on the card, as ``examples/serve_cluster.py`` wires
+    it, every proxy evaluation on ``backend="cuda"`` (the target tier's
+    compass knobs have no kernel: it runs its torch ops on the card): (a)
+    ShardedEvaluator(mode="socket") over two in-thread signed
+    WorkerServers, the GPT-3 pair at B 131,072 and 65,536, three details,
+    both tiers, bit for bit the in-process evaluator, one ppa_eval launch
+    per objectives shard; (b) the zoo evaluator through one socket worker,
+    its spec through the restricted loader; (c) two spawned workers under
+    a Registrar, a membership-driven evaluator through a crash, a hang and
+    a SIGKILL, 12 stalls reports equal to the plain run; (d) a budget-20
+    LUMINA run with a Gateway as its evaluator and campaigns at budget 60
+    (both policies) on the EvalService it fronts, over the spawned fleet,
+    equal to the plain runs; a tenant's budget running out; the gateway's
+    snapshot through fleet_report; (e) timings.  Returns the phase's
+    ppa_eval launches on the path."""
+    import shutil
+    import ssl
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core.campaign import CampaignRunner
+    from repro_torch.core.loop import LuminaDSE
+    from repro_torch.distributed import (EvalService, FaultEvent, FaultPlan,
+                                         ShardedEvaluator)
+    from repro_torch.distributed.sharded import _worker_spec
+    from repro_torch.kernels.ppa_eval import ppa_eval
+    from repro_torch.obs.report import fleet_report
+    from repro_torch.perfmodel import (ModelEvaluator, OracleEvaluator,
+                                       get_evaluator)
+    from repro_torch.perfmodel.designspace import SPACE
+    from repro_torch.perfmodel.evaluator import EvalRequest
+    from repro_torch.serve import (Gateway, Keyring, MembershipView,
+                                   Registrar, RetryAfter, WorkerOptions,
+                                   WorkerServer, codec, wire)
+    from repro_torch.serve import worker as worker_mod
+    t_phase = time.perf_counter()
+    out = {"launches": 0}
+    ring = Keyring(PHASE17_KEYS)
+    proxy_models = get_evaluator("proxy", device=dev).models
+
+    def fresh(tier: str = "proxy"):
+        models = (proxy_models if tier == "proxy"
+                  else get_evaluator("target", device=dev).models)
+        return ModelEvaluator(models, tier=tier, device=dev,
+                              backend="cuda" if tier == "proxy" else None)
+
+    def launches_for(ev, detail: str, shards: int) -> int:
+        return shards if detail == "objectives" and ev.backend == "cuda" \
+            else 0
+
+    servers = [WorkerServer(options=WorkerOptions(keys=PHASE17_KEYS))
+               for _ in range(2)]
+    for s in servers:
+        s.start()
+    addrs = [(s.host, s.port) for s in servers]
+    fleet, reg, pools = [], None, []
+    os.makedirs(work_dir, exist_ok=True)
+    try:
+        # ---- 17a. two in-thread signed workers, both tiers, bit for bit
+        for tier in ("proxy", "target"):
+            local = fresh(tier)
+            sock = ShardedEvaluator(fresh(tier), mode="socket",
+                                    addresses=addrs, keyring=ring,
+                                    speculate=False)
+            pools.append(sock)
+            check(sock.mode == "socket" and sock.workers == 2,
+                  f"17a: {sock.mode} x{sock.workers}")
+            for b in PHASE17_B:
+                idx = SPACE.sample(np.random.default_rng(17), b)
+                for d in EVAL_DETAILS:
+                    want = local.evaluate(EvalRequest(idx, d))
+                    ppa_eval.launches = 0
+                    w0 = sock.worker_dispatches
+                    t0 = time.perf_counter()
+                    rep = sock.evaluate(EvalRequest(idx, d))
+                    wall = time.perf_counter() - t0
+                    n_launch = ppa_eval.launches
+                    shards = sock.worker_dispatches - w0
+                    same_report(rep, want, f"17a socket {tier} B={b} {d}")
+                    expect = launches_for(local, d, shards)
+                    check(shards == 2 and n_launch == expect,
+                          f"17a socket {tier} B={b} {d}: {n_launch} "
+                          f"ppa_eval launches for {shards} shards, want "
+                          f"{expect}")
+                    out["launches"] += n_launch
+                    log(f"[17a] socket x2 (HMAC codec) {tier} "
+                        f"({local.backend}) B={b:,} {d}: bit for bit the "
+                        f"in-process evaluator; {shards} shards, ppa_eval "
+                        f"launches {n_launch}; {wall * 1e3:.1f} ms")
+            sock.close()
+        built = sorted({(str(e.device), e.backend, e.tier)
+                        for e in worker_mod._EVALUATORS.values()})
+        check(all(dv.startswith(dev.type) for dv, _, _ in built),
+              f"17a: the workers built {built}")
+        log(f"[17a] worker evaluators (device, backend, tier): {built}; "
+            f"auth rejects {sum(s.auth_rejected() for s in servers)}")
+
+        # ---- 17b. the zoo evaluator through one socket worker
+        zoo = get_evaluator("proxy", backend="cuda", suite="zoo",
+                            device=dev)
+        spec = _worker_spec(zoo)
+        loaded = codec.restricted_loads(spec)
+        names = sorted({cls.__name__ for cls, _ in loaded["models"].values()}
+                       | {type(loaded["space"]).__name__})
+        zsock = ShardedEvaluator(zoo, mode="socket", addresses=addrs[:1],
+                                 keyring=ring)
+        pools.append(zsock)
+        for d, b in PHASE17_ZOO_B.items():
+            idx = SPACE.sample(np.random.default_rng(18), b)
+            want = zoo.evaluate(EvalRequest(idx, d))
+            ppa_eval.launches = 0
+            rep = zsock.evaluate(EvalRequest(idx, d))
+            n_launch = ppa_eval.launches
+            same_report(rep, want, f"17b zoo B={b} {d}")
+            check(n_launch == launches_for(zoo, d, 1),
+                  f"17b zoo {d}: {n_launch} ppa_eval launches")
+            out["launches"] += n_launch
+            log(f"[17b] zoo suite ({len(zoo.workloads)} workloads) through "
+                f"one socket worker, B={b:,} {d}: bit for bit in-process; "
+                f"ppa_eval launches {n_launch}")
+        zsock.close()
+        log(f"[17b] the zoo spec ({len(spec)} bytes) passes the restricted "
+            f"loader ({', '.join(names)})")
+
+        # ---- 17c. a spawned fleet under a registrar: chaos and a SIGKILL
+        view = MembershipView(ttl_s=PHASE17_TTL_S)
+        reg = Registrar(view, keyring=ring).start()
+        opts = WorkerOptions(keys=PHASE17_KEYS, registrar=reg.address,
+                             announce_interval_s=0.2)
+        t0 = time.perf_counter()
+        fleet = _spawn_fleet(2, opts)
+        check(view.wait_for(2, timeout_s=120.0),
+              f"17c: {len(view)} of 2 spawned workers leased")
+        spawn_s = time.perf_counter() - t0
+        idx = SPACE.sample(np.random.default_rng(19), PHASE17_FLEET_B)
+        want = fresh().evaluate(EvalRequest(idx, "stalls"))
+        plan = FaultPlan([FaultEvent(0, 0, "crash"),
+                          FaultEvent(1, 1, "hang")])
+        fev = ShardedEvaluator(fresh(), mode="socket", membership=view,
+                               keyring=ring, fault_plan=plan,
+                               shard_timeout_s=PHASE17_TIMEOUT_S,
+                               speculate=False, elastic=True)
+        pools.append(fev)
+        reports, errors = [], []
+
+        def stream():
+            try:
+                for _ in range(PHASE17_FLEET_EVALS):
+                    reports.append(fev.evaluate(EvalRequest(idx, "stalls")))
+            except Exception as exc:             # noqa: BLE001 — reported
+                errors.append(exc)
+
+        t0 = time.perf_counter()
+        st = threading.Thread(target=stream)
+        st.start()
+        deadline = time.monotonic() + 120
+        while len(reports) < 2 and st.is_alive() \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        fleet[1].kill()                          # SIGKILL, no goodbye
+        killed_at = len(reports)
+        # a replacement joins while the stream runs on
+        with ThreadPoolExecutor(1) as ex:
+            spare = ex.submit(_spawn_fleet, 1, opts)
+            st.join(timeout=600)
+            fleet += spare.result()
+        stream_s = time.perf_counter() - t0
+        check(not st.is_alive() and not errors,
+              f"17c: the stream failed: {errors}")
+        check(len(reports) == PHASE17_FLEET_EVALS,
+              f"17c: {len(reports)} reports")
+        for i, rep in enumerate(reports):
+            same_report(rep, want, f"17c report {i}")
+        snap = fev.registry.snapshot()
+        check(snap["evictions"] >= 1 and len(plan) == 0,
+              f"17c: evictions {snap['evictions']}, {len(plan)} events left")
+        log(f"[17c] spawned fleet of 2 leased in {spawn_s:.2f} s; "
+            f"{PHASE17_FLEET_EVALS} stalls evaluations at "
+            f"B={PHASE17_FLEET_B:,} through a crash, a hang "
+            f"({PHASE17_TIMEOUT_S} s deadline) and "
+            f"a SIGKILL after report {killed_at}: all bit for bit the plain "
+            f"run; retried {fev.retried}, timeouts {fev.timeouts}, "
+            f"evictions {snap['evictions']}, re-registrations "
+            f"{snap['reregistrations']}; {stream_s:.2f} s")
+        fev.close()
+
+        # ---- 17d. LUMINA through a Gateway, campaigns on its service
+        check(_wait_lapsed(view, fleet[1].address)
+              and view.wait_for(2, timeout_s=120.0),
+              f"17d: fleet {view.live()}")
+        remote = ShardedEvaluator(fresh(), mode="socket", membership=view,
+                                  keyring=ring, elastic=True)
+        pools.append(remote)
+        check(remote.workers == 2, f"17d: {remote.workers} workers")
+        svc = EvalService(remote)
+        gw = Gateway(svc, rows_per_window=10_000_000, max_queued_rows=None)
+        plain_ev = fresh()
+        ppa_eval.launches = 0
+        t0 = time.perf_counter()
+        dse_g = LuminaDSE(gw, seed=0)
+        run_g = dse_g.run(budget=20)
+        gw_s = time.perf_counter() - t0
+        n_launch = ppa_eval.launches
+        out["launches"] += n_launch
+        run_p = LuminaDSE(plain_ev, seed=0).run(budget=20)
+        check(np.array_equal(np.stack([s.idx for s in run_g.samples]),
+                             np.stack([s.idx for s in run_p.samples]))
+              and run_g.superior_count == run_p.superior_count
+              and run_g.phv == run_p.phv,
+              "17d: the LUMINA run through the gateway differs from the "
+              "plain run")
+        log(f"[17d] LUMINA budget 20 through Gateway -> EvalService -> "
+            f"socket fleet x2: samples, superior_count "
+            f"{run_g.superior_count} and phv {run_g.phv:.6e} equal to the "
+            f"plain cuda run; {gw_s:.2f} s; ppa_eval launches in this "
+            f"process {n_launch} (the QuanE probes; the fleet's are its "
+            f"own)")
+        oracle = OracleEvaluator(fresh(), result=res_k)
+        seeds = res_k.stall_seeds()
+        for policy in ("uniform", "adaptive"):
+            svc.cache_clear()           # each run goes down to the fleet
+            ppa_eval.launches = 0
+            t0 = time.perf_counter()
+            c = CampaignRunner(svc, proxy=fresh(), oracle=oracle, seed=0,
+                               policy=policy).run(budget=CAMPAIGN_BUDGET,
+                                                  seeds=seeds)
+            c_s = time.perf_counter() - t0
+            n_launch = ppa_eval.launches
+            out["launches"] += n_launch
+            p = CampaignRunner(fresh(), proxy=fresh(), oracle=oracle,
+                               seed=0, policy=policy).run(
+                budget=CAMPAIGN_BUDGET, seeds=seeds)
+            check(np.array_equal(np.stack([s.idx for s in c.samples]),
+                                 np.stack([s.idx for s in p.samples]))
+                  and [(t.campaign, t.step, t.objectives, t.regret,
+                        t.phv_frac) for t in c.telemetry]
+                  == [(t.campaign, t.step, t.objectives, t.regret,
+                       t.phv_frac) for t in p.telemetry]
+                  and c.superior_count == p.superior_count
+                  and c.phv == p.phv,
+                  f"17d: campaigns {policy} on the gateway's service differ "
+                  f"from the plain run")
+            log(f"[17d] campaigns {policy} budget {CAMPAIGN_BUDGET} on the "
+                f"gateway's EvalService over the fleet: "
+                f"{len(c.per_campaign)} campaigns, superior "
+                f"{c.superior_count}, phv {c.phv:.6e}, equal to the plain "
+                f"run; {c.rounds} rounds, {svc.fused_dispatches} fused "
+                f"dispatches so far, ppa_eval launches {n_launch}; "
+                f"{c_s:.2f} s")
+        tight = Gateway(svc, rows_per_window=4_096, window_s=60.0)
+        small = SPACE.sample(np.random.default_rng(20), 4_096)
+        tight.evaluate(EvalRequest(small, "objectives"), tenant="t")
+        try:
+            tight.submit(EvalRequest(small[:1], "objectives"), tenant="t")
+            check(False, "17d: an exhausted tenant budget was admitted")
+        except RetryAfter as exc:
+            check(np.isfinite(exc.retry_after_s)
+                  and 0 < exc.retry_after_s <= 60.0,
+                  f"17d: retry_after_s {exc.retry_after_s}")
+            log(f"[17d] tenant budget exhausted: RetryAfter "
+                f"{exc.retry_after_s:.3f} s ({exc})")
+        tel = gw.telemetry()
+        check(sorted(tel["fleet"]["leases"]) == sorted(
+            f"{h}:{p}" for h, p in view.live()), "17d: lease telemetry")
+        for line in fleet_report(gw).splitlines():
+            log(f"[17d] {line}")
+
+        # ---- 17e. times (no target)
+        saved = ppa_eval.launches
+        big = SPACE.sample(np.random.default_rng(21), SWEEP_CHUNK)
+        want = fresh().objectives(big)
+        live = [f.address for f in fleet if f.alive()]
+        for kind, where in (("thread pool", None), ("in-thread", addrs),
+                            ("spawned", live)):
+            for w in (1, 2):
+                if where is None:
+                    ev = ShardedEvaluator(fresh(), workers=w, mode="thread")
+                else:
+                    ev = ShardedEvaluator(fresh(), mode="socket",
+                                          addresses=where[:w], keyring=ring)
+                try:
+                    check(np.array_equal(ev.objectives(big), want),
+                          f"17e {kind} x{w}: objectives differ")
+                    med, lo = _median_ms(lambda: ev.objectives(big),
+                                         PHASE17_CALLS)
+                    log(f"[17e] one objectives dispatch at B "
+                        f"{SWEEP_CHUNK:,} through {w} {kind} worker(s): "
+                        f"median {med:.3f} ms, min {lo:.3f} ms over "
+                        f"{PHASE17_CALLS} calls ({smi})")
+                    if kind == "in-thread" and w == 2:
+                        profile_device(torch, lambda: ev.objectives(big),
+                                       "17e", f"one objectives dispatch at "
+                                       f"B {SWEEP_CHUNK:,} through 2 "
+                                       f"in-thread socket workers",
+                                       "ppa_eval")
+                        rtt = ev.metrics.get("heartbeat_rtt")
+                        for key in rtt.series_keys():
+                            st_ = rtt.stats(worker=key[0])
+                            log(f"[17e] heartbeat RTT slot {key[0]}: "
+                                f"{st_['count']} pings, p50 "
+                                f"{st_['p50'] * 1e3:.3f} ms")
+                finally:
+                    ev.close()
+        rep = fresh().stalls(big)
+        body = codec.encode_msg(wire.ResultMsg(0, rep))
+        frame = codec.seal_frame(body, ring, 0)
+        enc, _ = _median_ms(lambda: codec.encode_msg(wire.ResultMsg(0, rep)),
+                            PHASE17_CALLS)
+        dec, _ = _median_ms(lambda: codec.decode_msg(body), PHASE17_CALLS)
+        sign, _ = _median_ms(lambda: codec.seal_frame(body, ring, 0),
+                             PHASE17_CALLS)
+        verify, _ = _median_ms(lambda: codec.open_frame(frame, ring, 0),
+                               PHASE17_CALLS)
+        same_report(codec.decode_msg(codec.open_frame(frame, ring, 0))
+                    .report, rep, "17e the stalls frame")
+        log(f"[17e] a B {SWEEP_CHUNK:,} stalls report frame: "
+            f"{len(frame):,} bytes ({len(frame) / SWEEP_CHUNK:.1f} B a "
+            f"design); encode {enc:.3f} ms, decode {dec:.3f} ms, sign "
+            f"{sign:.3f} ms, verify {verify:.3f} ms (medians of "
+            f"{PHASE17_CALLS})")
+        if shutil.which("openssl") is None:
+            log("[17e] TLS: not run (no openssl on PATH)")
+        else:
+            cert = os.path.join(work_dir, "cert.pem")
+            key = os.path.join(work_dir, "key.pem")
+            subprocess.run(
+                ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+                 "-keyout", key, "-out", cert, "-days", "1", "-subj",
+                 "/CN=127.0.0.1"], check=True, capture_output=True)
+            tsrv = WorkerServer(options=WorkerOptions(
+                keys=PHASE17_KEYS, certfile=cert, keyfile=key))
+            tsrv.start()
+            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+            ctx.check_hostname = False
+            ctx.verify_mode = ssl.CERT_NONE      # the self-signed cert
+            tev = ShardedEvaluator(fresh(), mode="socket",
+                                   addresses=[(tsrv.host, tsrv.port)],
+                                   keyring=ring, ssl_context=ctx)
+            try:
+                check(np.array_equal(tev.objectives(big), want),
+                      "17e TLS: objectives differ")
+                med, lo = _median_ms(lambda: tev.objectives(big),
+                                     PHASE17_CALLS)
+                log(f"[17e] TLS + HMAC: one objectives dispatch at B "
+                    f"{SWEEP_CHUNK:,} through 1 in-thread worker bit for "
+                    f"bit; median {med:.3f} ms, min {lo:.3f} ms")
+            finally:
+                tev.close()
+                tsrv.close()
+        ppa_eval.launches = saved   # timing launches are not the path's
+    finally:
+        for p in pools:
+            p.close()
+        for h in fleet:
+            if h.alive():
+                h.kill()
+        if reg is not None:
+            reg.close()
+        for s in servers:
+            s.close()
+        shutil.rmtree(work_dir, ignore_errors=True)
+    log(f"[17] phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _wait_lapsed(view, address, timeout_s: float = 60.0) -> bool:
+    """Wait for a killed worker's lease to lapse."""
+    deadline = time.monotonic() + timeout_s
+    while tuple(address) in view.live():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.05)
+    return True
+
+
 def main() -> int:
     # cuBLAS reads its workspace size once, at its first call: fix it here,
     # before any, so that 16d's deterministic algorithms hold for every GEMM
@@ -3184,13 +3615,18 @@ def main() -> int:
     training = phase16_training(torch, dev, os.path.join(
         ROOT, "build", "chip_smoke_train"))
 
+    # ---- 17. the DSE service: socket workers, gateway, membership ---------
+    serve = phase17_serve(torch, dev, res_k, smi, os.path.join(
+        ROOT, "build", "chip_smoke_serve"))
+
     kt = times["both"]                 # the main path's launch: a chunk
     kernels = [{
         "name": "ppa_eval", "route": "cuda",
         "source": "src/repro_torch/kernels/ppa_eval/ppa_eval.cu",
         "replaces": "src/repro/kernels/ppa_eval/kernel.py:42",
         "launches": (sweep_launches + loop_launches + zoo["launches"]
-                     + methods["launches"] + faults["launches"]),
+                     + methods["launches"] + faults["launches"]
+                     + serve["launches"]),
         "max_abs_err": max(max_abs_err, zoo["max_abs_err"]),
         "ms": kt["ms"], "plain_ms": kt["plain_ms"],
         "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],

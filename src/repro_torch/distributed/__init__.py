@@ -31,8 +31,9 @@ The pieces compose: ``EvalService(ShardedEvaluator(base, workers=N,
 fault_plan=plan))`` coalesces across clients, shards across workers and
 injects failures deterministically.  The multi-worker full-space sweep
 lives with its engine: ``SweepEngine(...).run(workers=N,
-fault_plan=plan)``.  The socket worker fabric (``mode="socket"``) waits
-for the port's serve layer.
+fault_plan=plan)``.  ``ShardedEvaluator(mode="socket", addresses=... |
+membership=...)`` fans the same shards out to remote
+:mod:`repro_torch.serve` workers over TCP.
 """
 
 from repro_torch.distributed.faults import (FAULT_KINDS, ChaosPool,

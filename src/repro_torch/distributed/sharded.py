@@ -27,11 +27,15 @@ Worker pools
                devices, round-robin) under ``torch.cuda.device``; on one
                card every shard runs on ``cuda:0``, and on a CPU base on
                the base's device.
-``socket``   — remote serve workers over TCP; the port's serve layer
-               (``repro_torch.serve``) is not ported yet, so this mode and
-               its arguments raise ``NotImplementedError``.  The name
-               stays in :data:`MODES` so that the modes line up with the
-               reference's.
+``socket``   — remote ``repro_torch.serve`` workers over TCP
+               (``addresses=`` or ``membership=``); the cross-machine
+               realization of the ``process`` template: the same pickled
+               spec rides a :class:`~repro_torch.serve.wire.Hello`
+               handshake and the same ``ShardPayload`` -> ``PPAReport``
+               exchange rides length-prefixed frames.  Each worker
+               rebuilds the evaluator on the spec's device type, so a
+               ``backend="cuda"`` base gets workers that launch
+               ``ppa_eval`` on their card.
 
 Fault handling
 --------------
@@ -238,8 +242,8 @@ def _worker_spec(base: ModelEvaluator) -> bytes:
     everything a spawned worker needs to reconstruct an equivalent
     evaluator from scratch, on the same kind of device as the base.
 
-    These bytes are a wire format (serve workers, once ported, rebuild
-    from the very same spec), so they are pinned to
+    These bytes are a cross-machine wire format (``repro_torch.serve``
+    workers rebuild from the very same spec), so they are pinned to
     ``pickle.HIGHEST_PROTOCOL`` and covered by a round-trip regression
     test — change the layout and :func:`evaluator_from_spec` together.
     """
@@ -256,13 +260,15 @@ def _worker_spec(base: ModelEvaluator) -> bytes:
 
 def evaluator_from_spec(spec_bytes: bytes, loads=None) -> ModelEvaluator:
     """Rebuild the evaluator a :func:`_worker_spec` blob describes — the
-    worker half of the wire contract (the process pool initializer; the
-    serve worker daemon, once ported).
+    worker half of the wire contract, shared by the process pool
+    initializer and the ``repro_torch.serve`` socket daemon.
 
-    ``loads`` overrides the deserializer: a hardened worker passes a
-    restricted loader so spec bytes resolve only allowlisted
-    constructors; the default raw ``pickle.loads`` is the
-    single-trust-domain process-pool path.
+    ``loads`` overrides the deserializer: hardened workers pass
+    :func:`repro_torch.serve.codec.restricted_loads` so spec bytes
+    resolve only allowlisted constructors; the default raw
+    ``pickle.loads`` is the single-trust-domain process-pool path.  A
+    spec naming ``cuda`` raises where CUDA is missing (the port never
+    falls back to the CPU).
     """
     spec = pickle.loads(spec_bytes) if loads is None else loads(spec_bytes)
     models = {nm: cls(wl, spec["space"])
@@ -345,11 +351,23 @@ class ShardedEvaluator:
         Shard fan-out.  ``workers=1`` always evaluates in-process.
     mode:
         One of :data:`MODES` (``auto`` = ``inline`` for one worker,
-        ``thread`` otherwise).  ``socket`` — and its arguments
-        ``addresses``, ``membership``, ``insecure``, ``keyring``,
-        ``key_id``, ``ssl_context`` and ``max_frame_bytes`` — need the
-        serve layer (``repro_torch.serve``), which is not ported yet, and
-        raise ``NotImplementedError``.
+        ``thread`` otherwise).  ``socket`` dispatches to remote
+        ``repro_torch.serve`` worker daemons and requires
+        ``addresses=`` or ``membership=``.
+    addresses:
+        ``mode='socket'`` only: ``[(host, port), ...]`` of running
+        ``python -m repro_torch.serve.worker`` daemons.  ``workers``
+        defaults to ``len(addresses)`` and is clamped to it; the pool
+        owns the liveness registry (heartbeats ride the wire), and this
+        evaluator shares it instead of creating its own.
+    membership:
+        ``mode='socket'`` only: a :class:`~repro_torch.serve.membership.
+        MembershipView` workers announce to; the fleet follows its
+        leases between requests.
+    insecure / keyring / key_id / ssl_context / max_frame_bytes:
+        ``mode='socket'`` transport options, passed to
+        :class:`~repro_torch.serve.pool.SocketPool` (legacy pickle
+        frames, HMAC signing keys, TLS, the frame bound).
     min_shard_rows:
         Never split below this many designs per shard — tiny batches stay
         on one worker instead of paying fan-out overhead.
@@ -398,7 +416,9 @@ class ShardedEvaluator:
         instruments, a :class:`~repro_torch.obs.trace.Tracer` for
         per-shard causal spans (default: the free no-op tracer), and an
         injectable clock (deadlines, straggler thresholds, liveness) for
-        deterministic timing under test.
+        deterministic timing under test.  All three are also handed to
+        the socket pool so wire spans and heartbeat RTT land in the same
+        registry/trace.
     """
 
     def __init__(self, base, *, workers: Optional[int] = None,
@@ -425,37 +445,60 @@ class ShardedEvaluator:
             raise TypeError("ShardedEvaluator needs a model-backed evaluator")
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-        socket_args = {"addresses": addresses is not None,
-                       "membership": membership is not None,
-                       "insecure": insecure, "keyring": keyring is not None,
-                       "key_id": key_id is not None,
-                       "ssl_context": ssl_context is not None,
-                       "max_frame_bytes": max_frame_bytes is not None}
-        given = sorted(k for k, v in socket_args.items() if v)
-        if mode == "socket" or given:
-            what = "mode='socket'" if mode == "socket" else ", ".join(
-                f"{k}=" for k in given)
-            raise NotImplementedError(
-                f"{what} needs the socket worker fabric of "
-                "repro_torch.serve, which is not ported yet")
+        if addresses is not None and mode != "socket":
+            raise ValueError("addresses= is only meaningful with "
+                             "mode='socket'")
+        if membership is not None and mode != "socket":
+            raise ValueError("membership= is only meaningful with "
+                             "mode='socket'")
         self.base = base
         self.space = base.space
         self.tier = base.tier
-        self.workers = max(1, int(2 if workers is None else workers))
-        if self.workers == 1:
+        if workers is None:
+            workers = len(addresses) if addresses else 2
+        self.workers = max(1, int(workers))
+        if mode == "socket":
+            if not addresses and membership is None:
+                raise ValueError("mode='socket' needs addresses="
+                                 "[(host, port), ...] of running "
+                                 "`python -m repro_torch.serve.worker` "
+                                 "daemons or membership= (a MembershipView "
+                                 "workers announce to)")
+            if addresses:
+                self.workers = min(self.workers, len(addresses))
+        elif self.workers == 1:
             mode = "inline"                    # the in-process fallback
         elif mode == "auto":
             mode = "thread"
         self.mode = mode
-        # observability: one registry/tracer/clock for every shard
+        # observability: one registry/tracer/clock shared with the pool so
+        # heartbeat RTT and wire spans land next to the shard instruments
         self.metrics = registry if registry is not None else MetricsRegistry()
         self.tracer = tracer if tracer is not None else NOOP
         self._clock: Clock = clock if clock is not None else time.monotonic
-        raw_pool = _POOLS[mode](base, self.workers)
+        if mode == "socket":
+            from repro_torch.serve.pool import SocketPool
+            raw_pool = SocketPool(base,
+                                  self.workers if addresses else None,
+                                  addresses=addresses,
+                                  membership=membership,
+                                  insecure=insecure, keyring=keyring,
+                                  key_id=key_id, ssl_context=ssl_context,
+                                  max_frame_bytes=max_frame_bytes,
+                                  heartbeat_timeout_s=heartbeat_timeout_s,
+                                  metrics=self.metrics, tracer=self.tracer,
+                                  clock=self._clock)
+            if membership is not None:
+                # lease-driven topology: the pool's view of the fleet is
+                # authoritative, not the construction-time count
+                self.workers = max(1, raw_pool.workers)
+        else:
+            raw_pool = _POOLS[mode](base, self.workers)
         self._raw_pool = raw_pool
         self._pool = (ChaosPool(raw_pool, fault_plan)
                       if fault_plan is not None else raw_pool)
         self.fault_plan = fault_plan
+        self.membership = membership
         self.min_shard_rows = max(1, int(min_shard_rows))
         self.retries = int(retries)
         self.retry_policy = (retry_policy if retry_policy is not None
@@ -471,9 +514,15 @@ class ShardedEvaluator:
         self.elastic = bool(elastic)
         self.max_workers = max(self.workers, int(max_workers)
                                if max_workers is not None else self.workers)
-        # worker liveness: slots 0..workers-1, beaten on shard completion
-        self.registry = WorkerRegistry(timeout_s=heartbeat_timeout_s,
-                                       now=self._clock)
+        # worker liveness: slots 0..workers-1, beaten on shard completion.
+        # A socket pool owns its registry (wire heartbeats + reconnects
+        # drive it) and this evaluator shares it; local pools get a fresh
+        # one driven by shard completions.
+        pool_registry = getattr(raw_pool, "registry", None)
+        self._pool_owns_registry = pool_registry is not None
+        self.registry = (pool_registry if pool_registry is not None
+                         else WorkerRegistry(timeout_s=heartbeat_timeout_s,
+                                             now=self._clock))
         for s in range(self.workers):
             self.registry.register(s)
         self._dispatch_no = 0               # round-robin slot attribution
@@ -559,6 +608,11 @@ class ShardedEvaluator:
 
     # -- public API -----------------------------------------------------
     def evaluate(self, request: EvalRequest) -> PPAReport:
+        if self.membership is not None:
+            # lease-driven fleets grow/shrink between requests: sync the
+            # pool's slot view and shard to the CURRENT worker count
+            self._raw_pool._sync_membership()
+            self.workers = max(1, self._raw_pool.workers)
         idx = np.atleast_2d(np.asarray(request.idx, dtype=np.int32))
         n = idx.shape[0]
         n_shards = min(self.workers, max(1, n // self.min_shard_rows))
@@ -567,12 +621,13 @@ class ShardedEvaluator:
         with tr.span("sharded.evaluate", rows=n, mode=self.mode,
                      detail=request.detail) as sp:
             if ((self.mode == "inline" or n_shards <= 1)
-                    and self.fault_plan is None):
+                    and self.fault_plan is None and self.mode != "socket"):
                 self._c_worker_dispatches.inc()
                 return self.base.evaluate(
                     EvalRequest(idx, request.detail, request.workloads))
             # under a fault plan even single-shard requests route through
-            # the pool so injection + recovery cover the inline path too
+            # the pool so injection + recovery cover the inline path too;
+            # socket mode ALWAYS rides the pool — offloading is the point
             payloads = [ShardPayload(s, request.detail, request.workloads)
                         for s in np.array_split(idx, max(1, n_shards))]
             if tr.enabled:
@@ -606,7 +661,9 @@ class ShardedEvaluator:
         self._pool.resize(workers)
         self.workers = workers
         self._c_resizes.inc()
-        for s in range(workers):
+        if self._pool_owns_registry:
+            return                     # the pool's reconnect/close path
+        for s in range(workers):       # maintains its registry itself
             self.registry.register(s)          # fresh/replacement slots
         for s in range(workers, old):
             self.registry.mark_dead(s)         # shrunk-away slots
@@ -645,6 +702,11 @@ class ShardedEvaluator:
             if plan.workers != self.workers:
                 self.resize(plan.workers)
                 return
+        if self._pool_owns_registry:
+            # the socket pool re-registers the slot itself when the
+            # connection actually comes back — a blind re-register here
+            # would claim liveness the wire has not proven
+            return
         # executor pools replace dead workers transparently — the slot's
         # replacement re-registers under the same id
         self.registry.register(slot)
@@ -672,8 +734,8 @@ class ShardedEvaluator:
             if tr.enabled:
                 sp = tr.start("shard", detached=True, parent=parent_ctx,
                               shard=i, attempt=attempt, slot=slot)
-                # current during the pool submit, so a span the pool opens
-                # parents under this shard attempt
+                # current during the pool submit, so the wire span
+                # (socket mode) parents under this shard attempt
                 with tr.activate(sp):
                     fut = self._pool.submit(payloads[i])
                 spans[fut] = sp

@@ -1,24 +1,22 @@
-"""Fleet dashboard: render an evaluation-service snapshot as text.
+"""Fleet dashboard: render a Gateway observability snapshot as text.
 
 Usage::
 
     python -m repro_torch.obs.report snapshot.json    # a saved snapshot
-    report.fleet_report(service_snapshot(service))    # a live EvalService
+    report.fleet_report(gateway)                      # a live Gateway
 
-The snapshot shape is the reference's ``Gateway.snapshot()``::
+The snapshot shape is what :meth:`repro_torch.serve.gateway.Gateway.
+snapshot` produces (and ``Gateway.save_snapshot`` writes as the CLI's
+input)::
 
-    {"telemetry": {"service": <EvalService.telemetry()>,
-                   "fleet": <WorkerRegistry.snapshot() + mode, workers>},
-     "metrics": {"service": ..., "evaluator": ...}}
+    {"telemetry": <Gateway.telemetry()>,
+     "metrics": {"gateway": ..., "service": ..., "evaluator": ...}}
 
-The port has no gateway yet (the serve layer is not ported), so
-:func:`service_snapshot` builds the same shape from an
-:class:`~repro_torch.distributed.service.EvalService` and its
-(sharded) evaluator, and :func:`save_snapshot` writes it as the CLI's
-input.  Sections: per-tier queue-latency percentiles, per-tenant
-admission, per-worker heartbeat RTT + shard timings, degradation-rung
-hit rates, and raw traffic counters; a section with nothing to show is
-left out.
+A bare :class:`~repro_torch.distributed.service.EvalService` is read by
+putting it behind a gateway: ``fleet_report(Gateway(service))``.
+Sections: per-tier queue-latency percentiles, per-tenant admission,
+per-worker heartbeat RTT + shard timings, degradation-rung hit rates,
+and raw traffic counters; a section with nothing to show is left out.
 """
 
 from __future__ import annotations
@@ -58,10 +56,9 @@ def _hist_series(metrics: Dict, registry: str, name: str) -> List[Dict]:
 
 
 def fleet_report(source) -> str:
-    """Render the dashboard.  ``source`` is a snapshot dict or a
-    live :class:`~repro_torch.distributed.service.EvalService` (read
-    through :func:`service_snapshot`)."""
-    snap = source if isinstance(source, dict) else service_snapshot(source)
+    """Render the dashboard.  ``source`` is a snapshot dict or any
+    object with a ``snapshot()`` method (a live ``Gateway``)."""
+    snap = source if isinstance(source, dict) else source.snapshot()
     tel = snap.get("telemetry", snap)
     metrics = snap.get("metrics", {})
     svc = tel.get("service", {})
@@ -178,38 +175,11 @@ def fleet_report(source) -> str:
     return "\n".join(lines)
 
 
-def service_snapshot(service) -> dict:
-    """The dashboard's input from a live service: its telemetry, the
-    worker fleet of its evaluator (when that keeps a liveness registry)
-    and the raw metric registries of both layers."""
-    tel: Dict[str, object] = {"service": service.telemetry()}
-    ev = service.evaluator
-    registry = getattr(ev, "registry", None)
-    if registry is not None and hasattr(registry, "snapshot"):
-        fleet = registry.snapshot()
-        fleet["mode"] = getattr(ev, "mode", None)
-        fleet["workers"] = getattr(ev, "workers", None)
-        tel["fleet"] = fleet
-    out: Dict[str, object] = {"telemetry": tel,
-                              "metrics": {"service": service.metrics.snapshot()}}
-    ev_metrics = getattr(ev, "metrics", None)
-    if ev_metrics is not None:
-        out["metrics"]["evaluator"] = ev_metrics.snapshot()
-    return out
-
-
-def save_snapshot(path: str, service) -> str:
-    """Write :func:`service_snapshot` as JSON (the CLI's input)."""
-    with open(path, "w", encoding="utf-8") as fh:
-        json.dump(service_snapshot(service), fh, indent=2, default=str)
-    return path
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m repro_torch.obs.report", description="Render a fleet dashboard"
     )
-    parser.add_argument("snapshot", help="path to a save_snapshot() JSON file")
+    parser.add_argument("snapshot", help="path to a Gateway.save_snapshot() JSON file")
     args = parser.parse_args(argv)
     with open(args.snapshot) as fh:
         snap = json.load(fh)

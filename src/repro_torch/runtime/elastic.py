@@ -106,10 +106,9 @@ def admission_retry_after(queued_rows: int, rows_per_s: float, *,
     backlog drains at the observed service rate.
 
     An admission-controlled front door attaches this to its
-    reject-with-retry-after responses (the reference's serve gateway; the
-    port's serve layer is not ported yet), so a well-behaved client backs
-    off exactly as long as the queue needs, instead of hammering a
-    saturated service.  With no rate estimate yet (``rows_per_s <= 0``)
+    reject-with-retry-after responses (:class:`~repro_torch.serve.
+    gateway.Gateway`), so a well-behaved client backs off exactly as long
+    as the queue needs, instead of hammering a saturated service.  With no rate estimate yet (``rows_per_s <= 0``)
     the hint is one second — optimistic but bounded.  Always clamped to
     ``[floor_s, cap_s]``.
     """

@@ -317,9 +317,12 @@ def test_sharded_single_shard_still_chaos_covered():
 
 
 def test_socket_mode_waits_for_the_serve_port():
-    with pytest.raises(NotImplementedError, match="repro_torch.serve"):
+    """Socket mode needs a fleet (``addresses=`` or ``membership=``) and
+    its arguments need socket mode, as at the reference; the fabric
+    itself is tested in ``tests/test_torch_serve.py``."""
+    with pytest.raises(ValueError, match="repro_torch.serve"):
         ShardedEvaluator(_fresh(), workers=2, mode="socket")
-    with pytest.raises(NotImplementedError, match="addresses="):
+    with pytest.raises(ValueError, match="addresses="):
         ShardedEvaluator(_fresh(), workers=2, addresses=[("h", 1)])
     with pytest.raises(ValueError, match="mode"):
         ShardedEvaluator(_fresh(), workers=2, mode="procss")

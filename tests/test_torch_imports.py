@@ -28,7 +28,8 @@ SUBPACKAGES = ("repro_torch", "repro_torch.perfmodel", "repro_torch.core",
                "repro_torch.distributed", "repro_torch.obs.export",
                "repro_torch.obs.report", "repro_torch.optim",
                "repro_torch.data", "repro_torch.checkpoint",
-               "repro_torch.launch.steps", "repro_torch.launch.train")
+               "repro_torch.launch.steps", "repro_torch.launch.train",
+               "repro_torch.serve", "repro_torch.serve.worker")
 
 
 def _forbidden(name: str) -> bool:

@@ -276,12 +276,16 @@ def test_service_telemetry_keys_frozen_under_chaos():
 
 
 def test_fleet_report_equals_the_reference(tmp_path, capsys):
-    """The dashboard of one service snapshot is the reference's, line for
-    line after the title; the CLI renders the saved snapshot the same."""
+    """The dashboard of one gateway snapshot (the service put behind a
+    ``Gateway``) is the reference's, line for line after the title; the
+    CLI renders the saved snapshot the same."""
+    from repro_torch.serve import Gateway
     svc, sharded = _chaotic_service()
-    snap = t_report.service_snapshot(svc)
+    gw = Gateway(svc)
+    snap = gw.snapshot()
     assert set(snap) == {"telemetry", "metrics"}
-    assert set(snap["metrics"]) == {"service", "evaluator"}
+    assert set(snap["metrics"]) == {"gateway", "service", "evaluator"}
+    assert snap["telemetry"]["service"] == svc.telemetry()
     fleet = snap["telemetry"]["fleet"]
     assert (fleet["mode"], fleet["workers"], fleet["evictions"],
             fleet["reregistrations"]) == ("thread", 2, 2, 2)
@@ -294,8 +298,9 @@ def test_fleet_report_equals_the_reference(tmp_path, capsys):
                     "-- degradation rungs --", "-- fleet --",
                     "-- shard timings (per worker slot) --"):
         assert section in txt
-    assert t_report.fleet_report(svc) == txt           # a live service
-    path = t_report.save_snapshot(str(tmp_path / "snap.json"), svc)
+    assert t_report.fleet_report(gw) == txt            # a live gateway
+    path = str(tmp_path / "snap.json")
+    gw.save_snapshot(path)
     assert t_report.main([path]) == 0
     assert capsys.readouterr().out.strip() == txt
     sharded.close()
