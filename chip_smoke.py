@@ -19,7 +19,9 @@ line is printed:
    instantiations) and registers and spills of ``fa_bwd_dot``;
    each rwkv6_scan instantiation's (state and output pass) registers,
    spills and shared memory; each ssm_scan (``ssm_fwd``) instantiation's
-   registers, spills and shared memory;
+   registers, spills and shared memory; the scans' backward kernels'
+   registers and spills (``wkv_bwd`` per head dim, ``ssm_bwd_state`` and
+   ``ssm_bwd`` per state dim, both reductions);
 2. each kernel against its plain PyTorch version on the card, at the
    reference's own kernel tolerances, at small and ragged batches and at
    the sweep's chunk shape; ppa_eval's one launch for both GPT-3 workloads
@@ -196,16 +198,38 @@ line is printed:
    S 4096 with checkpoints every 4 (scratch under
    ``build/chip_smoke_train/``, removed after), lost after step 4 and
    resumed in a fresh model: losses, params and moments bit for bit the
-   uninterrupted run's under deterministic algorithms; (e) rwkv6 and
-   jamba smoke models refuse ``loss.backward()`` on the card
-   (NotImplementedError: the scans have no backward kernel); (f) the
-   backward kernel (and the device time of each of its three kernels),
-   its plain version and SDPA's backward (timed only) at (a)'s full-size
-   shapes against the bound (as for the forward: fp32 as three TF32
-   products at 495 TFLOP/s, bf16 at 989 TFLOP/s; the function's 5
-   products) and the design's own floor (its 7 products at the same
-   rates), the earlier SIMT kernel's recorded times printed beside, and
-   the forward with lse against without.
+   uninterrupted run's under deterministic algorithms; (g) the scans'
+   backward kernels at the full-width training shapes, rwkv6_scan_bwd at
+   (1, 4096, 64, 64) in four w regimes (U(0.3, 0.99), the model's, zeros
+   and denormals, w = 1) and ssm_scan_bwd at (1, 4096, 16384, 16) in three
+   dt regimes (the test's, the model's, a long memory), against their
+   float64 plain backward at 5e-5 of each gradient's max |g| (ssm's long
+   memory: 1e-4 against float64, where fp32 itself lands, and 5e-5
+   against the fp32 plain backward), with the fp32 plain backward's own
+   distance printed; two launches bit for bit; ms per launch and each
+   pass's device time, the bound from *_bwd_cost and the plain
+   backward's ms; (h) rwkv6-7b trains: at full width cut to 2 layers, B
+   1, S 4096, fp32, one loss.backward() through rwkv6_scan's backward
+   kernel and one with it routed to rwkv6_scan_bwd_plain, every gradient
+   within 1e-3 of max |g|; then full width at 16 layers (the deepest
+   whose fp32 weights, gradients and AdamW moments fit one card), B 1, S
+   4096, remat, AdamW defaults on SyntheticLMDataset: 6 steps, each with
+   32 rwkv6_scan launches (16 recomputed) and 16 backward ones and no
+   other kernel; losses and grad norms finite; step wall, tokens/s, peak
+   memory and a profiled step; (i) the jamba cut (n_layers 2, attn_every
+   2, every published width), B 1, S 4096, fp32, with only its Mamba and
+   attention sub-layers' parameters trainable (no AdamW step of the cut
+   fits one card): one loss.backward() through flash_attention's and
+   ssm_scan's backward kernels and one with ssm_scan's backward routed
+   to ssm_scan_bwd_plain, every gradient within 1e-3 of max |g|, the
+   Mamba projections', dt_bias' and A_log's nonzero; (f) the
+   flash_attention backward kernel (and the device time of each of its
+   three kernels), its plain version and SDPA's backward (timed only) at
+   (a)'s full-size shapes against the bound (as for the forward: fp32 as
+   three TF32 products at 495 TFLOP/s, bf16 at 989 TFLOP/s; the
+   function's 5 products) and the design's own floor (its 7 products at
+   the same rates), the earlier SIMT kernel's recorded times printed
+   beside, and the forward with lse against without.
 
 17. the DSE service (``repro_torch.serve``), as
    ``examples/serve_cluster.py`` wires it, every proxy evaluation on
@@ -260,6 +284,8 @@ TOL_AREA_RTOL = 1e-5
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bandwidth and fp32 rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+# the SFU's exps: 16 a clock per SM, 132 SMs at 1.98 GHz
+SFU_EXPS_PER_S = 16 * 132 * 1.98e9
 
 # NVIDIA H100 SXM data-sheet peaks (dense) of the tensor cores
 PEAK_BF16_PER_S = 989e12
@@ -771,6 +797,35 @@ def report_ssm_build(torch, build_mod, ssm_ops) -> None:
             f"{ssm_ops.smem_bytes(n, dts[dn])} B")
     check(len(info) == 10, f"{len(info)} ssm_scan instantiations "
           f"reported, want 10")
+
+
+def report_scan_bwd_build(build_mod) -> None:
+    """Registers and spills (ptxas) of each instantiation of the scans'
+    backward kernels: rwkv6_scan's wkv_bwd (one per head dim) and
+    wkv_bwd_reduce, ssm_scan's ssm_bwd_state and ssm_bwd (one each per
+    N) and ssm_bwd_reduce."""
+    import re
+    for src, pat, want in (
+            ("rwkv6_scan", r"(wkv_bwd)ILi(\d+)E|(wkv_bwd_reduce)E", 5),
+            ("ssm_scan", r"(ssm_bwd_state|ssm_bwd)ILi(\d+)E|"
+                         r"(ssm_bwd_reduce)E", 11)):
+        name = re.compile(pat)
+
+        def inst(line):
+            m = name.search(line)
+            return m and ((m.group(1), int(m.group(2))) if m.group(1)
+                          else (m.group(3), 0))
+        if src not in build_mod.BUILD_LOGS:
+            log(f"[1]   {src} was built by an earlier run: the backward's "
+                f"ptxas not reported")
+            continue
+        info = ptxas_by_entry(build_mod.BUILD_LOGS[src], inst)
+        for kern, n in sorted(info):
+            i = info[(kern, n)]
+            log(f"[1]   {kern}{f'<{n}>' if n else ''}: {i.get('regs')} "
+                f"registers, {i.get('spills')}")
+        check(len(info) == want, f"{len(info)} {src} backward "
+              f"instantiations reported, want {want}")
 
 
 def phase7_lm_kernels(torch, dev) -> dict:
@@ -2499,6 +2554,27 @@ TRAIN = ("llama3.2-1b", 2, 4096)                     # arch, batch, seq
 TRAIN_STEPS = 6
 GRAD_ROUTE_REL = 1e-3                                # 16b: kernel vs plain
 RESUME_STEPS, RESUME_EVERY = 8, 4
+# 16g-16i: the scans' backward kernels.  Each gradient is held as max
+# |kernel - plain(float64)| over its max |plain(float64)|, at the forward
+# card tests' 5e-5; in ssm's "long" regime fp32's rounding of each decay
+# compounds over the ~2,000-step memory and the fp32 plain backward itself
+# leaves float64 by up to 7.2e-5 (tests/test_torch_ssm_scan_bwd.py), so
+# there the kernel is held to float64 at the pinned 1e-4 and to the fp32
+# plain backward at 5e-5
+SCAN_BWD_TOL = 5e-5
+SSM_BWD_FP64_TOL = {"test": 5e-5, "model": 5e-5, "long": 1e-4}
+RWKV_BWD = (1, 4096, 64, 64)                # B, T, H, hd: rwkv6-7b's step
+RWKV_BWD_REGIMES = ("uniform", "model", "zeros_denormals", "one")
+SSM_BWD = (1, 4096, 16384, 16)              # B, T, D, N: the jamba cut's
+SSM_BWD_REGIMES = ("test", "model", "long")
+RWKV_BWD_PASSES = ("wkv_bwd<", "wkv_bwd_reduce")
+SSM_BWD_PASSES = ("ssm_bwd_state<", "ssm_bwd<", "ssm_bwd_reduce")
+# 16h: rwkv6-7b at full width and the largest depth whose fp32 weights,
+# gradients and two AdamW moments (16 B a parameter) fit one 80 GB card:
+# 537 M (embedding + untied head) + 218.1 M a layer; 16 layers are 4.03 B
+# parameters, ~64.4 GB, beside ~6 GB of activations under remat (32
+# layers, 7.52 B, ~120 GB, do not fit)
+RWKV_TRAIN = ("rwkv6-7b", 16, 1, 4096)      # arch, layers, batch, seq
 
 
 def fa_bwd_inputs(torch, b, sq, sk, h, kvh, hd, dtype, dev, seed=0):
@@ -2665,6 +2741,90 @@ def _train_batch(torch, cfg, batch: int, seq: int, dev, seed: int = 0):
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
+def _scan_counts():
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_bwd
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
+    return (flash_attention, flash_attention_bwd, rwkv6_scan, rwkv6_scan_bwd,
+            ssm_scan, ssm_scan_bwd)
+
+
+def _zero_counts() -> tuple:
+    fns = _scan_counts()
+    saved = tuple(f.launches for f in fns)
+    for f in fns:
+        f.launches = 0
+    return saved
+
+
+def _read_counts() -> dict:
+    return {f.__name__: f.launches for f in _scan_counts()}
+
+
+def _restore_counts(saved: tuple) -> None:
+    for f, n in zip(_scan_counts(), saved):
+        f.launches = n
+
+
+def _grad_route(torch, model, batch, module, attr: str, plain, tag: str,
+                want: dict, want_plain: dict, nonzero) -> dict:
+    """One loss.backward() through the kernels, then one with module.<attr>
+    routed to `plain` (a switch of this script only): the two routes'
+    launches must be `want` and `want_plain`, every gradient within
+    GRAD_ROUTE_REL of max |g| of the plain route, and the parameters
+    `nonzero` accepts must have nonzero gradients."""
+    saved = _zero_counts()
+    try:
+        loss_k = model.loss(batch)
+        loss_k.backward()
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        check(counts == want, f"{tag}: kernel route launched {counts}, want "
+              f"{want}")
+        grads_k = {n: p.grad.clone() for n, p in model.named_parameters()
+                   if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        kernel = getattr(module, attr)
+        setattr(module, attr, plain)
+        _zero_counts()
+        try:
+            loss_p = model.loss(batch)
+            loss_p.backward()
+            torch.cuda.synchronize()
+        finally:
+            setattr(module, attr, kernel)
+        check(_read_counts() == want_plain, f"{tag}: plain route launched "
+              f"{_read_counts()}, want {want_plain}")
+    finally:
+        _restore_counts(saved)
+    worst, n_grads = ("", 0.0), 0
+    for n, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
+        check(p.grad is not None and n in grads_k, f"{tag}: {n} has no "
+              f"gradient")
+        gp, gk = p.grad, grads_k[n]
+        rel = float((gk - gp).abs().max()) / max(float(gp.abs().max()),
+                                                 1e-30)
+        check(rel <= GRAD_ROUTE_REL, f"{tag}: {n} gradient off the plain "
+              f"route's by {rel:.3g} of max |g|")
+        if rel > worst[1]:
+            worst = (n, rel)
+        if nonzero(n):
+            check(float(gk.abs().max()) > 0, f"{tag}: {n} has no gradient")
+        n_grads += 1
+    model.zero_grad(set_to_none=True)
+    return {"loss_k": float(loss_k.detach()),
+            "loss_p": float(loss_p.detach()), "worst": worst,
+            "n_grads": n_grads, "counts": counts}
+
+
+def _launches(**nonzero) -> dict:
+    """Every counted kernel at 0 launches but the ones named."""
+    return {**{f.__name__: 0 for f in _scan_counts()}, **nonzero}
+
+
 def phase16b_grad_route(torch, dev) -> None:
     """16b: llama3.2-1b at full width cut to 2 layers, B 1, S 4096, fp32:
     one loss.backward() through the kernels, one with the attention
@@ -2673,52 +2833,25 @@ def phase16b_grad_route(torch, dev) -> None:
     q/k/v weight's nonzero."""
     import dataclasses
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_plain)
+    from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.models import attention as attn_mod
     cfg = dataclasses.replace(get_arch(TRAIN[0]), n_layers=2)
     model = build_full_width(torch, cfg, dev, tag="16b")
     model.requires_grad_(True)
     batch = _train_batch(torch, cfg, 1, TRAIN[2], dev, seed=3)
-    saved = (flash_attention.launches, flash_attention_bwd.launches)
-    flash_attention.launches = flash_attention_bwd.launches = 0
-    loss_k = model.loss(batch)
-    loss_k.backward()
-    torch.cuda.synchronize()
-    counts = (flash_attention.launches, flash_attention_bwd.launches)
-    check(counts == (4, 2), f"16b: kernel route launched fwd/bwd {counts}, "
-          f"want 4/2 (2 layers, remat)")
-    grads_k = {n: p.grad.clone() for n, p in model.named_parameters()}
-    model.zero_grad(set_to_none=True)
-    kernel = attn_mod.flash_attention
-    attn_mod.flash_attention = lambda q, k, v, causal=True: \
-        flash_attention_plain(q, k, v, causal=causal)
-    try:
-        loss_p = model.loss(batch)
-        loss_p.backward()
-        torch.cuda.synchronize()
-    finally:
-        attn_mod.flash_attention = kernel
-    check(flash_attention.launches == 4 and flash_attention_bwd.launches == 2,
-          "16b: the plain route launched a kernel")
-    flash_attention.launches, flash_attention_bwd.launches = saved
-    worst = ("", 0.0)
-    for n, p in model.named_parameters():
-        gp, gk = p.grad, grads_k[n]
-        scale = float(gp.abs().max())
-        rel = float((gk - gp).abs().max()) / max(scale, 1e-30)
-        check(rel <= GRAD_ROUTE_REL, f"16b: {n} gradient off the plain "
-              f"route's by {rel:.3g} of max |g|")
-        if rel > worst[1]:
-            worst = (n, rel)
-        if n.endswith((".attn.q.w", ".attn.k.w", ".attn.v.w")):
-            check(float(gk.abs().max()) > 0, f"16b: {n} has no gradient")
+    res = _grad_route(
+        torch, model, batch, attn_mod, "flash_attention",
+        lambda q, k, v, causal=True: flash_attention_plain(q, k, v,
+                                                           causal=causal),
+        "16b", _launches(flash_attention=4, flash_attention_bwd=2),
+        _launches(),
+        lambda n: n.endswith((".attn.q.w", ".attn.k.w", ".attn.v.w")))
     log(f"[16b] {cfg.name} (2 layers, full width) B=1 S={TRAIN[2]}: loss "
-        f"kernel {loss_k.item():.6f} plain {loss_p.item():.6f}; every "
+        f"kernel {res['loss_k']:.6f} plain {res['loss_p']:.6f}; every "
         f"gradient within {GRAD_ROUTE_REL} of max |g| of the plain route "
-        f"(worst {worst[0]} {worst[1]:.3g}); q/k/v weights' gradients "
-        f"nonzero; launches fwd 4 (remat) bwd 2")
-    del model, grads_k
+        f"(worst {res['worst'][0]} {res['worst'][1]:.3g}); q/k/v weights' "
+        f"gradients nonzero; launches fwd 4 (remat) bwd 2")
+    del model, batch
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2843,30 +2976,293 @@ def phase16d_resume(torch, dev, work_dir: str) -> None:
         f"(deterministic algorithms); launches fwd {n_fwd} bwd {n_bwd}")
 
 
-def phase16e_guard(torch, dev) -> None:
-    """16e: rwkv6 and jamba smoke models on the card refuse a loss that
-    would need a scan's backward (NotImplementedError); under no_grad
-    their loss is finite."""
-    from repro_torch.configs import get_arch
-    from repro_torch.models import build_model
-    for arch in ("rwkv6-7b", "jamba-1.5-large-398b"):
-        cfg = get_arch(arch).smoke()
-        m = build_model(cfg, dtype=torch.float32, device=dev)
-        m.init_weights(torch.Generator(device=dev).manual_seed(0))
-        m.requires_grad_(True)
-        batch = _train_batch(torch, cfg, 1, 64, dev)
-        try:
-            m.loss(batch).backward()
-        except NotImplementedError as e:
-            msg = str(e).split(";")[0]
+def _grad_rel(got, want) -> float:
+    """max |got - want| over max |want| (the scan backward's measure)."""
+    scale = float(want.abs().max())
+    return float((got.double() - want.double()).abs().max()) / (scale or 1.0)
+
+
+def rwkv_bwd_inputs(torch, regime: str, dev, seed: int = 0):
+    """fp32 (r, k, v, w, u, dy) at RWKV_BWD: rwkv_inputs' regimes
+    ("zeros_denormals" is its "zeros"), and "one", w = 1 (no decay);
+    dy ~ N(0, 1)."""
+    b, t, h, hd = RWKV_BWD
+    base = {"zeros_denormals": "zeros", "one": "uniform"}.get(regime, regime)
+    r, k, v, w, u = rwkv_inputs(torch, b, t, h, hd, torch.float32, dev,
+                                seed=seed, regime=base)
+    if regime == "one":
+        w = torch.ones_like(w)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    return r, k, v, w, u, torch.randn(r.shape, generator=g, device=dev)
+
+
+def _scan_bwd_bound(ops: int, nbytes: int) -> dict:
+    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "text": f"{ops / 1e9:.2f} GFLOP fp32 SIMT at 67 TFLOP/s: "
+                    f"{t_ops:.4f} ms; {nbytes / 1e6:.1f} MB at 3.35 TB/s: "
+                    f"{t_bytes:.4f} ms"}
+
+
+def phase16g_scan_bwd(torch, dev) -> dict:
+    """16g: the scans' backward kernels at the full-width training shapes
+    (rwkv6 RWKV_BWD in four w regimes, ssm SSM_BWD in three dt regimes)
+    against their float64 plain backward on the card, with the fp32 plain
+    backward's own distance printed; two launches bit for bit; then ms per
+    launch (CUDA events) and each pass's device time, the bound from
+    *_bwd_cost and the plain backward's ms (no library call computes
+    either function)."""
+    from repro_torch.kernels.rwkv6_scan import ops as rw
+    from repro_torch.kernels.ssm_scan import ops as ss
+    saved = (rw.rwkv6_scan.launches, rw.rwkv6_scan_bwd.launches,
+             ss.ssm_scan.launches, ss.ssm_scan_bwd.launches)
+    out = {}
+    cases = ([("rwkv6", regime) for regime in RWKV_BWD_REGIMES]
+             + [("ssm", regime) for regime in SSM_BWD_REGIMES])
+    for kind, regime in cases:
+        if kind == "rwkv6":
+            r, k, v, w, u, dy = args = rwkv_bwd_inputs(torch, regime, dev)
+            _, states = rw._forward(r, k, v, w, u)
+
+            def kernel():
+                return rw.rwkv6_scan_bwd(r, k, v, w, u, dy, states)
+            want = rw.rwkv6_scan_bwd_plain(
+                *(x.double() if x is not u else x for x in args))
+            plain = rw.rwkv6_scan_bwd_plain(*args)
+            names, tol = ("dr", "dk", "dv", "dw", "du"), SCAN_BWD_TOL
+            shape = RWKV_BWD
         else:
-            raise SmokeFailure(f"16e: {arch} trained through a scan kernel "
-                               f"that has no backward")
-        with torch.no_grad():
-            check(bool(torch.isfinite(m.loss(batch))),
-                  f"16e: {arch} no_grad loss")
-        log(f"[16e] {arch} smoke on the card: loss.backward() raised "
-            f"NotImplementedError ({msg}); no_grad loss finite")
+            b, t, d, n = SSM_BWD
+            uu, dt, a, bm, cm = ssm_inputs(torch, b, t, d, n, torch.float32,
+                                           dev, seed=0, regime=regime)
+            dy = torch.randn(uu.shape, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(1))
+            args = (uu, dt, a, bm, cm, dy)
+
+            def kernel():
+                return ss.ssm_scan_bwd(*args)
+            want = ss.ssm_scan_bwd_plain(
+                *(x.double() if x is not a else x for x in args))
+            plain = ss.ssm_scan_bwd_plain(*args)
+            names, tol = ("du", "ddt", "da", "db", "dc"), \
+                SSM_BWD_FP64_TOL[regime]
+            shape = SSM_BWD
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"16g {kind} {regime}: two launches differ")
+        errs, perrs = [], []
+        max_abs = 0.0
+        for name, g, x, p in zip(names, got, want, plain):
+            check(bool(torch.isfinite(g).all()),
+                  f"16g {kind} {regime} {name}: non-finite")
+            rel, prel = _grad_rel(g, x), _grad_rel(p, x)
+            check(rel <= tol, f"16g {kind} {regime} {name}: {rel:.3g} of "
+                  f"max |float64| > {tol}")
+            if tol > SCAN_BWD_TOL:
+                krel = _grad_rel(g, p)
+                check(krel <= SCAN_BWD_TOL, f"16g {kind} {regime} {name}: "
+                      f"{krel:.3g} of max |fp32 plain| > {SCAN_BWD_TOL}")
+            errs.append(rel)
+            perrs.append(prel)
+            max_abs = max(max_abs, float((g.double() - x).abs().max()))
+        row = out.setdefault(kind, {"max_abs_err": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], max_abs)
+        log(f"[16g] {kind}_scan_bwd {shape} {regime}: kernel vs float64 "
+            + "/".join(names) + " " + "/".join(f"{e:.3g}" for e in errs)
+            + f" of max |g| (tol {tol}); the fp32 plain backward's own "
+            + "/".join(f"{e:.3g}" for e in perrs)
+            + "; two launches bitwise equal")
+        if regime == "model":             # the model's regime: timings
+            k_ms = kernel_ms(torch, kernel, warm=1, iters=5)
+            parts = pass_times(torch, kernel, RWKV_BWD_PASSES
+                               if kind == "rwkv6" else SSM_BWD_PASSES,
+                               calls=3)
+            p_ms = time_ms(torch, lambda: (rw.rwkv6_scan_bwd_plain(*args)
+                                           if kind == "rwkv6" else
+                                           ss.ssm_scan_bwd_plain(*args)),
+                           warm=0, iters=1)
+            if kind == "rwkv6":
+                f_ms = kernel_ms(torch, lambda: rw._forward(r, k, v, w, u),
+                                 iters=10)
+                ops, nbytes = rw.rwkv6_scan_bwd_cost(*RWKV_BWD, 4)
+                extra = ""
+            else:
+                f_ms = kernel_ms(torch, lambda: ss._forward(*args[:5]),
+                                 iters=10)
+                ops, nbytes, exps = ss.ssm_scan_bwd_cost(*SSM_BWD, 4)
+                extra = (f"; beside it {exps / 1e9:.2f} G exps on the SFU "
+                         f"at 16 per clock per SM: "
+                         f"{exps / SFU_EXPS_PER_S * 1e3:.4f} ms")
+            bnd = _scan_bwd_bound(ops, nbytes)
+            row.update(ms=k_ms, plain_ms=p_ms, bound_ms=bnd["bound_ms"],
+                       bound_by=bnd["bound_by"], library_ms=None,
+                       fwd_ms=f_ms)
+            log(f"[16g] {kind}_scan_bwd {shape} fp32: kernel {k_ms:.3f} ms "
+                f"(device time "
+                + ", ".join(f"{nm.rstrip('<')} {us / 1e3:.3f} ms ({c} of 3 "
+                            f"launches recorded)" if c else
+                            f"{nm.rstrip('<')} not recorded"
+                            for nm, (us, c) in parts.items())
+                + f"), the forward {f_ms:.3f} ms, plain backward "
+                f"{p_ms:.1f} ms, bound {bnd['bound_ms']:.4f} ms "
+                f"({bnd['text']}{extra}; {bnd['bound_by']}); "
+                f"{k_ms / bnd['bound_ms']:.1f}x the bound; no library "
+                f"call computes the function")
+        del got, again, want, plain, args
+        torch.cuda.empty_cache()
+    (rw.rwkv6_scan.launches, rw.rwkv6_scan_bwd.launches,
+     ss.ssm_scan.launches, ss.ssm_scan_bwd.launches) = saved
+    return out
+
+
+def phase16h_rwkv_train(torch, dev) -> dict:
+    """16h: rwkv6-7b trains on the card.  The gradient check: full width
+    cut to 2 layers, B 1, S 4096, fp32, through rwkv6_scan's backward
+    kernel and with it routed to rwkv6_scan_bwd_plain.  The training run:
+    full width at RWKV_TRAIN's depth (the deepest that fits), AdamW
+    defaults on SyntheticLMDataset, remat, TRAIN_STEPS steps, each
+    launching rwkv6_scan 2 x layers times (remat recomputes) and its
+    backward once a layer, no other scan or attention kernel; step wall,
+    tokens/s, peak memory and a profiled step."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLMDataset, make_batch_iter
+    from repro_torch.kernels.rwkv6_scan import ops as rw
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.optim import AdamWConfig, adamw_init
+    arch, layers, b, s = RWKV_TRAIN
+    cfg = dataclasses.replace(get_arch(arch), n_layers=2)
+    model = build_full_width(torch, cfg, dev, tag="16h")
+    model.requires_grad_(True)
+    batch = _train_batch(torch, cfg, 1, s, dev, seed=3)
+    res = _grad_route(
+        torch, model, batch, rw, "rwkv6_scan_bwd",
+        lambda r, k, v, w, u, dy, states=None: rw.rwkv6_scan_bwd_plain(
+            r, k, v, w, u, dy),
+        "16h", _launches(rwkv6_scan=4, rwkv6_scan_bwd=2),
+        _launches(rwkv6_scan=4),
+        lambda n: n.endswith((".rwkv.r.w", ".rwkv.k.w", ".rwkv.v.w",
+                              ".rwkv.w_proj.w", ".rwkv.u", ".rwkv.w_bias")))
+    log(f"[16h] {cfg.name} (2 layers, full width) B=1 S={s}: loss kernel "
+        f"{res['loss_k']:.6f} plain {res['loss_p']:.6f}; all "
+        f"{res['n_grads']} gradients within {GRAD_ROUTE_REL} of max |g| of "
+        f"the route through rwkv6_scan_bwd_plain (worst {res['worst'][0]} "
+        f"{res['worst'][1]:.3g}); r/k/v/w_proj weights, u and w_bias "
+        f"gradients nonzero; launches rwkv6_scan 4 (remat) "
+        f"rwkv6_scan_bwd 2")
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_full_width(torch, cfg, dev, tag="16h")
+    check(model.remat, "16h: the model must train with remat")
+    step = steps_mod.make_train_step(model, AdamWConfig())
+    state = adamw_init(dict(model.named_parameters()))
+    ds = SyntheticLMDataset(cfg.vocab, s, b)
+    walls, losses, gnorms, counts = [], [], [], []
+    want = _launches(rwkv6_scan=2 * layers, rwkv6_scan_bwd=layers)
+    saved = _zero_counts()
+    try:
+        for bt in make_batch_iter(ds, 0, TRAIN_STEPS, device=dev):
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            state, met = step(state, bt)
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["grad_norm"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts.append(_read_counts())
+    finally:
+        _restore_counts(saved)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(c == want for c in counts), f"16h: launches per step "
+          f"{counts}, want {want}")
+    check(bool(np.isfinite(losses).all() and np.isfinite(gnorms).all()),
+          f"16h: losses {losses} grad norms {gnorms}")
+    med = float(np.median(walls[1:]))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[16h] {arch} cut to {layers} layers ({n_params / 1e9:.3f} B "
+        f"parameters; 32 do not fit) train B={b} S={s} fp32 remat, AdamW "
+        f"defaults: losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in gnorms]}; step walls "
+        f"{[round(x, 3) for x in walls]} s, median of steps 2-{TRAIN_STEPS} "
+        f"{med:.3f} s, {b * s / med:,.0f} tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); launches per step "
+        f"rwkv6_scan {2 * layers} rwkv6_scan_bwd {layers}, no other")
+    bt = next(iter(make_batch_iter(ds, TRAIN_STEPS, 1, device=dev)))
+    saved = _zero_counts()
+    try:
+        shares = profile_device(
+            torch, lambda: step(state, bt), "16h",
+            f"one {arch} ({layers} layers) train step (B {b}, S {s})",
+            keep="wkv_",
+            ranges=((steps_mod, "adamw_update", "adamw_update", None),),
+            groups={"fp32 GEMMs": lambda n: "gemm" in n.lower(),
+                    "rwkv6_scan fwd": lambda n: "wkv_state" in n
+                    or "wkv_out" in n,
+                    "rwkv6_scan bwd": lambda n: "wkv_bwd" in n,
+                    "log-softmax": lambda n: "softmax" in n.lower()})
+    finally:
+        _restore_counts(saved)
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_s": med, "tokens_per_s": b * s / med, "peak": peak,
+            "layers": layers, "shares": shares,
+            "fwd_launches": sum(c["rwkv6_scan"] for c in counts),
+            "bwd_launches": sum(c["rwkv6_scan_bwd"] for c in counts)}
+
+
+def phase16i_jamba_grads(torch, dev) -> dict:
+    """16i: the jamba cut (n_layers 2, attn_every 2, every published
+    width), B 1, S 4096, fp32, takes gradients: only the Mamba and the
+    attention sub-layers' parameters require grad (the 9.66 B MoE expert
+    weights stay frozen: no AdamW step of the cut fits one card); one
+    loss.backward() through flash_attention's and ssm_scan's backward
+    kernels, one with ssm_scan's backward routed to ssm_scan_bwd_plain."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssm_scan import ops as ss
+    arch, _, s = JAMBA
+    cfg = dataclasses.replace(get_arch(arch), n_layers=2, attn_every=2)
+    model = build_full_width(torch, cfg, dev, tag="16i")
+    model.requires_grad_(False)
+    trained = 0
+    for n, p in model.named_parameters():
+        if ".attn." in n or ".mamba." in n:
+            p.requires_grad_(True)
+            trained += p.numel()
+    batch = _train_batch(torch, cfg, 1, s, dev, seed=5)
+    torch.cuda.reset_peak_memory_stats()
+    res = _grad_route(
+        torch, model, batch, ss, "ssm_scan_bwd",
+        lambda u, dt, a, b, c, dy: ss.ssm_scan_bwd_plain(u, dt, a, b, c, dy),
+        "16i", _launches(flash_attention=2, flash_attention_bwd=1,
+                         ssm_scan=2, ssm_scan_bwd=1),
+        _launches(flash_attention=2, flash_attention_bwd=1, ssm_scan=2),
+        lambda n: n.endswith((".in_proj.w", ".x_proj.w", ".dt_bias",
+                              ".A_log", ".out_proj.w")))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[16i] {cfg.name} cut (n_layers 2, attn_every 2) B=1 S={s} fp32, "
+        f"{trained / 1e6:.1f} M Mamba and attention parameters trained, the "
+        f"rest frozen: loss kernel {res['loss_k']:.6f} plain "
+        f"{res['loss_p']:.6f}; all {res['n_grads']} gradients within "
+        f"{GRAD_ROUTE_REL} of max |g| of the route through "
+        f"ssm_scan_bwd_plain (worst {res['worst'][0]} "
+        f"{res['worst'][1]:.3g}); in_proj, x_proj, dt_bias, A_log, "
+        f"out_proj gradients nonzero; launches flash_attention 2, "
+        f"flash_attention_bwd 1, ssm_scan 2 (remat), ssm_scan_bwd 1; peak "
+        f"memory {peak / 2**30:.2f} GiB")
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": res["counts"], "peak": peak}
 
 
 def phase16_training(torch, dev, work_dir: str) -> dict:
@@ -2875,10 +3271,13 @@ def phase16_training(torch, dev, work_dir: str) -> dict:
     phase16b_grad_route(torch, dev)
     train = phase16c_train(torch, dev)
     phase16d_resume(torch, dev, work_dir)
-    phase16e_guard(torch, dev)
+    scan_bwd = phase16g_scan_bwd(torch, dev)
+    rwkv_train = phase16h_rwkv_train(torch, dev)
+    jamba_grads = phase16i_jamba_grads(torch, dev)
     fa_bwd["times"] = phase16f_fa_bwd_timings(torch, dev)
     log(f"[16] phase 16 took {time.perf_counter() - t0:.1f} s")
-    return {"fa_bwd": fa_bwd, "train": train}
+    return {"fa_bwd": fa_bwd, "train": train, "scan_bwd": scan_bwd,
+            "rwkv_train": rwkv_train, "jamba_grads": jamba_grads}
 
 
 # ------------------------------------------------------------- serve slice
@@ -3349,6 +3748,7 @@ def main() -> int:
     report_fa_build(torch, _build, fa_ops)
     report_rwkv_build(_build, rwkv_ops)
     report_ssm_build(torch, _build, ssm_ops)
+    report_scan_bwd_build(_build)
 
     # ---- 2. kernel vs plain on the card -----------------------------------
     wls = {"ttft": gpt3_layer_prefill(), "tpot": gpt3_layer_decode()}
@@ -3611,7 +4011,7 @@ def main() -> int:
     # ---- 15. the moe, vlm and audio families at full width ------------------
     families = phase15_families(torch, dev)
 
-    # ---- 16. training: flash_attention's backward, a full-width step -------
+    # ---- 16. training: the kernels' backward, full-width steps -------------
     training = phase16_training(torch, dev, os.path.join(
         ROOT, "build", "chip_smoke_train"))
 
@@ -3634,17 +4034,21 @@ def main() -> int:
     }]
     lm_times.update({k: v for k, v in jamba.items() if isinstance(k, tuple)})
     jc = jamba["prefill"]["counts"]
+    jg = training["jamba_grads"]["counts"]
     for name, src, replaces, launches in (
             ("flash_attention",
              "src/repro_torch/kernels/flash_attention/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:25",
              pre_llama["counts"]["flash_attention"] + jc["flash_attention"]
-             + families["launches"] + training["train"]["fwd_launches"]),
+             + families["launches"] + training["train"]["fwd_launches"]
+             + jg["flash_attention"]),
             ("rwkv6_scan", "src/repro_torch/kernels/rwkv6_scan/rwkv6_scan.cu",
              "src/repro/kernels/rwkv6_scan/kernel.py:25",
-             pre_rwkv["counts"]["rwkv6_scan"]),
+             pre_rwkv["counts"]["rwkv6_scan"]
+             + training["rwkv_train"]["fwd_launches"]),
             ("ssm_scan", "src/repro_torch/kernels/ssm_scan/ssm_scan.cu",
-             "src/repro/kernels/ssm_scan/kernel.py:24", jc["ssm_scan"])):
+             "src/repro/kernels/ssm_scan/kernel.py:24",
+             jc["ssm_scan"] + jg["ssm_scan"])):
         t32 = lm_times[(name, "float32")]     # the main path runs fp32
         err = max(lm_err[name], t32["max_abs_err"])
         if name == "flash_attention":
@@ -3662,11 +4066,28 @@ def main() -> int:
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:25",
-        "launches": training["train"]["bwd_launches"],
+        "launches": (training["train"]["bwd_launches"]
+                     + jg["flash_attention_bwd"]),
         "max_abs_err": training["fa_bwd"]["max_abs_err"],
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"]})
+    for name, src, replaces, launches, row in (
+            ("rwkv6_scan_bwd",
+             "src/repro_torch/kernels/rwkv6_scan/rwkv6_scan.cu",
+             "src/repro/kernels/rwkv6_scan/kernel.py:25",
+             training["rwkv_train"]["bwd_launches"],
+             training["scan_bwd"]["rwkv6"]),
+            ("ssm_scan_bwd", "src/repro_torch/kernels/ssm_scan/ssm_scan.cu",
+             "src/repro/kernels/ssm_scan/kernel.py:24",
+             training["jamba_grads"]["counts"]["ssm_scan_bwd"],
+             training["scan_bwd"]["ssm"])):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     log(f"[end] total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -11,13 +11,26 @@ Kernels:
   ppa_eval        — batched design-point PPA evaluation (the DSE
                     substrate's hot loop; replaces the Pallas ``ppa_eval``
                     TPU kernel)
-  flash_attention — attention forward with online softmax (the LM stack's
-                    long causal self-attention; replaces the Pallas
-                    ``flash_attention`` TPU kernel)
-  ssm_scan        — the Mamba selective scan from a zero state (the
-                    Mamba block in a forward pass; replaces the Pallas
+  flash_attention — attention with online softmax, forward and backward
+                    (the LM stack's long causal self-attention; replaces
+                    the Pallas ``flash_attention`` TPU kernel)
+  ssm_scan        — the Mamba selective scan from a zero state, forward
+                    and backward (the Mamba block; replaces the Pallas
                     ``ssm_scan`` TPU kernel)
-  rwkv6_scan      — the RWKV6 WKV recurrence from a zero state (the RWKV
-                    time-mix in a forward pass; replaces the Pallas
+  rwkv6_scan      — the RWKV6 WKV recurrence from a zero state, forward
+                    and backward (the RWKV time-mix; replaces the Pallas
                     ``rwkv6_scan`` TPU kernel)
+
+As in the reference's ``repro.kernels``, the package re-exports the four
+wrappers, so ``repro_torch.kernels.flash_attention`` is the function; the
+subpackages stay importable by their full names (``from
+repro_torch.kernels.flash_attention import ops``).  Nothing is built at
+import.
 """
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+from repro_torch.kernels.ssm_scan.ops import ssm_scan
+from repro_torch.kernels.ppa_eval.ops import ppa_eval
+
+__all__ = ["flash_attention", "rwkv6_scan", "ssm_scan", "ppa_eval"]

@@ -1,6 +1,12 @@
-"""RWKV6 WKV recurrence from a zero state (CUDA kernel + plain torch
-version)."""
-from repro_torch.kernels.rwkv6_scan.ops import (rwkv6_scan, rwkv6_scan_cost,
+"""RWKV6 WKV recurrence from a zero state and its gradient (CUDA kernels +
+plain torch versions)."""
+from repro_torch.kernels.rwkv6_scan.ops import (Rwkv6ScanFn, rwkv6_scan,
+                                                rwkv6_scan_bwd,
+                                                rwkv6_scan_bwd_cost,
+                                                rwkv6_scan_bwd_plain,
+                                                rwkv6_scan_cost,
                                                 rwkv6_scan_plain)
 
-__all__ = ["rwkv6_scan", "rwkv6_scan_cost", "rwkv6_scan_plain"]
+__all__ = ["Rwkv6ScanFn", "rwkv6_scan", "rwkv6_scan_bwd",
+           "rwkv6_scan_bwd_cost", "rwkv6_scan_bwd_plain", "rwkv6_scan_cost",
+           "rwkv6_scan_plain"]

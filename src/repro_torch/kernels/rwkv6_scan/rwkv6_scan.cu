@@ -620,6 +620,287 @@ cudaError_t launch_hd(int hd, const void* r, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------- backward
+//
+// (dr, dk, dv, dw, du) of the function above for an output gradient dy,
+// fp32 in and out, from the chunk states wkv_state wrote (S0 of chunk
+// c + 1 in workspace slot c).  Per (batch, head), walking t = T-1 down to
+// 0 with G = dL/dS_out (zero at T) and S_in the state before step t:
+//
+//     Gt_ij  = G_ij + u_i r_t_i dy_t_j              (dL/d(k_t^T v_t))
+//     dr_t_i = sum_j dy_t_j S_in_ij + u_i k_t_i (dy_t . v_t)
+//     dk_t_i = sum_j Gt_ij v_t_j
+//     dv_t_j = sum_i Gt_ij k_t_i
+//     dw_t_i = sum_j G_ij S_in_ij
+//     du_i  += r_t_i k_t_i (dy_t . v_t)
+//     G      = diag(w_t) G + r_t^T dy_t
+//
+// Rows are independent: row i of S and of G reads w, k, r of channel i
+// only (and all of v and dy).  So `wkv_bwd` (grid: hd/16 row tiles x B*H,
+// 256 threads) gives each block 16 rows and each row 16 threads of hd/16
+// columns.  dr, dk, dw and dy.v are sums along a row: a chain of FMAs per
+// thread, then xor shuffles over the row's 16 lanes.  dv is a sum down
+// the rows: a row pair by one shuffle, then the block's 8 pairs in order
+// from shared memory, written as one partial per row tile.  du is summed
+// over t per (b, h, row).  `wkv_bwd_reduce` then sums the row tiles' dv
+// partials and the batch rows' du in a fixed order.  No atomics: two
+// calls agree bit for bit.
+//
+// S_in comes from the saved chunk states: per chunk (last first) and per
+// sub-chunk of SB = 64 / (hd/16) steps (last first), S is stepped forward
+// in fp32 from the chunk's S0 to the sub-chunk's start, then its SB
+// states are kept in registers and the sub-chunk is walked back.  No step
+// is undone by dividing by w (w = 0 and denormal w are inputs).  G is
+// kept as a compensated pair g - e, as wkv_state keeps S: with w = 1 it
+// grows with T.
+//
+// What bounds it: at the rwkv6-7b training shape (B 1, T 4096, H 64, hd
+// 64) the function needs 15.3 GFLOP (0.228 ms at 67 TFLOP/s) and moves
+// 604 MB (0.180 ms at 3.35 TB/s), but this first kernel is a walk of T
+// dependent steps in each block, with the forward recompute on top (2.5
+// steps a step at hd 64): latency, not throughput, holds it (PERF.md §6).
+// Inputs are read straight from global memory (L1/L2), not staged.
+constexpr int BWD_ROWS = 16;                   // rows of S and G a block
+constexpr int BWD_LANES = 16;                  // threads a row
+constexpr int BWD_THREADS = BWD_ROWS * BWD_LANES;
+constexpr int BWD_HIST = 64;                   // S_in values a thread keeps
+constexpr int BWD_PAIRS = BWD_ROWS / 2;
+template <int HD> __host__ __device__ constexpr int bwd_cols() {
+  return HD / BWD_LANES;                       // columns a thread
+}
+template <int HD> __host__ __device__ constexpr int bwd_sub() {
+  return BWD_HIST / bwd_cols<HD>();            // steps a sub-chunk
+}
+
+// x[0 .. N) = p[0 .. N) from global memory, in 16- or 8-byte loads
+template <int N>
+__device__ __forceinline__ void ldg_row(const float* p, float* x) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N; q += 4) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(p + q));
+      x[q] = a.x; x[q + 1] = a.y; x[q + 2] = a.z; x[q + 3] = a.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 a = __ldg(reinterpret_cast<const float2*>(p));
+    x[0] = a.x; x[1] = a.y;
+  } else {
+    x[0] = __ldg(p);
+  }
+}
+
+// the sum over a row's 16 lanes (every lane gets it)
+__device__ __forceinline__ float row_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 8);
+  x += __shfl_xor_sync(0xffffffffu, x, 4);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x;
+}
+
+// Thread (row, lane) owns row i = 16 tile + row of S and G, columns
+// j0 = lane CPT .. + CPT - 1.  dvp: one (B, T, H, hd) partial per row
+// tile; dup: (B, H, hd).
+template <int HD>
+__global__ void __launch_bounds__(BWD_THREADS)
+wkv_bwd(const float* __restrict__ r, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ w,
+        const float* __restrict__ u, const float* __restrict__ dy,
+        const float* __restrict__ ws, float* __restrict__ dr,
+        float* __restrict__ dk, float* __restrict__ dw,
+        float* __restrict__ dvp, float* __restrict__ dup, int t_len, int h,
+        int n_upd) {
+  constexpr int CPT = bwd_cols<HD>(), SB = bwd_sub<HD>(), NSB = C / SB;
+  __shared__ __align__(16) float dvs[SB * BWD_PAIRS * HD];
+
+  const int tile = blockIdx.x, bh = blockIdx.y, b = bh / h, hh = bh % h;
+  const int tid = threadIdx.x, row = tid / BWD_LANES, lane = tid % BWD_LANES;
+  const int i = tile * BWD_ROWS + row, j0 = lane * CPT;
+  const size_t t_stride = static_cast<size_t>(h) * HD;
+  const size_t head = static_cast<size_t>(b) * t_len * t_stride + hh * HD;
+  const size_t plane = static_cast<size_t>(gridDim.y) * t_len * HD;
+  const float ui = u[hh * HD + i];
+
+  // S = diag(w_t) S + k_t^T v_t on this thread's elements
+  auto step = [&](float* s, int t) {
+    const size_t p = head + static_cast<size_t>(t) * t_stride;
+    const float ki = __ldg(k + p + i), wi = __ldg(w + p + i);
+    float vv[CPT];
+    ldg_row<CPT>(v + p + j0, vv);
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) s[c] = fmaf(wi, s[c], ki * vv[c]);
+  };
+
+  float g[CPT], ge[CPT];                       // G = g - ge
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) g[c] = ge[c] = 0.f;
+  float du_acc = 0.f;
+  for (int ch = n_upd; ch >= 0; --ch) {
+    const int t0 = ch * C;
+    for (int m = NSB - 1; m >= 0; --m) {
+      const int ts0 = t0 + m * SB;             // the sub-chunk's first step
+      if (ts0 >= t_len) continue;              // the same for every thread
+      float s[CPT];
+      if (ch > 0) {
+        ldg_row<CPT>(ws + (static_cast<size_t>(bh) * n_upd + ch - 1) * HD
+                     * HD + i * HD + j0, s);
+      } else {
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) s[c] = 0.f;
+      }
+#pragma unroll 4
+      for (int t = t0; t < ts0; ++t) step(s, t);
+      float hist[SB][CPT];                     // S_in of the SB steps
+#pragma unroll
+      for (int q = 0; q < SB; ++q) {
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) hist[q][c] = s[c];
+        if (q + 1 < SB && ts0 + q < t_len) step(s, ts0 + q);
+      }
+
+#pragma unroll
+      for (int q = SB - 1; q >= 0; --q) {
+        const int t = ts0 + q;
+        if (t >= t_len) continue;              // the same for every thread
+        const size_t p = head + static_cast<size_t>(t) * t_stride;
+        const float ri = __ldg(r + p + i), ki = __ldg(k + p + i);
+        const float wi = __ldg(w + p + i);
+        float vv[CPT], dd[CPT], dvv[CPT];
+        ldg_row<CPT>(v + p + j0, vv);
+        ldg_row<CPT>(dy + p + j0, dd);
+        const float uri = ui * ri;
+        float a_dr = 0.f, a_dk = 0.f, a_dw = 0.f, a_dyv = 0.f;
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          const float gv = __fsub_rn(g[c], ge[c]);
+          const float gt = fmaf(uri, dd[c], gv);
+          a_dk = fmaf(gt, vv[c], a_dk);
+          dvv[c] = gt * ki;
+          a_dw = fmaf(gv, hist[q][c], a_dw);
+          a_dr = fmaf(dd[c], hist[q][c], a_dr);
+          a_dyv = fmaf(dd[c], vv[c], a_dyv);
+        }
+        a_dr = row_sum(a_dr);
+        a_dk = row_sum(a_dk);
+        a_dw = row_sum(a_dw);
+        a_dyv = row_sum(a_dyv);
+        if (lane == 0) {
+          dr[p + i] = fmaf(ui * ki, a_dyv, a_dr);
+          dk[p + i] = a_dk;
+          dw[p + i] = a_dw;
+        }
+        du_acc = fmaf(ri * ki, a_dyv, du_acc);
+        // rows 2 w and 2 w + 1 share warp w: one shuffle sums the pair
+#pragma unroll
+        for (int c = 0; c < CPT; ++c)
+          dvv[c] += __shfl_xor_sync(0xffffffffu, dvv[c], 16);
+        if ((row & 1) == 0) {
+#pragma unroll
+          for (int c = 0; c < CPT; ++c)
+            dvs[(q * BWD_PAIRS + row / 2) * HD + j0 + c] = dvv[c];
+        }
+        // G = diag(w) G + r^T dy, compensated: the scaling's exact
+        // rounding error goes into ge (an FMA gives it), then r dy is
+        // added with Kahan's correction; the _rn intrinsics keep the
+        // compiler from fusing
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          const float hi = __fmul_rn(wi, g[c]);
+          ge[c] = fmaf(wi, ge[c], -fmaf(wi, g[c], -hi));
+          g[c] = hi;
+          const float yv = __fsub_rn(__fmul_rn(ri, dd[c]), ge[c]);
+          const float tv = __fadd_rn(g[c], yv);
+          ge[c] = __fsub_rn(__fsub_rn(tv, g[c]), yv);
+          g[c] = tv;
+        }
+      }
+      __syncthreads();
+      // dv of this row tile for the sub-chunk: the 8 row pairs in order
+      for (int idx = tid; idx < SB * HD; idx += BWD_THREADS) {
+        const int q = idx / HD, jj = idx % HD, t = ts0 + q;
+        if (t < t_len) {
+          float sum = 0.f;
+#pragma unroll
+          for (int pp = 0; pp < BWD_PAIRS; ++pp)
+            sum += dvs[(q * BWD_PAIRS + pp) * HD + jj];
+          dvp[tile * plane + head + static_cast<size_t>(t) * t_stride + jj] =
+              sum;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (lane == 0) dup[static_cast<size_t>(bh) * HD + i] = du_acc;
+}
+
+// dv = the row tiles' partials summed in order (n4: plane / 4 float4s a
+// partial); du = the batch rows' partials summed in order (hhd = H hd).
+__global__ void __launch_bounds__(256)
+wkv_bwd_reduce(const float4* __restrict__ dvp, const float* __restrict__ dup,
+               float4* __restrict__ dv, float* __restrict__ du, long long n4,
+               int tiles, int b, int hhd) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x
+                          + threadIdx.x;
+  for (long long q = first; q < n4; q += stride) {
+    float4 s = __ldg(dvp + q);
+    for (int tl = 1; tl < tiles; ++tl) {
+      const float4 x = __ldg(dvp + tl * n4 + q);
+      s.x += x.x; s.y += x.y; s.z += x.z; s.w += x.w;
+    }
+    dv[q] = s;
+  }
+  for (long long q = first; q < hhd; q += stride) {
+    float s = dup[q];
+    for (int bb = 1; bb < b; ++bb) s += dup[static_cast<long long>(bb) * hhd
+                                            + q];
+    du[q] = s;
+  }
+}
+
+template <int HD>
+cudaError_t launch_bwd(const float* r, const float* k, const float* v,
+                       const float* w, const float* u, const float* dy,
+                       const float* states, float* dr, float* dk, float* dv,
+                       float* dw, float* du, float* ws, int b, int t_len,
+                       int h, cudaStream_t stream) {
+  const int n_upd = (t_len + C - 1) / C - 1, tiles = HD / BWD_ROWS;
+  const long long plane = static_cast<long long>(b) * t_len * h * HD;
+  float* dvp = ws;
+  float* dup = ws + tiles * plane;
+  wkv_bwd<HD><<<dim3(tiles, b * h), BWD_THREADS, 0, stream>>>(
+      r, k, v, w, u, dy, states, dr, dk, dw, dvp, dup, t_len, h, n_upd);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long n4 = plane / 4;
+  const long long want = (n4 + 255) / 256;
+  const int blocks = static_cast<int>(want < 4096 ? (want > 0 ? want : 1)
+                                                  : 4096);
+  wkv_bwd_reduce<<<blocks, 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(dvp), dup, reinterpret_cast<float4*>(dv),
+      du, n4, tiles, b, h * HD);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_hd(int hd, const float* r, const float* k,
+                          const float* v, const float* w, const float* u,
+                          const float* dy, const float* states, float* dr,
+                          float* dk, float* dv, float* dw, float* du,
+                          float* ws, int b, int t_len, int h,
+                          cudaStream_t s) {
+  switch (hd) {
+    case 16: return launch_bwd<16>(r, k, v, w, u, dy, states, dr, dk, dv, dw,
+                                   du, ws, b, t_len, h, s);
+    case 32: return launch_bwd<32>(r, k, v, w, u, dy, states, dr, dk, dv, dw,
+                                   du, ws, b, t_len, h, s);
+    case 64: return launch_bwd<64>(r, k, v, w, u, dy, states, dr, dk, dv, dw,
+                                   du, ws, b, t_len, h, s);
+    case 128: return launch_bwd<128>(r, k, v, w, u, dy, states, dr, dk, dv,
+                                     dw, du, ws, b, t_len, h, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -666,6 +947,36 @@ int rwkv6_scan_smem_bytes(int hd, int which) {
     case 128: return 4 * (which ? out_floats<128>() : state_floats<128>());
     default: return -1;
   }
+}
+
+// Floats of the fp32 workspace the backward needs: one (b, t_len, h, hd)
+// dv partial per 16-row tile of the state, and (b, h, hd) du partials.
+long long rwkv6_scan_bwd_workspace_floats(int b, int t_len, int h, int hd) {
+  return static_cast<long long>(hd / BWD_ROWS) * b * t_len * h * hd
+         + static_cast<long long>(b) * h * hd;
+}
+
+// Launches the backward (wkv_bwd, then wkv_bwd_reduce) on `stream` and
+// returns the cudaError_t of the launch (0 on success).  fp32 only.
+// r, k, v, w, dy, dr, dk, dv, dw: (b, t_len, h, hd) contiguous, 16-byte
+// aligned; u, du: (h, hd); states: the forward's workspace (chunk states,
+// rwkv6_scan_workspace_floats floats); ws: fp32 workspace of ws_floats >=
+// rwkv6_scan_bwd_workspace_floats(b, t_len, h, hd) floats.
+int rwkv6_scan_bwd_launch(const void* r, const void* k, const void* v,
+                          const void* w, const void* u, const void* dy,
+                          const void* states, void* dr, void* dk, void* dv,
+                          void* dw, void* du, void* ws, long long ws_floats,
+                          int b, int t_len, int h, int hd, void* stream) {
+  if (b <= 0 || t_len <= 0 || h <= 0 || b * h > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ws_floats < rwkv6_scan_bwd_workspace_floats(b, t_len, h, hd))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto o = [](void* p) { return static_cast<float*>(p); };
+  return static_cast<int>(launch_bwd_hd(
+      hd, f(r), f(k), f(v), f(w), f(u), f(dy), f(states), o(dr), o(dk),
+      o(dv), o(dw), o(du), o(ws), b, t_len, h,
+      static_cast<cudaStream_t>(stream)));
 }
 
 const char* rwkv6_scan_error_string(int code) {

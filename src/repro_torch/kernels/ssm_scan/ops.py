@@ -1,12 +1,17 @@
-"""``ssm_scan``: the Mamba selective scan from a zero state, CUDA kernel +
-plain version.
+"""``ssm_scan``: the Mamba selective scan from a zero state and its
+gradient, CUDA kernels + plain versions.
 
 :func:`ssm_scan` is the wrapper the model's Mamba block calls in a forward
 pass (no carried state).  On a CUDA tensor it launches the hand-written
 kernel in ``ssm_scan.cu`` (built with nvcc at first use) on the current
 stream and counts the launch in ``ssm_scan.launches``; on a CPU tensor it
-runs :func:`ssm_scan_plain`, the same recurrence in torch ops.  There is no
-fallback between the two: a CUDA tensor either launches the kernel or
+runs :func:`ssm_scan_plain`, the same recurrence in torch ops.  When a
+gradient is wanted (grad mode on and an input that requires grad) the
+call goes through :class:`SsmScanFn`, whose backward is
+:func:`ssm_scan_bwd`: the backward kernels of the same source on a CUDA
+tensor (counted in ``ssm_scan_bwd.launches``; fp32 only) and
+:func:`ssm_scan_bwd_plain` on a CPU tensor.  There is no fallback between
+kernel and plain version: a CUDA tensor either launches the kernel or
 raises.
 
 Like the TPU kernel it starts from a zero state, returns no state and
@@ -16,7 +21,12 @@ decode step; ``models.ssm._selective_scan`` does.
 Replaces the TPU Pallas kernel ``_ssm_kernel`` / ``ssm_scan_fwd`` in
 ``src/repro/kernels/ssm_scan/kernel.py`` without its block-divisibility
 limits (any T and D); see the note at the top of ``ssm_scan.cu`` for what
-bounds it on an H100 and how its design meets it.
+bounds it on an H100 and how its design meets it.  The reference has no
+backward kernel: JAX differentiates the ``lax.scan`` of its oracle.  The
+backward here saves nothing in the forward (whose no-grad launch stays as
+it is): a state pass of its own writes h every :data:`BWD_CHUNK` steps,
+then a reverse pass recomputes each chunk's states from those (the note
+above ``ssm_bwd`` in the source).
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ import ctypes
 from pathlib import Path
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels._build import TOLERANCE_FLAGS, load_library
 
@@ -32,6 +43,13 @@ FLAGS = TOLERANCE_FLAGS
 STATE_DIMS = (4, 8, 16, 32, 64)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}     # the kernel's
 PLAIN_DTYPES = (*DTYPES, torch.float64)            # the plain version's
+# ssm_scan.cu's BWD_C: steps between the states the backward's state pass
+# writes (the plain backward keeps the same checkpoints)
+BWD_CHUNK = 64
+# the backward takes fp32 only; a bf16 backward is queued (ROADMAP.md §2)
+BWD_DTYPE_MSG = ("ssm_scan: the backward kernel takes float32 (the model "
+                 "upcasts before the scan); a bf16 backward is not written "
+                 "yet (ROADMAP.md §2, 'A bf16 backward for the two scans')")
 
 
 def _check(u, dt, a, b, c) -> None:
@@ -70,23 +88,29 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dtype.
 
     A CUDA tensor launches the kernel (counted in ``ssm_scan.launches``);
-    a CPU tensor runs :func:`ssm_scan_plain`, which also takes float64
-    and keeps autograd.  The kernel has no backward yet: on a CUDA tensor
-    a call that would need one (grad mode on and an input that requires
-    grad) raises ``NotImplementedError`` rather than return an output cut
-    from the graph.
+    a CPU tensor runs :func:`ssm_scan_plain`, which also takes float64.
+    With grad mode on and an input that requires grad, the call is
+    differentiable through :class:`SsmScanFn` (on a CUDA tensor in fp32
+    only: another dtype raises ``TypeError``).
     """
     _check(u, dt, a, b, c)
+    if torch.is_grad_enabled() and any(x.requires_grad
+                                       for x in (u, dt, a, b, c)):
+        if u.device.type == "cuda" and u.dtype != torch.float32:
+            raise TypeError(f"{BWD_DTYPE_MSG}; got {u.dtype}")
+        return SsmScanFn.apply(u, dt, a, b, c)
+    return _forward(u, dt, a, b, c)
+
+
+ssm_scan.launches = 0
+
+
+def _forward(u, dt, a, b, c) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if u.device.type == "cpu":
         return ssm_scan_plain(u, dt, a, b, c)
     if u.device.type != "cuda":
         raise ValueError(f"ssm_scan: unsupported device {u.device}")
-    if torch.is_grad_enabled() and any(x.requires_grad
-                                       for x in (u, dt, a, b, c)):
-        raise NotImplementedError(
-            "ssm_scan: the CUDA kernel has no backward yet, so the hybrid "
-            "family cannot train on the card (ROADMAP.md §1, 'ssm_scan "
-            "backward kernel'); run the forward under torch.no_grad()")
     if u.dtype not in DTYPES:
         raise TypeError(f"ssm_scan: the kernel takes {list(DTYPES)}, got "
                         f"{u.dtype}")
@@ -97,7 +121,70 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y
 
 
-ssm_scan.launches = 0
+class SsmScanFn(torch.autograd.Function):
+    """ssm_scan with a gradient: the forward keeps its inputs (the
+    backward recomputes the states); the backward is
+    :func:`ssm_scan_bwd`."""
+
+    @staticmethod
+    def forward(ctx, u, dt, a, b, c):
+        ctx.save_for_backward(u, dt, a, b, c)
+        return _forward(u, dt, a, b, c)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        u, dt, a, b, c = ctx.saved_tensors
+        du, ddt, da, db, dc = ssm_scan_bwd(u, dt, a, b, c, dy.contiguous())
+        return du, ddt, da.to(a.dtype), db, dc
+
+
+def ssm_scan_bwd(u, dt, a, b, c, dy):
+    """(du, ddt, da, db, dc) of ssm_scan for the output gradient `dy` (u's
+    shape and dtype): du, ddt, db, dc in u's dtype, da (D, N).
+
+    A CUDA tensor launches the backward kernels (a state pass, the reverse
+    pass and a fixed-order reduction; counted once in
+    ``ssm_scan_bwd.launches``; fp32 only); a CPU tensor runs
+    :func:`ssm_scan_bwd_plain`."""
+    _check(u, dt, a, b, c)
+    if dy.shape != u.shape or dy.dtype != u.dtype or dy.device != u.device:
+        raise ValueError(f"ssm_scan_bwd: dy must be u's {tuple(u.shape)} "
+                         f"{u.dtype} on {u.device}; got {tuple(dy.shape)} "
+                         f"{dy.dtype} on {dy.device}")
+    if not dy.is_contiguous():
+        raise ValueError("ssm_scan_bwd: dy must be contiguous")
+    if u.device.type == "cpu":
+        return ssm_scan_bwd_plain(u, dt, a, b, c, dy)
+    if u.device.type != "cuda":
+        raise ValueError(f"ssm_scan_bwd: unsupported device {u.device}")
+    if u.dtype != torch.float32:
+        raise TypeError(f"{BWD_DTYPE_MSG}; got {u.dtype}")
+    bsz, t, d = u.shape
+    n = a.shape[1]
+    if bsz > 65535:
+        raise ValueError(f"ssm_scan_bwd: B = {bsz} exceeds the grid")
+    lib = _library()
+    du, ddt = torch.empty_like(u), torch.empty_like(u)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    da = torch.empty_like(a)
+    ws = torch.empty(lib.ssm_scan_bwd_workspace_floats(bsz, t, d, n),
+                     dtype=torch.float32, device=u.device)
+    with torch.cuda.device(u.device):     # the launch uses the current device
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ssm_scan_bwd_launch(
+            u.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), dy.data_ptr(), du.data_ptr(), ddt.data_ptr(),
+            da.data_ptr(), db.data_ptr(), dc.data_ptr(), ws.data_ptr(),
+            ws.numel(), bsz, t, d, n, stream)
+    if err:
+        raise RuntimeError("ssm_scan backward launch failed: "
+                           + lib.ssm_scan_error_string(err).decode())
+    ssm_scan_bwd.launches += 1
+    return du, ddt, da, db, dc
+
+
+ssm_scan_bwd.launches = 0
 
 
 def _launch(lib: ctypes.CDLL, u, dt, a, b, c) -> torch.Tensor:
@@ -122,6 +209,11 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ssm_scan_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.ssm_scan_launch.restype = i
+        lib.ssm_scan_bwd_launch.argtypes = [p] * 12 + [
+            ctypes.c_longlong, i, i, i, i, p]
+        lib.ssm_scan_bwd_launch.restype = i
+        lib.ssm_scan_bwd_workspace_floats.argtypes = [i, i, i, i]
+        lib.ssm_scan_bwd_workspace_floats.restype = ctypes.c_longlong
         lib.ssm_scan_smem_bytes.argtypes = [i, i]
         lib.ssm_scan_smem_bytes.restype = i
         lib.ssm_scan_error_string.argtypes = [i]
@@ -164,4 +256,78 @@ def ssm_scan_cost(b: int, t: int, d: int, n: int, itemsize: int):
     y written once."""
     ops = b * t * d * (6 * n + 1)
     nbytes = (3 * b * t * d + 2 * b * t * n) * itemsize + d * n * 4
+    return ops, nbytes, b * t * d * n
+
+
+def ssm_scan_bwd_plain(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor):
+    """The backward's reverse recurrence in torch ops, on any device, with
+    no autograd: (du, ddt, db, dc in u's dtype, da (D, N)), in fp32
+    (float64 for float64 inputs, da too).
+
+    h is stepped forward from zero once, keeping it every
+    :data:`BWD_CHUNK` steps, and recomputed forward per chunk (never
+    recovered by dividing by the decay); then, per step from the last, with
+    G = dL/dh_t: G += dy_t C_t; dC_t = sum_d dy_t h_t; dB_t = sum_d G dt_t
+    u_t; du_t = dt_t G.B_t; ddt_t = sum_n G (A e_t h_{t-1} + B_t u_t); dA
+    += G dt_t e_t h_{t-1}; G = e_t G, with e_t = exp(dt_t A)."""
+    _check(u, dt, a, b, c)
+    if dy.shape != u.shape:
+        raise ValueError(f"ssm_scan_bwd_plain: dy must be {tuple(u.shape)}, "
+                         f"got {tuple(dy.shape)}")
+    bsz, t, d = u.shape
+    cdt = torch.promote_types(u.dtype, torch.float32)
+    uf, dtf, bf, cf, df = (x.to(cdt) for x in (u, dt, b, c, dy))
+    af = a.to(cdt)
+
+    def step(h, i):
+        e = torch.exp(dtf[:, i, :, None] * af)
+        return e * h + dtf[:, i, :, None] * bf[:, i, None, :] \
+            * uf[:, i, :, None]
+
+    starts = []
+    h = torch.zeros((bsz, d, a.shape[1]), dtype=cdt, device=u.device)
+    for t0 in range(0, t, BWD_CHUNK):
+        starts.append(h)
+        for i in range(t0, min(t0 + BWD_CHUNK, t)):
+            h = step(h, i)
+    g = torch.zeros_like(h)
+    du, ddt = torch.empty_like(uf), torch.empty_like(uf)
+    db, dc = torch.empty_like(bf), torch.empty_like(cf)
+    da = torch.zeros_like(af)
+    for ci in range(len(starts) - 1, -1, -1):
+        t0, t1 = ci * BWD_CHUNK, min((ci + 1) * BWD_CHUNK, t)
+        hist = [starts[ci]]
+        for i in range(t0, t1):
+            hist.append(step(hist[-1], i))
+        for i in range(t1 - 1, t0 - 1, -1):
+            hp, hc = hist[i - t0], hist[i - t0 + 1]
+            dti, ui, bi = dtf[:, i], uf[:, i], bf[:, i]
+            g = g + df[:, i, :, None] * cf[:, i, None, :]
+            dc[:, i] = torch.einsum("bd,bdn->bn", df[:, i], hc)
+            db[:, i] = torch.einsum("bdn,bd->bn", g, dti * ui)
+            du[:, i] = dti * torch.einsum("bdn,bn->bd", g, bi)
+            e = torch.exp(dti[..., None] * af)
+            x = e * hp
+            ddt[:, i] = (g * (af * x + bi[:, None, :] * ui[..., None])).sum(-1)
+            da += (g * dti[..., None] * x).sum(0)
+            g = e * g
+    return (du.to(u.dtype), ddt.to(u.dtype), da, db.to(u.dtype),
+            dc.to(u.dtype))
+
+
+def ssm_scan_bwd_cost(b: int, t: int, d: int, n: int, itemsize: int):
+    """(operations, bytes, exps) the backward needs.  Per step, channel and
+    state element: 4 operations to step h forward (``dt*A``, ``B*(dt*u)``
+    and the decay's multiply-add) and 18 for the gradient: G += dy C (2);
+    the terms and sums of dC (``dy h``: 2), dB (``G dt u``: 2) and G.B
+    (2); ddt's ``e h``, ``A (e h)``, ``B u``, their add, the product with
+    G and its sum (6); dA's ``G dt``, its product with ``e h`` and the
+    accumulation (3); G = e G (1).  Per channel ``dt*u`` and du's
+    ``dt*``: 2.  The exp counted apart, once per element (the SFU's
+    work), as :func:`ssm_scan_cost` counts it.  u, dt, dy, b, c and a read
+    once; du, ddt, db, dc and da written once."""
+    ops = b * t * d * (22 * n + 2)
+    nbytes = ((5 * b * t * d + 4 * b * t * n) * itemsize
+              + 2 * d * n * 4)
     return ops, nbytes, b * t * d * n

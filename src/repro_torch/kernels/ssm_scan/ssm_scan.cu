@@ -495,6 +495,341 @@ template <typename T> int smem_bytes(int n) {
   }
 }
 
+// ---------------------------------------------------------------- backward
+//
+// (du, ddt, dA, dB, dC) of the function above for an output gradient dy,
+// fp32 in and out.  Per lane (b, d), walking t = T-1 down to 0 with G =
+// dL/dh_t and e_t = exp(dt_t A_d) (the accurate expf, as the forward):
+//
+//     G    += dy_t C_t
+//     dC_t += dy_t h_t                 (summed over d)
+//     dB_t += G dt_t u_t               (summed over d)
+//     du_t  = dt_t G . B_t
+//     ddt_t = sum_n G (A e_t h_{t-1} + B_t u_t)
+//     dA   += G dt_t e_t h_{t-1}       (summed over b and t)
+//     G     = e_t G
+//
+// Three launches.  `ssm_bwd_state` steps h forward as the forward does
+// and writes it after every BWD_C = 64 steps ((B, ceil(T/64) - 1, D, N)
+// fp32, 67 MB at the jamba shape): the forward's no-grad launch stays as
+// it is, and the backward pays one more read of u, dt, B and T*D*N exps.
+// `ssm_bwd` walks each lane's chunks from the last: from the chunk's
+// saved h it steps forward once, keeping each sub-chunk's first state (8
+// sub-chunks of BWD_SB = 8 steps) in shared memory, then per sub-chunk
+// (last first) recomputes its 8 states into registers and walks them
+// back.  h_{t-1} is never recovered by dividing by e_t (e_t is near 0 or
+// near 1 in the model's and the long-memory regimes).  A thread keeps 4
+// states of one channel (N / 4 lanes a channel, 128 / (N / 4) channels a
+// block); du and ddt are summed over a channel's lanes by xor shuffles;
+// each step's dB and dC terms go to shared memory and the block sums its
+// channels in order once per sub-chunk into one partial per block; dA is
+// summed over t in registers into one partial per batch row.
+// `ssm_bwd_reduce` sums the blocks' dB and dC partials and the batch
+// rows' dA in a fixed order.  No atomics: two calls agree bit for bit.
+//
+// What bounds it: at the jamba shape (B 1, T 4096, D 16384, N 16) the
+// function moves 1.345 GB (0.402 ms at 3.35 TB/s) and needs 23.8 GFLOP and
+// 1.07 G exps; this first kernel takes each exp four times (the state
+// pass, the chunk walk, the sub-chunk's states, the reverse step) and
+// reads its inputs straight from global memory (PERF.md §6).
+constexpr int BWD_NT = 128;          // threads a block
+constexpr int BWD_SPT = 4;           // states a lane
+constexpr int BWD_C = 64;            // steps between saved states
+constexpr int BWD_SB = 8;            // steps a sub-chunk
+constexpr int BWD_NSB = BWD_C / BWD_SB;
+
+template <int N> struct BwdShape {
+  static constexpr int G = N / BWD_SPT;      // lanes a channel
+  static constexpr int CB = BWD_NT / G;      // channels a block
+  // dB and dC terms (BWD_SB x CB x N each), then the sub-chunks' first
+  // states (BWD_NSB x BWD_NT x BWD_SPT)
+  static constexpr int SMEM_FLOATS =
+      2 * BWD_SB * CB * N + BWD_NSB * BWD_NT * BWD_SPT;
+  static_assert(N % BWD_SPT == 0 && G <= 32, "unsupported N");
+};
+
+// one forward step of a lane's BWD_SPT states
+__device__ __forceinline__ void bwd_step(float* h, const float* av, float dtv,
+                                         float uv, const float* bv) {
+  const float du = dtv * uv;
+#pragma unroll
+  for (int j = 0; j < BWD_SPT; ++j)
+    h[j] = fmaf(expf(dtv * av[j]), h[j], bv[j] * du);
+}
+
+// h after every full chunk but the last: hs (B, n_ck, D, N).
+template <int N>
+__global__ void __launch_bounds__(BWD_NT)
+ssm_bwd_state(const float* __restrict__ u, const float* __restrict__ dt,
+              const float* __restrict__ a, const float* __restrict__ bm,
+              float* __restrict__ hs, int t_len, int d, int n_ck) {
+  using S = BwdShape<N>;
+  const int cl = threadIdx.x / S::G, g = threadIdx.x % S::G;
+  const int dd = blockIdx.x * S::CB + cl;
+  if (dd >= d) return;                       // no shuffles, no barriers
+  const size_t row0 = static_cast<size_t>(blockIdx.y) * t_len;
+  float av[BWD_SPT], h[BWD_SPT];
+#pragma unroll
+  for (int j = 0; j < BWD_SPT; ++j) {
+    av[j] = a[static_cast<size_t>(dd) * N + g * BWD_SPT + j];
+    h[j] = 0.f;
+  }
+  for (int c = 0; c < n_ck; ++c) {
+#pragma unroll 8
+    for (int q = 0; q < BWD_C; ++q) {
+      const size_t p = row0 + c * BWD_C + q;
+      float bv[BWD_SPT];
+#pragma unroll
+      for (int j = 0; j < BWD_SPT; ++j)
+        bv[j] = __ldg(bm + p * N + g * BWD_SPT + j);
+      bwd_step(h, av, __ldg(dt + p * d + dd), __ldg(u + p * d + dd), bv);
+    }
+    float* out = hs + ((static_cast<size_t>(blockIdx.y) * n_ck + c) * d + dd)
+                 * N + g * BWD_SPT;
+#pragma unroll
+    for (int j = 0; j < BWD_SPT; ++j) out[j] = h[j];
+  }
+}
+
+// dbp, dcp: one (B, T, N) partial per block of channels (blockIdx.x);
+// dap: one (D, N) partial per batch row.
+template <int N>
+__global__ void __launch_bounds__(BWD_NT)
+ssm_bwd(const float* __restrict__ u, const float* __restrict__ dt,
+        const float* __restrict__ a, const float* __restrict__ bm,
+        const float* __restrict__ cm, const float* __restrict__ dy,
+        const float* __restrict__ hs, float* __restrict__ du_o,
+        float* __restrict__ ddt_o, float* __restrict__ dbp,
+        float* __restrict__ dcp, float* __restrict__ dap, int t_len, int d,
+        int n_ck) {
+  using S = BwdShape<N>;
+  constexpr int G = S::G, CB = S::CB, SB = BWD_SB;
+  extern __shared__ float4 smem4[];
+  float* tb = reinterpret_cast<float*>(smem4);   // dB terms [SB][CB][N]
+  float* tc = tb + SB * CB * N;                   // dC terms
+  float* st = tc + SB * CB * N;                   // [NSB][NT][SPT]
+
+  const int tid = threadIdx.x, cl = tid / G, g = tid % G;
+  const int dd = blockIdx.x * CB + cl;
+  const bool on = dd < d;                          // a channel past D: zeros
+  const size_t row0 = static_cast<size_t>(blockIdx.y) * t_len;
+  const size_t plane = static_cast<size_t>(gridDim.y) * t_len * N;
+  float av[BWD_SPT], gr[BWD_SPT], da[BWD_SPT];
+#pragma unroll
+  for (int j = 0; j < BWD_SPT; ++j) {
+    av[j] = on ? a[static_cast<size_t>(dd) * N + g * BWD_SPT + j] : 0.f;
+    gr[j] = da[j] = 0.f;
+  }
+  auto load = [&](const float* x, size_t p) {
+    return on ? __ldg(x + p * d + dd) : 0.f;
+  };
+  auto load_bc = [&](const float* x, size_t p, float* out) {
+#pragma unroll
+    for (int j = 0; j < BWD_SPT; ++j)
+      out[j] = __ldg(x + p * N + g * BWD_SPT + j);
+  };
+
+  for (int ch = n_ck; ch >= 0; --ch) {
+    const int t0 = ch * BWD_C;
+    float h[BWD_SPT];
+#pragma unroll
+    for (int j = 0; j < BWD_SPT; ++j)
+      h[j] = ch > 0 && on
+                 ? hs[((static_cast<size_t>(blockIdx.y) * n_ck + ch - 1) * d
+                       + dd) * N + g * BWD_SPT + j]
+                 : 0.f;
+    // each sub-chunk's first state, stepping forward through the chunk
+    for (int m = 0; m < BWD_NSB; ++m) {
+      *reinterpret_cast<float4*>(st + (m * BWD_NT + tid) * BWD_SPT) =
+          make_float4(h[0], h[1], h[2], h[3]);
+      if (m + 1 < BWD_NSB) {
+#pragma unroll
+        for (int q = 0; q < SB; ++q) {
+          const int t = t0 + m * SB + q;
+          if (t < t_len) {
+            float bv[BWD_SPT];
+            load_bc(bm, row0 + t, bv);
+            bwd_step(h, av, load(dt, row0 + t), load(u, row0 + t), bv);
+          }
+        }
+      }
+    }
+    for (int m = BWD_NSB - 1; m >= 0; --m) {
+      const int ts0 = t0 + m * SB;
+      if (ts0 >= t_len) continue;               // the same for every thread
+      float hist[SB + 1][BWD_SPT];              // h_{ts0 - 1} .. h_{ts0 + SB - 1}
+      {
+        const float4 x = *reinterpret_cast<const float4*>(
+            st + (m * BWD_NT + tid) * BWD_SPT);
+        hist[0][0] = x.x; hist[0][1] = x.y; hist[0][2] = x.z; hist[0][3] = x.w;
+      }
+#pragma unroll
+      for (int q = 0; q < SB; ++q) {
+#pragma unroll
+        for (int j = 0; j < BWD_SPT; ++j) hist[q + 1][j] = hist[q][j];
+        const int t = ts0 + q;
+        if (t < t_len) {
+          float bv[BWD_SPT];
+          load_bc(bm, row0 + t, bv);
+          bwd_step(hist[q + 1], av, load(dt, row0 + t), load(u, row0 + t),
+                   bv);
+        }
+      }
+#pragma unroll
+      for (int q = SB - 1; q >= 0; --q) {
+        const int t = ts0 + q;
+        if (t >= t_len) continue;               // the same for every thread
+        const size_t p = row0 + t;
+        const float dtv = load(dt, p), uv = load(u, p), dyv = load(dy, p);
+        float bv[BWD_SPT], cv[BWD_SPT], xb[BWD_SPT], xc[BWD_SPT];
+        load_bc(bm, p, bv);
+        load_bc(cm, p, cv);
+        const float dtu = dtv * uv;
+        float acc_du = 0.f, acc_ddt = 0.f;
+#pragma unroll
+        for (int j = 0; j < BWD_SPT; ++j) {
+          gr[j] = fmaf(dyv, cv[j], gr[j]);
+          xc[j] = dyv * hist[q + 1][j];
+          xb[j] = gr[j] * dtu;
+          acc_du = fmaf(gr[j], bv[j], acc_du);
+          const float e = expf(dtv * av[j]);
+          const float x = e * hist[q][j];
+          acc_ddt = fmaf(gr[j], fmaf(av[j], x, bv[j] * uv), acc_ddt);
+          da[j] = fmaf(gr[j] * dtv, x, da[j]);
+          gr[j] = e * gr[j];
+        }
+#pragma unroll
+        for (int off = 1; off < G; off <<= 1) {
+          acc_du += __shfl_xor_sync(0xffffffffu, acc_du, off);
+          acc_ddt += __shfl_xor_sync(0xffffffffu, acc_ddt, off);
+        }
+        if (on && g == 0) {
+          du_o[p * d + dd] = dtv * acc_du;
+          ddt_o[p * d + dd] = acc_ddt;
+        }
+        const int o = (q * CB + cl) * N + g * BWD_SPT;
+        *reinterpret_cast<float4*>(tb + o) =
+            make_float4(xb[0], xb[1], xb[2], xb[3]);
+        *reinterpret_cast<float4*>(tc + o) =
+            make_float4(xc[0], xc[1], xc[2], xc[3]);
+      }
+      __syncthreads();
+      // dB and dC of the sub-chunk: the block's channels summed in order
+      for (int idx = tid; idx < 2 * SB * N; idx += BWD_NT) {
+        const int which = idx / (SB * N), q = idx % (SB * N) / N,
+                  n = idx % N, t = ts0 + q;
+        if (t < t_len) {
+          const float* src = (which ? tc : tb) + q * CB * N + n;
+          float sum = 0.f;
+          for (int c2 = 0; c2 < CB; ++c2) sum += src[c2 * N];
+          (which ? dcp : dbp)[blockIdx.x * plane + (row0 + t) * N + n] = sum;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (on) {
+#pragma unroll
+    for (int j = 0; j < BWD_SPT; ++j)
+      dap[(static_cast<size_t>(blockIdx.y) * d + dd) * N + g * BWD_SPT + j] =
+          da[j];
+  }
+}
+
+// dB, dC: the blocks' partials (plane floats each) summed in order; dA:
+// the batch rows' partials (dn floats each) summed in order.
+__global__ void __launch_bounds__(256)
+ssm_bwd_reduce(const float* __restrict__ dbp, const float* __restrict__ dcp,
+               const float* __restrict__ dap, float* __restrict__ db,
+               float* __restrict__ dc, float* __restrict__ da, long long plane,
+               int nblk, int b, long long dn) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x
+                          + threadIdx.x;
+  for (long long q = first; q < 2 * plane; q += stride) {
+    const bool is_c = q >= plane;
+    const float* src = (is_c ? dcp : dbp) + (is_c ? q - plane : q);
+    float s = __ldg(src);
+    for (int k = 1; k < nblk; ++k) s += __ldg(src + k * plane);
+    (is_c ? dc : db)[is_c ? q - plane : q] = s;
+  }
+  for (long long q = first; q < dn; q += stride) {
+    float s = dap[q];
+    for (int bb = 1; bb < b; ++bb) s += dap[bb * dn + q];
+    da[q] = s;
+  }
+}
+
+template <int N>
+cudaError_t launch_bwd(const float* u, const float* dt, const float* a,
+                       const float* bm, const float* cm, const float* dy,
+                       float* du, float* ddt, float* da, float* db, float* dc,
+                       float* ws, int b, int t_len, int d,
+                       cudaStream_t stream) {
+  using S = BwdShape<N>;
+  const int n_ck = (t_len + BWD_C - 1) / BWD_C - 1;
+  const int nblk = (d + S::CB - 1) / S::CB;
+  const long long plane = static_cast<long long>(b) * t_len * N;
+  float* hs = ws;
+  float* dbp = hs + static_cast<long long>(b) * n_ck * d * N;
+  float* dcp = dbp + nblk * plane;
+  float* dap = dcp + nblk * plane;
+  const dim3 grid(nblk, b);
+  cudaError_t err;
+  if (n_ck > 0) {
+    ssm_bwd_state<N><<<grid, BWD_NT, 0, stream>>>(u, dt, a, bm, hs, t_len, d,
+                                                  n_ck);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int bytes = S::SMEM_FLOATS * 4;
+  err = cudaFuncSetAttribute(ssm_bwd<N>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return err;
+  ssm_bwd<N><<<grid, BWD_NT, bytes, stream>>>(
+      u, dt, a, bm, cm, dy, hs, du, ddt, dbp, dcp, dap, t_len, d, n_ck);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long want = (2 * plane + 255) / 256;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  ssm_bwd_reduce<<<blocks, 256, 0, stream>>>(
+      dbp, dcp, dap, db, dc, da, plane, nblk, b,
+      static_cast<long long>(d) * N);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_n(int n, const float* u, const float* dt,
+                         const float* a, const float* bm, const float* cm,
+                         const float* dy, float* du, float* ddt, float* da,
+                         float* db, float* dc, float* ws, int b, int t_len,
+                         int d, cudaStream_t s) {
+  switch (n) {
+    case 4: return launch_bwd<4>(u, dt, a, bm, cm, dy, du, ddt, da, db, dc,
+                                 ws, b, t_len, d, s);
+    case 8: return launch_bwd<8>(u, dt, a, bm, cm, dy, du, ddt, da, db, dc,
+                                 ws, b, t_len, d, s);
+    case 16: return launch_bwd<16>(u, dt, a, bm, cm, dy, du, ddt, da, db, dc,
+                                   ws, b, t_len, d, s);
+    case 32: return launch_bwd<32>(u, dt, a, bm, cm, dy, du, ddt, da, db, dc,
+                                   ws, b, t_len, d, s);
+    case 64: return launch_bwd<64>(u, dt, a, bm, cm, dy, du, ddt, da, db, dc,
+                                   ws, b, t_len, d, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+long long bwd_partial_blocks(int d, int n) {
+  switch (n) {
+    case 4: return (d + BwdShape<4>::CB - 1) / BwdShape<4>::CB;
+    case 8: return (d + BwdShape<8>::CB - 1) / BwdShape<8>::CB;
+    case 16: return (d + BwdShape<16>::CB - 1) / BwdShape<16>::CB;
+    case 32: return (d + BwdShape<32>::CB - 1) / BwdShape<32>::CB;
+    case 64: return (d + BwdShape<64>::CB - 1) / BwdShape<64>::CB;
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -523,6 +858,40 @@ int ssm_scan_launch(const void* u, const void* dt, const void* a,
 // (0 fp32, 1 bf16); -1 if n is not built.
 int ssm_scan_smem_bytes(int n, int dtype) {
   return dtype == 0 ? smem_bytes<float>(n) : smem_bytes<__nv_bfloat16>(n);
+}
+
+// Floats of the fp32 workspace the backward needs: h every BWD_C steps
+// (b, ceil(t_len / BWD_C) - 1, d, n); a (b, t_len, n) dB and a dC partial
+// per block of channels; a (d, n) dA partial per batch row.  -1 if n is
+// not built.
+long long ssm_scan_bwd_workspace_floats(int b, int t_len, int d, int n) {
+  const long long nblk = bwd_partial_blocks(d, n);
+  if (nblk < 0) return -1;
+  const long long n_ck = (t_len + BWD_C - 1) / BWD_C - 1;
+  return static_cast<long long>(b) * n_ck * d * n
+         + 2 * nblk * b * t_len * n + static_cast<long long>(b) * d * n;
+}
+
+// Launches the backward (ssm_bwd_state, ssm_bwd, ssm_bwd_reduce) on
+// `stream` and returns the cudaError_t of the launch (0 on success).
+// fp32 only.  u, dt, dy, du, ddt: (b, t_len, d) contiguous; a, da: (d, n);
+// bm, cm, db, dc: (b, t_len, n); ws: fp32 workspace of ws_floats >=
+// ssm_scan_bwd_workspace_floats(b, t_len, d, n) floats, 16-byte aligned.
+int ssm_scan_bwd_launch(const void* u, const void* dt, const void* a,
+                        const void* bm, const void* cm, const void* dy,
+                        void* du, void* ddt, void* da, void* db, void* dc,
+                        void* ws, long long ws_floats, int b, int t_len,
+                        int d, int n, void* stream) {
+  if (b <= 0 || b > 65535 || t_len <= 0 || d <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long need = ssm_scan_bwd_workspace_floats(b, t_len, d, n);
+  if (need < 0 || ws_floats < need)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto o = [](void* p) { return static_cast<float*>(p); };
+  return static_cast<int>(launch_bwd_n(
+      n, f(u), f(dt), f(a), f(bm), f(cm), f(dy), o(du), o(ddt), o(da),
+      o(db), o(dc), o(ws), b, t_len, d, static_cast<cudaStream_t>(stream)));
 }
 
 const char* ssm_scan_error_string(int code) {

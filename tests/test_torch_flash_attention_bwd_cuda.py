@@ -1,5 +1,5 @@
 """flash_attention's backward kernel (and the forward's log-sum-exp) on
-the card, against the plain versions; the scans' grad-mode guard.
+the card, against the plain versions; the scans' bf16 grad guard.
 
 Needs an NVIDIA GPU with nvcc (the kernels are built at first use);
 skipped elsewhere.  On the card: ``python -m pytest -q -m cuda
@@ -171,18 +171,40 @@ def test_model_train_step_runs_the_kernels(cuda):
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b"])
 def test_scan_kernels_refuse_grad_mode(cuda, arch):
-    """rwkv6_scan and ssm_scan have no backward kernel yet: a loss that
-    would need one raises, and never returns a detached output; under
-    no_grad the forward runs."""
+    """The scans' backward kernels take fp32 only: a scan whose bf16 inputs
+    require grad raises TypeError naming the queued bf16 backward, and
+    never returns a detached output or takes the plain version; under
+    no_grad the bf16 forward runs.  The model upcasts before its scan, so
+    its fp32 loss trains through the kernels (the scans' own card tests
+    count those launches)."""
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.kernels.ssm_scan import ssm_scan
     from repro_torch.models import build_model
     cfg = get_arch(arch).smoke()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    bf = dict(device=cuda, dtype=torch.bfloat16)
+    if arch == "rwkv6-7b":
+        h, hd = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
+        xs = [torch.rand((1, 65, h, hd), generator=g, **bf)
+              .requires_grad_(True) for _ in range(4)]
+        u = torch.randn((h, hd), generator=g, device=cuda)
+        call = lambda: rwkv6_scan(*xs, u)           # noqa: E731
+    else:
+        d, n = 2 * cfg.d_model, cfg.d_state
+        u, dt = (torch.rand((1, 65, d), generator=g, **bf)
+                 .requires_grad_(True) for _ in range(2))
+        a = -torch.rand((d, n), generator=g, device=cuda)
+        b, c = (torch.randn((1, 65, n), generator=g, **bf) for _ in range(2))
+        call = lambda: ssm_scan(u, dt, a, b, c)     # noqa: E731
+    with pytest.raises(TypeError, match="bf16 backward"):
+        call()
+    with torch.no_grad():
+        assert call().dtype == torch.bfloat16
     m = build_model(cfg, dtype=torch.float32, device=cuda)
     m.init_weights(torch.Generator(device=cuda).manual_seed(0))
     m.requires_grad_(True)
     toks = torch.randint(0, cfg.vocab, (1, 65), device=cuda)
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    with pytest.raises(NotImplementedError, match="no backward"):
-        m.loss(batch).backward()
-    with torch.no_grad():
-        assert torch.isfinite(m.loss(batch))
+    loss = m.loss({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    loss.backward()
+    assert torch.isfinite(loss)

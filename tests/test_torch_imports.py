@@ -172,3 +172,25 @@ def test_kernel_libraries_are_keyed_by_their_own_flags():
              for f in (_build.NVCC_FLAGS, _build.TOLERANCE_FLAGS)}
     assert len(paths) == 6
     assert all(p.parent == _build.BUILD_DIR for p in paths)
+
+
+def test_kernels_package_reexports_the_reference_functions():
+    """As ``repro.kernels`` does, ``repro_torch.kernels`` re-exports the
+    four wrappers under the same ``__all__``: each name is the function of
+    its ``ops`` module, and the subpackages stay importable by their full
+    names.  Nothing is built on import."""
+    import importlib
+
+    import repro.kernels as ref
+    import repro_torch.kernels as port
+    from repro_torch.kernels import _build
+    built = set(_build._LIBS)
+    assert port.__all__ == ref.__all__
+    for name in port.__all__:
+        fn = getattr(port, name)
+        assert callable(fn) and fn.__name__ == name
+        ops = importlib.import_module(f"repro_torch.kernels.{name}.ops")
+        assert fn is getattr(ops, name)
+    from repro_torch.kernels.flash_attention import ops as fa
+    assert fa.flash_attention is port.flash_attention
+    assert set(_build._LIBS) == built
