@@ -20,8 +20,9 @@ line is printed:
    each rwkv6_scan instantiation's (state and output pass) registers,
    spills and shared memory; each ssm_scan (``ssm_fwd``) instantiation's
    registers, spills and shared memory; the scans' backward kernels'
-   registers and spills (``wkv_bwd`` per head dim, ``ssm_bwd_state`` and
-   ``ssm_bwd`` per state dim, both reductions);
+   registers and spills (``wkv_bwd_state`` and ``wkv_bwd`` per head dim,
+   with ``wkv_bwd``'s shared memory, ``ssm_bwd_state`` and ``ssm_bwd``
+   per state dim, both reductions);
 2. each kernel against its plain PyTorch version on the card, at the
    reference's own kernel tolerances, at small and ragged batches and at
    the sweep's chunk shape; ppa_eval's one launch for both GPT-3 workloads
@@ -799,14 +800,16 @@ def report_ssm_build(torch, build_mod, ssm_ops) -> None:
           f"reported, want 10")
 
 
-def report_scan_bwd_build(build_mod) -> None:
+def report_scan_bwd_build(build_mod, rwkv_ops) -> None:
     """Registers and spills (ptxas) of each instantiation of the scans'
-    backward kernels: rwkv6_scan's wkv_bwd (one per head dim) and
-    wkv_bwd_reduce, ssm_scan's ssm_bwd_state and ssm_bwd (one each per
-    N) and ssm_bwd_reduce."""
+    backward kernels: rwkv6_scan's wkv_bwd_state and wkv_bwd (one each per
+    head dim; wkv_bwd's dynamic shared memory per block too) and
+    wkv_bwd_du, ssm_scan's ssm_bwd_state and ssm_bwd (one each per N) and
+    ssm_bwd_reduce."""
     import re
     for src, pat, want in (
-            ("rwkv6_scan", r"(wkv_bwd)ILi(\d+)E|(wkv_bwd_reduce)E", 5),
+            ("rwkv6_scan", r"(wkv_bwd_state|wkv_bwd)ILi(\d+)E|(wkv_bwd_du)E",
+             9),
             ("ssm_scan", r"(ssm_bwd_state|ssm_bwd)ILi(\d+)E|"
                          r"(ssm_bwd_reduce)E", 11)):
         name = re.compile(pat)
@@ -822,8 +825,10 @@ def report_scan_bwd_build(build_mod) -> None:
         info = ptxas_by_entry(build_mod.BUILD_LOGS[src], inst)
         for kern, n in sorted(info):
             i = info[(kern, n)]
+            smem = (f"; shared memory {rwkv_ops.smem_bytes(n)['bwd']} B"
+                    if kern == "wkv_bwd" else "")
             log(f"[1]   {kern}{f'<{n}>' if n else ''}: {i.get('regs')} "
-                f"registers, {i.get('spills')}")
+                f"registers, {i.get('spills')}{smem}")
         check(len(info) == want, f"{len(info)} {src} backward "
               f"instantiations reported, want {want}")
 
@@ -2567,7 +2572,11 @@ RWKV_BWD = (1, 4096, 64, 64)                # B, T, H, hd: rwkv6-7b's step
 RWKV_BWD_REGIMES = ("uniform", "model", "zeros_denormals", "one")
 SSM_BWD = (1, 4096, 16384, 16)              # B, T, D, N: the jamba cut's
 SSM_BWD_REGIMES = ("test", "model", "long")
-RWKV_BWD_PASSES = ("wkv_bwd<", "wkv_bwd_reduce")
+RWKV_BWD_PASSES = ("wkv_bwd_state<", "wkv_bwd<", "wkv_bwd_du")
+# the first rwkv6 backward kernel (one block a 16-row tile walking all T
+# steps) at RWKV_BWD, fp32, in earlier chip runs and in bench.py beside
+# this kernel (PERF.md section 6)
+RWKV_BWD_EARLIER_MS = "4.767-4.960"
 SSM_BWD_PASSES = ("ssm_bwd_state<", "ssm_bwd<", "ssm_bwd_reduce")
 # 16h: rwkv6-7b at full width and the largest depth whose fp32 weights,
 # gradients and two AdamW moments (16 B a parameter) fit one 80 GB card:
@@ -3088,7 +3097,8 @@ def phase16g_scan_bwd(torch, dev) -> dict:
                 f_ms = kernel_ms(torch, lambda: rw._forward(r, k, v, w, u),
                                  iters=10)
                 ops, nbytes = rw.rwkv6_scan_bwd_cost(*RWKV_BWD, 4)
-                extra = ""
+                extra = (f"; the first, T-walking kernel "
+                         f"{RWKV_BWD_EARLIER_MS} ms in earlier runs")
             else:
                 f_ms = kernel_ms(torch, lambda: ss._forward(*args[:5]),
                                  iters=10)
@@ -3206,7 +3216,8 @@ def phase16h_rwkv_train(torch, dev) -> dict:
             groups={"fp32 GEMMs": lambda n: "gemm" in n.lower(),
                     "rwkv6_scan fwd": lambda n: "wkv_state" in n
                     or "wkv_out" in n,
-                    "rwkv6_scan bwd": lambda n: "wkv_bwd" in n,
+                    "rwkv6_scan bwd": lambda n: any(
+                        p in n for p in RWKV_BWD_PASSES),
                     "log-softmax": lambda n: "softmax" in n.lower()})
     finally:
         _restore_counts(saved)
@@ -3748,7 +3759,7 @@ def main() -> int:
     report_fa_build(torch, _build, fa_ops)
     report_rwkv_build(_build, rwkv_ops)
     report_ssm_build(torch, _build, ssm_ops)
-    report_scan_bwd_build(_build)
+    report_scan_bwd_build(_build, rwkv_ops)
 
     # ---- 2. kernel vs plain on the card -----------------------------------
     wls = {"ttft": gpt3_layer_prefill(), "tpot": gpt3_layer_decode()}

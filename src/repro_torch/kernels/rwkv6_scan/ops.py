@@ -22,8 +22,9 @@ The kernel is a chunked scan over chunks of :data:`CHUNK` steps: a state
 pass writes each chunk's incoming state to an fp32 workspace that the
 wrapper allocates (``torch.empty``; (B, H, ceil(T / CHUNK) - 1, hd, hd),
 as the library states it), and an output pass computes every chunk's y
-in parallel from it.  The backward walks each head's chunks in reverse
-from those states (the note above ``wkv_bwd`` in the source).
+in parallel from it.  The backward runs a reverse state pass for G (dL/dS
+at every chunk's end) and then walks every chunk at once from those two
+sets of states (the note above ``wkv_bwd`` in the source).
 
 Replaces the TPU Pallas kernel ``_wkv6_kernel`` / ``rwkv6_scan_fwd`` in
 ``src/repro/kernels/rwkv6_scan/kernel.py``; see the note at the top of
@@ -237,12 +238,14 @@ def _library() -> ctypes.CDLL:
 
 
 def smem_bytes(hd: int) -> dict:
-    """Dynamic shared memory of one block of each of the kernel's two
-    passes at head size `hd`, as the built library states it (builds the
-    library if needed)."""
+    """Dynamic shared memory of one block of each of the kernel's passes
+    at head size `hd`, as the built library states it (builds the library
+    if needed): the state passes (the forward's and the backward's G
+    pass), the output pass and the backward's chunk pass."""
     lib = _library()
     return {"state": int(lib.rwkv6_scan_smem_bytes(hd, 0)),
-            "out": int(lib.rwkv6_scan_smem_bytes(hd, 1))}
+            "out": int(lib.rwkv6_scan_smem_bytes(hd, 1)),
+            "bwd": int(lib.rwkv6_scan_smem_bytes(hd, 2))}
 
 
 def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

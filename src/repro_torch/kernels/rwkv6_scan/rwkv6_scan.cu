@@ -59,9 +59,12 @@
 // 16-byte vectors widened once.  All math is fp32 on the SIMT units.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <cstdint>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int C = 64;                      // steps per chunk
 constexpr int L = 16;                      // steps per sub-chunk (wkv_out)
@@ -181,15 +184,22 @@ template <int HD> __host__ __device__ constexpr int out_floats() {
          + (HD * HD > 2 * C * pad<HD>() ? HD * HD - 2 * C * pad<HD>() : 0);
 }
 
-// One head's chunk updates: S0 of chunk c + 1 -> ws slot c, for c = 0 ..
-// n_upd - 1 (every such chunk is full).  A block owns rows row0 .. row0 +
-// JR - 1 of S (it reads k and w of those channels only, and all of v);
-// thread (rg, cp) owns rows row0 + 4 rg .. + 3 and columns 2 cp, 2 cp + 1.
-template <typename T, int HD>
-__global__ void __launch_bounds__(state_threads<HD>())
-wkv_state(const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ w, float* __restrict__ ws, int t_len, int h,
-          int n_upd) {
+// One head's chunk updates, for the forward's state pass (REV false: S0
+// of chunk c + 1 -> ws slot c, for c = 0 .. n_upd - 1, every such chunk
+// full; a = k, x = v, and the products R_s of w after s to the chunk's
+// end) and for the backward's G pass (REV true: G_end of chunk c, dL/dS at
+// its end, -> ws slot c, walked from chunk n_upd, possibly ragged, down to
+// chunk 1; a = r, x = dy, and the products E_t of w before t from the
+// chunk's start).  Either way the state X goes to diag(P) X + (a P_a)^T x
+// a chunk.  A block owns rows row0 .. row0 + JR - 1 of X (it reads a and
+// w of those channels only, and all of x); thread (rg, cp) owns rows
+// row0 + 4 rg .. + 3 and columns 2 cp, 2 cp + 1.
+template <typename T, int HD, bool REV>
+__device__ __forceinline__ void chunk_states(const T* __restrict__ a,
+                                             const T* __restrict__ x,
+                                             const T* __restrict__ w,
+                                             float* __restrict__ ws,
+                                             int t_len, int h, int n_upd) {
   constexpr int NT = state_threads<HD>(), JR = jr<HD>();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -205,10 +215,11 @@ wkv_state(const T* __restrict__ k, const T* __restrict__ v,
 
   Stage<T, JR, NT> sk, sw;
   Stage<T, HD, NT> sv;
-  auto load = [&](int c, float* buf) {
-    sk.load(k + head + row0, t_stride, c * C, t_len, buf, tid);
+  auto load = [&](int it, float* buf) {
+    const int c = REV ? n_upd - it : it;
+    sk.load(a + head + row0, t_stride, c * C, t_len, buf, tid);
     sw.load(w + head + row0, t_stride, c * C, t_len, buf + C * JR, tid);
-    sv.load(v + head, t_stride, c * C, t_len, buf + 2 * C * JR, tid);
+    sv.load(x + head, t_stride, c * C, t_len, buf + 2 * C * JR, tid);
   };
   auto store = [&](float* buf) {
     sk.store(buf, tid);
@@ -221,27 +232,36 @@ wkv_state(const T* __restrict__ k, const T* __restrict__ v,
   store(smem);
   cp_async_wait_all();
   __syncthreads();
-  for (int c = 0; c < n_upd; ++c) {
-    float* kb = smem + (c & 1) * BUF;
+  for (int it = 0; it < n_upd; ++it) {
+    float* kb = smem + (it & 1) * BUF;
     const float* wb = kb + C * JR;
     const float* vb = kb + 2 * C * JR;
-    if (c + 1 < n_upd) load(c + 1, smem + ((c + 1) & 1) * BUF);
+    if (it + 1 < n_upd) load(it + 1, smem + ((it + 1) & 1) * BUF);
 
-    if (tid < JR) {                  // k R and P, running products
+    if (tid < JR) {                  // a P_a and P, running products
       float rr = 1.f;
       // 16 steps at a time through registers: stores into kb between
       // loads of wb would serialise every step on shared memory
-      for (int t1 = C - 16; t1 >= 0; t1 -= 16) {
+      for (int n = 0; n < C / 16; ++n) {
+        const int t1 = REV ? 16 * n : C - 16 - 16 * n;
         float kk[16], ww[16];
 #pragma unroll
         for (int m = 0; m < 16; ++m) {
           kk[m] = kb[(t1 + m) * JR + tid];
           ww[m] = wb[(t1 + m) * JR + tid];
         }
+        if constexpr (REV) {
 #pragma unroll
-        for (int m = 15; m >= 0; --m) {
-          kk[m] *= rr;
-          rr *= ww[m];
+          for (int m = 0; m < 16; ++m) {
+            kk[m] *= rr;
+            rr *= ww[m];
+          }
+        } else {
+#pragma unroll
+          for (int m = 15; m >= 0; --m) {
+            kk[m] *= rr;
+            rr *= ww[m];
+          }
         }
 #pragma unroll
         for (int m = 0; m < 16; ++m) kb[(t1 + m) * JR + tid] = kk[m];
@@ -250,10 +270,10 @@ wkv_state(const T* __restrict__ k, const T* __restrict__ v,
     }
     __syncthreads();
 
-    // S = P S + (k R)^T v with S held as s - e (Kahan; see the top note):
-    // the scaling's exact rounding error goes into e (an FMA gives it),
-    // then each L-step partial sum of (k R)^T v is added with
-    // compensation.  The _rn intrinsics keep the compiler from fusing.
+    // X = P X + (a P_a)^T x with X held as s - e (Kahan; see the top
+    // note): the scaling's exact rounding error goes into e (an FMA gives
+    // it), then each L-step partial sum is added with compensation.  The
+    // _rn intrinsics keep the compiler from fusing.
     const float4 p4 = *reinterpret_cast<const float4*>(pw + 4 * rg);
     const float p[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
@@ -268,15 +288,15 @@ wkv_state(const T* __restrict__ k, const T* __restrict__ v,
       float d[4][2] = {};
 #pragma unroll 8
       for (int t = t1; t < t1 + L; ++t) {
-        const float4 a = *reinterpret_cast<const float4*>(
+        const float4 av4 = *reinterpret_cast<const float4*>(
             kb + t * JR + 4 * rg);
-        const float2 x = *reinterpret_cast<const float2*>(
+        const float2 xv = *reinterpret_cast<const float2*>(
             vb + t * HD + 2 * cp);
-        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float av[4] = {av4.x, av4.y, av4.z, av4.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          d[i][0] = fmaf(av[i], x.x, d[i][0]);
-          d[i][1] = fmaf(av[i], x.y, d[i][1]);
+          d[i][0] = fmaf(av[i], xv.x, d[i][0]);
+          d[i][1] = fmaf(av[i], xv.y, d[i][1]);
         }
       }
 #pragma unroll
@@ -289,17 +309,26 @@ wkv_state(const T* __restrict__ k, const T* __restrict__ v,
           s[i][j] = tv;
         }
     }
-    float* slot = ws + (static_cast<size_t>(bh) * n_upd + c) * HD * HD;
+    const int slot = REV ? n_upd - 1 - it : it;
+    float* dst = ws + (static_cast<size_t>(bh) * n_upd + slot) * HD * HD;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float2*>(slot + (row0 + 4 * rg + i) * HD + 2 * cp) =
+      *reinterpret_cast<float2*>(dst + (row0 + 4 * rg + i) * HD + 2 * cp) =
           make_float2(__fsub_rn(s[i][0], e[i][0]),
                       __fsub_rn(s[i][1], e[i][1]));
 
-    if (c + 1 < n_upd) store(smem + ((c + 1) & 1) * BUF);
+    if (it + 1 < n_upd) store(smem + ((it + 1) & 1) * BUF);
     cp_async_wait_all();
     __syncthreads();
   }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(state_threads<HD>())
+wkv_state(const T* __restrict__ k, const T* __restrict__ v,
+          const T* __restrict__ w, float* __restrict__ ws, int t_len, int h,
+          int n_upd) {
+  chunk_states<T, HD, false>(k, v, w, ws, t_len, h, n_upd);
 }
 
 template <typename T, int TC>
@@ -635,41 +664,101 @@ cudaError_t launch_hd(int hd, const void* r, const void* k, const void* v,
 //     du_i  += r_t_i k_t_i (dy_t . v_t)
 //     G      = diag(w_t) G + r_t^T dy_t
 //
-// Rows are independent: row i of S and of G reads w, k, r of channel i
-// only (and all of v and dy).  So `wkv_bwd` (grid: hd/16 row tiles x B*H,
-// 256 threads) gives each block 16 rows and each row 16 threads of hd/16
-// columns.  dr, dk, dw and dy.v are sums along a row: a chain of FMAs per
-// thread, then xor shuffles over the row's 16 lanes.  dv is a sum down
-// the rows: a row pair by one shuffle, then the block's 8 pairs in order
-// from shared memory, written as one partial per row tile.  du is summed
-// over t per (b, h, row).  `wkv_bwd_reduce` then sums the row tiles' dv
-// partials and the batch rows' du in a fixed order.  No atomics: two
-// calls agree bit for bit.
-//
-// S_in comes from the saved chunk states: per chunk (last first) and per
-// sub-chunk of SB = 64 / (hd/16) steps (last first), S is stepped forward
-// in fp32 from the chunk's S0 to the sub-chunk's start, then its SB
-// states are kept in registers and the sub-chunk is walked back.  No step
-// is undone by dividing by w (w = 0 and denormal w are inputs).  G is
-// kept as a compensated pair g - e, as wkv_state keeps S: with w = 1 it
-// grows with T.
-//
 // What bounds it: at the rwkv6-7b training shape (B 1, T 4096, H 64, hd
-// 64) the function needs 15.3 GFLOP (0.228 ms at 67 TFLOP/s) and moves
-// 604 MB (0.180 ms at 3.35 TB/s), but this first kernel is a walk of T
-// dependent steps in each block, with the forward recompute on top (2.5
-// steps a step at hd 64): latency, not throughput, holds it (PERF.md §6).
-// Inputs are read straight from global memory (L1/L2), not staged.
+// 64) the function needs 15.3 GFLOP, 0.228 ms at 67 TFLOP/s, and moves
+// 604 MB, 0.180 ms at 3.35 TB/s.  The first backward kernel (one block
+// per 16-row tile of a head, 256 blocks) took 20x that: (1) each block
+// walked all T steps, a chain of dependent loads, FMAs and shuffle trees
+// whose latency, not the card's throughput, set the time; (2) S was
+// stepped forward again from the chunk's start for every sub-chunk inside
+// that chain, 2.5 steps a step; (3) every step read r, k, w, v, dy from
+// global memory, unstaged; (4) dv, a sum down the rows, went out as a
+// whole (B, T, H, hd) partial per row tile (268 MB) that a second kernel
+// read back.  So the walk is cut at the chunks, and every chunk is walked
+// at once:
+//
+// * `wkv_bwd_state` (wkv_state's walk, chunk_states with REV) writes G at
+//   the end of every chunk but the last: with E_t = prod_{q<t} w_q over
+//   the chunk's steps and P the chunk's product,
+//       G_end(c-1) = diag(P_c) G_end(c) + (r_c E_c)^T dy_c,
+//   kept as a compensated pair (with w = 1, G grows with T) and formed
+//   from running products, never a quotient of w.  (B, H, ceil(T/C) - 1,
+//   hd, hd) fp32 beside the forward's S0 states: its chain is
+//   ceil(T/C) - 1 chunk updates, as the forward's state pass.
+// * `wkv_bwd` (grid: hd/16 row tiles x chunks x B*H, clusters of the hd/16
+//   tiles of one chunk; 256 threads) walks one chunk of 16 rows, so the
+//   dependent chain is C = 64 steps: (1).  It stages the chunk's r, k, w
+//   of its rows (then packed with u r into one 16-byte word a row and
+//   step) and v, dy of every column in shared memory by cp.async (3),
+//   steps S from the saved S0 once to keep S at the start of each
+//   sub-chunk of SB = BWD_HIST / (hd/16) steps (a checkpoint per thread
+//   in shared memory), then per sub-chunk, last first, steps SB - 1
+//   states into registers from its checkpoint and walks the sub-chunk back
+//   from G = G_end with the formulas above, two steps at a time so that
+//   their shuffle trees overlap: 1.75 forward steps a step at hd 64,
+//   bounded to the chunk (2).  Thread (row, lane) owns row i of S and G,
+//   columns lane * hd/16 .. + hd/16 - 1; dk, dw and dr are three row sums
+//   taken in one shuffle tree (xor 8 sends half the values, xor 4 half the
+//   rest, then 2 and 1) and written a row tile at a time after the
+//   sub-chunk; dv is summed over row pairs by one shuffle, over the block's
+//   8 pairs in order after the sub-chunk (into v's rows, no longer read),
+//   then over the cluster's row tiles in order from distributed shared
+//   memory, each block summing C / tiles of the steps: no dv workspace (4).
+//   G needs no compensation here: 64 steps from a compensated G_end round
+//   as 64 steps do, not as T do.
+// * `wkv_bwd_du` sums du's partials, one per (b, h, chunk) row, over the
+//   chunks, then over the batch rows, in order.
+//
+// No atomics: two calls agree bit for bit.  dy . v of each step is taken
+// once per block as a row sum of the same shape.
+//
+// What holds it now (kernels/rwkv6_scan/bench.py, NVIDIA H100 80GB HBM3 at
+// 700 W; PERF.md section 6): the G pass takes what the forward's state
+// pass takes (0.175 ms), the chunk pass 1.63-1.66 ms, 8x the function's
+// bound for the two.  Its --stamps put a block's life at ~27K clocks, two
+// blocks an SM (109 registers, 100 KB of shared memory): the walks 37%,
+// the barriers and stores after them 18%, staging and dy . v 15%, the
+// forward stepping 12%, the checkpoint pass 9%, the cluster's dv 7%, du
+// 3%.  No phase dominates; fewer instructions a step (one load for r, k,
+// w, u r; du and dr's u term out of the walk), a shorter history and
+// paired steps each moved it by 5% or less.  Next: persistent blocks that
+// stage the next chunk during the walk, more columns a thread, or the
+// chunk's products on the tensor cores.
 constexpr int BWD_ROWS = 16;                   // rows of S and G a block
 constexpr int BWD_LANES = 16;                  // threads a row
 constexpr int BWD_THREADS = BWD_ROWS * BWD_LANES;
-constexpr int BWD_HIST = 64;                   // S_in values a thread keeps
+constexpr int BWD_HIST = 32;                   // S_in values a thread keeps
 constexpr int BWD_PAIRS = BWD_ROWS / 2;
 template <int HD> __host__ __device__ constexpr int bwd_cols() {
   return HD / BWD_LANES;                       // columns a thread
 }
 template <int HD> __host__ __device__ constexpr int bwd_sub() {
   return BWD_HIST / bwd_cols<HD>();            // steps a sub-chunk
+}
+template <int HD> __host__ __device__ constexpr int bwd_tiles() {
+  return HD / BWD_ROWS;                        // row tiles: the cluster
+}
+// wkv_bwd's region of S's checkpoints, one per sub-chunk, where r, k, w
+// are staged first (floats)
+template <int HD> __host__ __device__ constexpr int bwd_ck() {
+  return C / bwd_sub<HD>() * BWD_THREADS * bwd_cols<HD>() > 3 * C * BWD_ROWS
+             ? C / bwd_sub<HD>() * BWD_THREADS * bwd_cols<HD>()
+             : 3 * C * BWD_ROWS;
+}
+// wkv_bwd's shared memory (floats): r, k, w, u r of the tile's rows; v
+// (then the tile's dv), dy; the checkpoints; dv's row pairs and dk, dw, dr
+// of a sub-chunk; dy . v
+template <int HD> __host__ __device__ constexpr int bwd_floats() {
+  return 4 * C * BWD_ROWS + 2 * C * HD + bwd_ck<HD>()
+         + bwd_sub<HD>() * (BWD_PAIRS * HD + 3 * BWD_ROWS) + C;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(state_threads<HD>())
+wkv_bwd_state(const float* __restrict__ r, const float* __restrict__ dy,
+              const float* __restrict__ w, float* __restrict__ gs,
+              int t_len, int h, int n_upd) {
+  chunk_states<float, HD, true>(r, dy, w, gs, t_len, h, n_upd);
 }
 
 // x[0 .. N) = p[0 .. N) from global memory, in 16- or 8-byte loads
@@ -689,6 +778,21 @@ __device__ __forceinline__ void ldg_row(const float* p, float* x) {
   }
 }
 
+// p[0 .. N) = x[0 .. N) in shared memory, in 16- or 8-byte stores
+template <int N>
+__device__ __forceinline__ void st_row(float* p, const float* x) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N; q += 4)
+      *reinterpret_cast<float4*>(p + q) =
+          make_float4(x[q], x[q + 1], x[q + 2], x[q + 3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+    *p = x[0];
+  }
+}
+
 // the sum over a row's 16 lanes (every lane gets it)
 __device__ __forceinline__ float row_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 8);
@@ -698,164 +802,327 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// Thread (row, lane) owns row i = 16 tile + row of S and G, columns
-// j0 = lane CPT .. + CPT - 1.  dvp: one (B, T, H, hd) partial per row
-// tile; dup: (B, H, hd).
+// Three sums over a row's 16 lanes in five shuffles: lanes 0-3 get a's,
+// 4-7 b's, 8-11 c's.  Each level adds the same pairs as row_sum (8, 4,
+// 2, 1 apart), so each sum is row_sum's to the bit.
+__device__ __forceinline__ float row_sum3(float a, float b, float c,
+                                          int lane) {
+  const bool h8 = lane & 8, h4 = lane & 4;
+  float k0 = h8 ? c : a, k1 = h8 ? 0.f : b;
+  k0 += __shfl_xor_sync(0xffffffffu, h8 ? a : c, 8);
+  k1 += __shfl_xor_sync(0xffffffffu, h8 ? b : 0.f, 8);
+  float x = h4 ? k1 : k0;
+  x += __shfl_xor_sync(0xffffffffu, h4 ? k0 : k1, 4);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x;
+}
+
+// Phase clocks for kernels/rwkv6_scan/bench.py --stamps, in a build with
+// -DRWKV6_BWD_STAMPS only: thread 0 of each block of (b, h) 0 adds
+// clock64() deltas per phase (BWD_PHASES: staging and dy . v, the
+// checkpoint pass, the sub-chunks' forward stepping, their walks, the
+// barriers and stores after them, du, the cluster's dv) and writes them
+// to bwd_stamps[(chunk * tiles + tile) * 8 + phase], chunks < 64; and
+// each of the first BWD_BLOCKS blocks its SM and its first and last
+// %globaltimer (ns) to bwd_blocks[3 * block], block = (bh * chunks +
+// chunk) * tiles + tile.
+constexpr int BWD_PHASES = 7;
+constexpr int BWD_BLOCKS = 65536;
+#ifdef RWKV6_BWD_STAMPS
+__device__ long long bwd_stamps[64 * 8 * 8];
+__device__ unsigned long long bwd_blocks[3 * BWD_BLOCKS];
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define BWD_PHASE(k)                                                      \
+  do {                                                                    \
+    const long long now = clock64();                                      \
+    phase_clk[k] += now - clk;                                            \
+    clk = now;                                                            \
+  } while (0)
+#else
+#define BWD_PHASE(k) do {} while (0)
+#endif
+
+// One chunk of 16 rows of one head (see the note above).  ss: the
+// forward's S0 states, gs: G_end, both (B, H, n_upd, hd, hd); dup: du's
+// partial of each (b, h, chunk), (B, H, n_chunks, hd).
 template <int HD>
-__global__ void __launch_bounds__(BWD_THREADS)
+__global__ void __launch_bounds__(BWD_THREADS, HD <= 64 ? 2 : 1)
 wkv_bwd(const float* __restrict__ r, const float* __restrict__ k,
         const float* __restrict__ v, const float* __restrict__ w,
         const float* __restrict__ u, const float* __restrict__ dy,
-        const float* __restrict__ ws, float* __restrict__ dr,
-        float* __restrict__ dk, float* __restrict__ dw,
-        float* __restrict__ dvp, float* __restrict__ dup, int t_len, int h,
-        int n_upd) {
+        const float* __restrict__ ss, const float* __restrict__ gs,
+        float* __restrict__ dr, float* __restrict__ dk,
+        float* __restrict__ dv, float* __restrict__ dw,
+        float* __restrict__ dup, int t_len, int h, int n_upd) {
   constexpr int CPT = bwd_cols<HD>(), SB = bwd_sub<HD>(), NSB = C / SB;
-  __shared__ __align__(16) float dvs[SB * BWD_PAIRS * HD];
+  constexpr int R = BWD_ROWS, NT = BWD_THREADS, TILES = bwd_tiles<HD>();
+  extern __shared__ float4 smem4[];
+  float4* rkw = smem4;                           // C x R: r, k, w, u r
+  float* vs = reinterpret_cast<float*>(rkw + C * R);   // C x HD each
+  float* ds = vs + C * HD;
+  float* ck = ds + C * HD;                       // NSB x CPT x NT
+  float* rs = ck;                                // r, k, w staged (C x R
+  float* ks = rs + C * R;                        // each) where the
+  float* wsm = ks + C * R;                       // checkpoints go later
+  float* dvs = ck + bwd_ck<HD>();                // SB x PAIRS x HD
+  float* out = dvs + SB * BWD_PAIRS * HD;        // SB x 3 x R: dk, dw, dr
+  float* dyv = out + SB * 3 * R;                 // C
 
-  const int tile = blockIdx.x, bh = blockIdx.y, b = bh / h, hh = bh % h;
+#ifdef RWKV6_BWD_STAMPS
+  long long clk = clock64(), phase_clk[BWD_PHASES] = {};
+  const unsigned long long ns0 = global_ns();
+#endif
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tile = blockIdx.x, ch = blockIdx.y, bh = blockIdx.z;
+  const int b = bh / h, hh = bh % h, t0 = ch * C;
   const int tid = threadIdx.x, row = tid / BWD_LANES, lane = tid % BWD_LANES;
-  const int i = tile * BWD_ROWS + row, j0 = lane * CPT;
+  const int i = tile * R + row, j0 = lane * CPT;
   const size_t t_stride = static_cast<size_t>(h) * HD;
   const size_t head = static_cast<size_t>(b) * t_len * t_stride + hh * HD;
-  const size_t plane = static_cast<size_t>(gridDim.y) * t_len * HD;
-  const float ui = u[hh * HD + i];
 
+  {
+    Stage<float, R, NT> st_r, st_k, st_w;
+    Stage<float, HD, NT> st_v, st_d;
+    st_r.load(r + head + tile * R, t_stride, t0, t_len, rs, tid);
+    st_k.load(k + head + tile * R, t_stride, t0, t_len, ks, tid);
+    st_w.load(w + head + tile * R, t_stride, t0, t_len, wsm, tid);
+    st_v.load(v + head, t_stride, t0, t_len, vs, tid);
+    st_d.load(dy + head, t_stride, t0, t_len, ds, tid);
+  }
+  float s[CPT], g[CPT];
+  const size_t slot = static_cast<size_t>(bh) * n_upd * HD * HD
+                      + static_cast<size_t>(i) * HD + j0;
+  if (ch > 0) {
+    ldg_row<CPT>(ss + slot + static_cast<size_t>(ch - 1) * HD * HD, s);
+  } else {
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) s[c] = 0.f;
+  }
+  if (ch < n_upd) {
+    ldg_row<CPT>(gs + slot + static_cast<size_t>(ch) * HD * HD, g);
+  } else {
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) g[c] = 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  // a step's r, k, w and u r of each row in one 16-byte word
+#pragma unroll
+  for (int e = 0; e < C * R / NT; ++e) {
+    const int idx = tid + e * NT, rr = idx % R;
+    rkw[idx] = make_float4(rs[idx], ks[idx], wsm[idx],
+                           __ldg(u + hh * HD + tile * R + rr) * rs[idx]);
+  }
+
+  // dy . v of every step: row `row` of the block takes steps row + 16 q
+#pragma unroll
+  for (int q = 0; q < C / R; ++q) {
+    const int t = row + R * q;
+    float vv[CPT], dd[CPT];
+    ld_row<CPT>(vs + t * HD + j0, vv);
+    ld_row<CPT>(ds + t * HD + j0, dd);
+    float a = 0.f;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) a = fmaf(dd[c], vv[c], a);
+    a = row_sum(a);
+    if (lane == 0) dyv[t] = a;
+  }
+
+  __syncthreads();                               // rkw; r, k, w read
+  BWD_PHASE(0);
   // S = diag(w_t) S + k_t^T v_t on this thread's elements
-  auto step = [&](float* s, int t) {
-    const size_t p = head + static_cast<size_t>(t) * t_stride;
-    const float ki = __ldg(k + p + i), wi = __ldg(w + p + i);
+  auto step = [&](int t) {
+    const float4 p = rkw[t * R + row];
     float vv[CPT];
-    ldg_row<CPT>(v + p + j0, vv);
+    ld_row<CPT>(vs + t * HD + j0, vv);
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) s[c] = fmaf(wi, s[c], ki * vv[c]);
+    for (int c = 0; c < CPT; ++c) s[c] = fmaf(p.z, s[c], p.y * vv[c]);
   };
-
-  float g[CPT], ge[CPT];                       // G = g - ge
+  float* mine = ck + tid;                        // [m][c] at (m CPT + c) NT
 #pragma unroll
-  for (int c = 0; c < CPT; ++c) g[c] = ge[c] = 0.f;
-  float du_acc = 0.f;
-  for (int ch = n_upd; ch >= 0; --ch) {
-    const int t0 = ch * C;
-    for (int m = NSB - 1; m >= 0; --m) {
-      const int ts0 = t0 + m * SB;             // the sub-chunk's first step
-      if (ts0 >= t_len) continue;              // the same for every thread
-      float s[CPT];
-      if (ch > 0) {
-        ldg_row<CPT>(ws + (static_cast<size_t>(bh) * n_upd + ch - 1) * HD
-                     * HD + i * HD + j0, s);
-      } else {
+  for (int m = 0; m < NSB; ++m) {
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) s[c] = 0.f;
-      }
-#pragma unroll 4
-      for (int t = t0; t < ts0; ++t) step(s, t);
-      float hist[SB][CPT];                     // S_in of the SB steps
+    for (int c = 0; c < CPT; ++c) mine[(m * CPT + c) * NT] = s[c];
+    if (m + 1 < NSB) {
 #pragma unroll
-      for (int q = 0; q < SB; ++q) {
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) hist[q][c] = s[c];
-        if (q + 1 < SB && ts0 + q < t_len) step(s, ts0 + q);
-      }
-
-#pragma unroll
-      for (int q = SB - 1; q >= 0; --q) {
-        const int t = ts0 + q;
-        if (t >= t_len) continue;              // the same for every thread
-        const size_t p = head + static_cast<size_t>(t) * t_stride;
-        const float ri = __ldg(r + p + i), ki = __ldg(k + p + i);
-        const float wi = __ldg(w + p + i);
-        float vv[CPT], dd[CPT], dvv[CPT];
-        ldg_row<CPT>(v + p + j0, vv);
-        ldg_row<CPT>(dy + p + j0, dd);
-        const float uri = ui * ri;
-        float a_dr = 0.f, a_dk = 0.f, a_dw = 0.f, a_dyv = 0.f;
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const float gv = __fsub_rn(g[c], ge[c]);
-          const float gt = fmaf(uri, dd[c], gv);
-          a_dk = fmaf(gt, vv[c], a_dk);
-          dvv[c] = gt * ki;
-          a_dw = fmaf(gv, hist[q][c], a_dw);
-          a_dr = fmaf(dd[c], hist[q][c], a_dr);
-          a_dyv = fmaf(dd[c], vv[c], a_dyv);
-        }
-        a_dr = row_sum(a_dr);
-        a_dk = row_sum(a_dk);
-        a_dw = row_sum(a_dw);
-        a_dyv = row_sum(a_dyv);
-        if (lane == 0) {
-          dr[p + i] = fmaf(ui * ki, a_dyv, a_dr);
-          dk[p + i] = a_dk;
-          dw[p + i] = a_dw;
-        }
-        du_acc = fmaf(ri * ki, a_dyv, du_acc);
-        // rows 2 w and 2 w + 1 share warp w: one shuffle sums the pair
-#pragma unroll
-        for (int c = 0; c < CPT; ++c)
-          dvv[c] += __shfl_xor_sync(0xffffffffu, dvv[c], 16);
-        if ((row & 1) == 0) {
-#pragma unroll
-          for (int c = 0; c < CPT; ++c)
-            dvs[(q * BWD_PAIRS + row / 2) * HD + j0 + c] = dvv[c];
-        }
-        // G = diag(w) G + r^T dy, compensated: the scaling's exact
-        // rounding error goes into ge (an FMA gives it), then r dy is
-        // added with Kahan's correction; the _rn intrinsics keep the
-        // compiler from fusing
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const float hi = __fmul_rn(wi, g[c]);
-          ge[c] = fmaf(wi, ge[c], -fmaf(wi, g[c], -hi));
-          g[c] = hi;
-          const float yv = __fsub_rn(__fmul_rn(ri, dd[c]), ge[c]);
-          const float tv = __fadd_rn(g[c], yv);
-          ge[c] = __fsub_rn(__fsub_rn(tv, g[c]), yv);
-          g[c] = tv;
-        }
-      }
-      __syncthreads();
-      // dv of this row tile for the sub-chunk: the 8 row pairs in order
-      for (int idx = tid; idx < SB * HD; idx += BWD_THREADS) {
-        const int q = idx / HD, jj = idx % HD, t = ts0 + q;
-        if (t < t_len) {
-          float sum = 0.f;
-#pragma unroll
-          for (int pp = 0; pp < BWD_PAIRS; ++pp)
-            sum += dvs[(q * BWD_PAIRS + pp) * HD + jj];
-          dvp[tile * plane + head + static_cast<size_t>(t) * t_stride + jj] =
-              sum;
-        }
-      }
-      __syncthreads();
+      for (int q = 0; q < SB; ++q) step(m * SB + q);
     }
   }
-  if (lane == 0) dup[static_cast<size_t>(bh) * HD + i] = du_acc;
+  __syncthreads();                               // dyv
+  BWD_PHASE(1);
+
+  for (int m = NSB - 1; m >= 0; --m) {
+    const int ts0 = m * SB;                      // the sub-chunk's first step
+    if (t0 + ts0 >= t_len) continue;             // the same for every thread
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) s[c] = mine[(m * CPT + c) * NT];
+    float hist[SB][CPT];                         // S_in of the SB steps
+#pragma unroll
+    for (int q = 0; q < SB; ++q) {
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) hist[q][c] = s[c];
+      if (q + 1 < SB) step(ts0 + q);
+    }
+    BWD_PHASE(2);
+
+    // Two steps at a time, both steps' arithmetic before both shuffle
+    // trees, in straight-line code so that the trees overlap: steps past
+    // T (zeros in every staged array; G stays 0 through them, as it is at
+    // the last chunk's end) are walked like the others and their sums not
+    // written, and lanes 0, 4, 8 store the row's dk, dw, dr sums (dr
+    // without its u term) to shared memory.
+#pragma unroll
+    for (int q2 = SB - 1; q2 >= 1; q2 -= 2) {
+      float a_dk[2], a_dw[2], a_dr[2], dvv[2][CPT];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = q2 - e, t = ts0 + q;
+        const float4 p = rkw[t * R + row];       // r, k, w, u r
+        float vv[CPT], dd[CPT];
+        ld_row<CPT>(vs + t * HD + j0, vv);
+        ld_row<CPT>(ds + t * HD + j0, dd);
+        a_dk[e] = a_dw[e] = a_dr[e] = 0.f;
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          const float gt = fmaf(p.w, dd[c], g[c]);
+          a_dk[e] = fmaf(gt, vv[c], a_dk[e]);
+          dvv[e][c] = gt * p.y;
+          a_dw[e] = fmaf(g[c], hist[q][c], a_dw[e]);
+          a_dr[e] = fmaf(dd[c], hist[q][c], a_dr[e]);
+          g[c] = fmaf(p.z, g[c], p.x * dd[c]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = q2 - e;
+        const float sum = row_sum3(a_dk[e], a_dw[e], a_dr[e], lane);
+        if ((lane & 3) == 0 && lane < 12)
+          out[(q * 3 + lane / 4) * R + row] = sum;
+        float* dst = dvs + (q * BWD_PAIRS + row / 2) * HD + j0;
+        if constexpr (CPT == 1) {
+          const float x = dvv[e][0]
+                          + __shfl_xor_sync(0xffffffffu, dvv[e][0], 16);
+          if ((row & 1) == 0) *dst = x;
+        } else {
+          constexpr int HC = CPT / 2;
+          const bool odd = row & 1;
+          float keep[HC];
+#pragma unroll
+          for (int c = 0; c < HC; ++c)
+            keep[c] = (odd ? dvv[e][c + HC] : dvv[e][c])
+                      + __shfl_xor_sync(0xffffffffu,
+                                        odd ? dvv[e][c] : dvv[e][c + HC], 16);
+          st_row<HC>(dst + (odd ? HC : 0), keep);
+        }
+      }
+    }
+    BWD_PHASE(3);
+    __syncthreads();
+    // dk, dw, dr (with its u term) of the sub-chunk, a row tile's 16
+    // channels at a time
+#pragma unroll
+    for (int e = 0; e < (SB * 3 * R + NT - 1) / NT; ++e) {
+      const int idx = tid + e * NT;
+      const int rr = idx % R, x = idx / R % 3, t = ts0 + idx / (3 * R);
+      if (idx < SB * 3 * R && t0 + t < t_len) {
+        const size_t p = head + static_cast<size_t>(t0 + t) * t_stride
+                         + tile * R + rr;
+        if (x == 0) {
+          dk[p] = out[idx];
+        } else if (x == 1) {
+          dw[p] = out[idx];
+        } else {
+          dr[p] = fmaf(__ldg(u + hh * HD + tile * R + rr)
+                       * rkw[t * R + rr].y, dyv[t], out[idx]);
+        }
+      }
+    }
+    // the tile's dv of the sub-chunk: the 8 row pairs in order, into v's
+    // rows of the sub-chunk (the walk below reads earlier rows only)
+#pragma unroll
+    for (int e = 0; e < SB * HD / NT; ++e) {
+      const int idx = tid + e * NT, q = idx / HD, jj = idx % HD;
+      float sum = 0.f;
+#pragma unroll
+      for (int pp = 0; pp < BWD_PAIRS; ++pp)
+        sum += dvs[(q * BWD_PAIRS + pp) * HD + jj];
+      vs[(ts0 + q) * HD + jj] = sum;
+    }
+    __syncthreads();
+    BWD_PHASE(4);
+  }
+  // du over the chunk's steps, last first
+  if (tid < R) {
+    float du_acc = 0.f;
+#pragma unroll 8
+    for (int t = C - 1; t >= 0; --t) {
+      const float4 p = rkw[t * R + tid];
+      du_acc = fmaf(p.x * p.y, dyv[t], du_acc);
+    }
+    dup[(static_cast<size_t>(bh) * gridDim.y + ch) * HD + tile * R + tid] =
+        du_acc;
+  }
+  BWD_PHASE(5);
+
+  // dv = the cluster's row tiles in order; this block writes steps
+  // tile * C / TILES .. + C / TILES - 1 of the chunk
+  cluster.sync();
+  constexpr int TR = C / TILES;
+  for (int idx = tid; idx < TR * HD / 4; idx += NT) {
+    const int t = tile * TR + idx / (HD / 4), jj = idx % (HD / 4) * 4;
+    if (t0 + t < t_len) {
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int rk = 0; rk < TILES; ++rk) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(vs, rk) + t * HD + jj);
+        sum.x += x.x; sum.y += x.y; sum.z += x.z; sum.w += x.w;
+      }
+      *reinterpret_cast<float4*>(
+          dv + head + static_cast<size_t>(t0 + t) * t_stride + jj) = sum;
+    }
+  }
+  cluster.sync();                                // peers done reading
+#ifdef RWKV6_BWD_STAMPS
+  BWD_PHASE(6);
+  if (tid == 0 && bh == 0 && ch < 64) {
+    for (int k = 0; k < BWD_PHASES; ++k)
+      bwd_stamps[(ch * TILES + tile) * 8 + k] = phase_clk[k];
+  }
+  const size_t blk = (static_cast<size_t>(bh) * gridDim.y + ch) * TILES
+                     + tile;
+  if (tid == 0 && blk < BWD_BLOCKS) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    bwd_blocks[3 * blk] = sm;
+    bwd_blocks[3 * blk + 1] = ns0;
+    bwd_blocks[3 * blk + 2] = global_ns();
+  }
+#endif
 }
 
-// dv = the row tiles' partials summed in order (n4: plane / 4 float4s a
-// partial); du = the batch rows' partials summed in order (hhd = H hd).
+// du = per (h, channel), the chunks' partials summed in order, then the
+// batch rows' (hhd = H hd).
 __global__ void __launch_bounds__(256)
-wkv_bwd_reduce(const float4* __restrict__ dvp, const float* __restrict__ dup,
-               float4* __restrict__ dv, float* __restrict__ du, long long n4,
-               int tiles, int b, int hhd) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x
-                          + threadIdx.x;
-  for (long long q = first; q < n4; q += stride) {
-    float4 s = __ldg(dvp + q);
-    for (int tl = 1; tl < tiles; ++tl) {
-      const float4 x = __ldg(dvp + tl * n4 + q);
-      s.x += x.x; s.y += x.y; s.z += x.z; s.w += x.w;
-    }
-    dv[q] = s;
+wkv_bwd_du(const float* __restrict__ dup, float* __restrict__ du, int b,
+           int h, int hd, int n_chunks) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= h * hd) return;
+  const int hh = q / hd, i = q % hd;
+  float tot = 0.f;
+  for (int bb = 0; bb < b; ++bb) {
+    const float* p = dup + static_cast<size_t>(bb * h + hh) * n_chunks * hd
+                     + i;
+    float s = 0.f;
+    for (int c = 0; c < n_chunks; ++c) s += p[static_cast<size_t>(c) * hd];
+    tot += s;
   }
-  for (long long q = first; q < hhd; q += stride) {
-    float s = dup[q];
-    for (int bb = 1; bb < b; ++bb) s += dup[static_cast<long long>(bb) * hhd
-                                            + q];
-    du[q] = s;
-  }
+  du[q] = tot;
 }
 
 template <int HD>
@@ -864,21 +1131,44 @@ cudaError_t launch_bwd(const float* r, const float* k, const float* v,
                        const float* states, float* dr, float* dk, float* dv,
                        float* dw, float* du, float* ws, int b, int t_len,
                        int h, cudaStream_t stream) {
-  const int n_upd = (t_len + C - 1) / C - 1, tiles = HD / BWD_ROWS;
-  const long long plane = static_cast<long long>(b) * t_len * h * HD;
-  float* dvp = ws;
-  float* dup = ws + tiles * plane;
-  wkv_bwd<HD><<<dim3(tiles, b * h), BWD_THREADS, 0, stream>>>(
-      r, k, v, w, u, dy, states, dr, dk, dw, dvp, dup, t_len, h, n_upd);
-  cudaError_t err = cudaGetLastError();
+  const int n_chunks = (t_len + C - 1) / C, n_upd = n_chunks - 1;
+  float* gs = ws;
+  float* dup = ws + static_cast<size_t>(b) * h * n_upd * HD * HD;
+  cudaError_t err;
+  if (n_upd > 0) {
+    const int bytes = state_floats<HD>() * 4;
+    err = cudaFuncSetAttribute(wkv_bwd_state<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return err;
+    wkv_bwd_state<HD><<<dim3(HD / jr<HD>(), b * h), state_threads<HD>(),
+                         bytes, stream>>>(r, dy, w, gs, t_len, h, n_upd);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int bytes = bwd_floats<HD>() * 4;
+  err = cudaFuncSetAttribute(wkv_bwd<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
   if (err != cudaSuccess) return err;
-  const long long n4 = plane / 4;
-  const long long want = (n4 + 255) / 256;
-  const int blocks = static_cast<int>(want < 4096 ? (want > 0 ? want : 1)
-                                                  : 4096);
-  wkv_bwd_reduce<<<blocks, 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(dvp), dup, reinterpret_cast<float4*>(dv),
-      du, n4, tiles, b, h * HD);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(bwd_tiles<HD>(), n_chunks, b * h);
+  cfg.blockDim = dim3(BWD_THREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = bwd_tiles<HD>();
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const float* gsc = gs;
+  err = cudaLaunchKernelEx(&cfg, wkv_bwd<HD>, r, k, v, w, u, dy, states,
+                           gsc, dr, dk, dv, dw, dup, t_len, h, n_upd);
+  if (err != cudaSuccess) return err;
+  wkv_bwd_du<<<(h * HD + 255) / 256, 256, 0, stream>>>(dup, du, b, h, HD,
+                                                        n_chunks);
   return cudaGetLastError();
 }
 
@@ -898,6 +1188,17 @@ cudaError_t launch_bwd_hd(int hd, const float* r, const float* k,
     case 128: return launch_bwd<128>(r, k, v, w, u, dy, states, dr, dk, dv,
                                      dw, du, ws, b, t_len, h, s);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory (bytes) of one block of a kernel at HD (see
+// rwkv6_scan_smem_bytes).
+template <int HD> int smem_of(int which) {
+  switch (which) {
+    case 0: return 4 * state_floats<HD>();
+    case 1: return 4 * out_floats<HD>();
+    case 2: return 4 * bwd_floats<HD>();
+    default: return -1;
   }
 }
 
@@ -937,27 +1238,29 @@ int rwkv6_scan_launch(const void* r, const void* k, const void* v,
 }
 
 // Dynamic shared memory (bytes) of one block of each kernel at hd
-// (which: 0 the state pass, 1 the output pass; either dtype); -1 if not
-// built.
+// (which: 0 the state passes, the forward's and the backward's G pass; 1
+// the output pass; 2 the backward's chunk pass, wkv_bwd); -1 if not built.
 int rwkv6_scan_smem_bytes(int hd, int which) {
   switch (hd) {
-    case 16: return 4 * (which ? out_floats<16>() : state_floats<16>());
-    case 32: return 4 * (which ? out_floats<32>() : state_floats<32>());
-    case 64: return 4 * (which ? out_floats<64>() : state_floats<64>());
-    case 128: return 4 * (which ? out_floats<128>() : state_floats<128>());
+    case 16: return smem_of<16>(which);
+    case 32: return smem_of<32>(which);
+    case 64: return smem_of<64>(which);
+    case 128: return smem_of<128>(which);
     default: return -1;
   }
 }
 
-// Floats of the fp32 workspace the backward needs: one (b, t_len, h, hd)
-// dv partial per 16-row tile of the state, and (b, h, hd) du partials.
+// Floats of the fp32 workspace the backward needs: G at the end of every
+// chunk but the last, (b, h, ceil(t_len / C) - 1, hd, hd), then du's
+// partials, (b, h, ceil(t_len / C), hd).
 long long rwkv6_scan_bwd_workspace_floats(int b, int t_len, int h, int hd) {
-  return static_cast<long long>(hd / BWD_ROWS) * b * t_len * h * hd
-         + static_cast<long long>(b) * h * hd;
+  const long long n_chunks = (t_len + C - 1) / C;
+  return static_cast<long long>(b) * h * (n_chunks - 1) * hd * hd
+         + static_cast<long long>(b) * h * n_chunks * hd;
 }
 
-// Launches the backward (wkv_bwd, then wkv_bwd_reduce) on `stream` and
-// returns the cudaError_t of the launch (0 on success).  fp32 only.
+// Launches the backward (wkv_bwd_state, wkv_bwd, wkv_bwd_du) on `stream`
+// and returns the cudaError_t of the launch (0 on success).  fp32 only.
 // r, k, v, w, dy, dr, dk, dv, dw: (b, t_len, h, hd) contiguous, 16-byte
 // aligned; u, du: (h, hd); states: the forward's workspace (chunk states,
 // rwkv6_scan_workspace_floats floats); ws: fp32 workspace of ws_floats >=
@@ -977,6 +1280,23 @@ int rwkv6_scan_bwd_launch(const void* r, const void* k, const void* v,
       hd, f(r), f(k), f(v), f(w), f(u), f(dy), f(states), o(dr), o(dk),
       o(dv), o(dw), o(du), o(ws), b, t_len, h,
       static_cast<cudaStream_t>(stream)));
+}
+
+// Copies the backward's phase clocks (see BWD_PHASE) into `out` (64 * 8 *
+// 8 long longs) and its blocks' SMs and times into `blocks` (3 *
+// BWD_BLOCKS); -1 in a build without -DRWKV6_BWD_STAMPS.
+int rwkv6_scan_bwd_stamps(long long* out, unsigned long long* blocks) {
+#ifdef RWKV6_BWD_STAMPS
+  cudaError_t err = cudaMemcpyFromSymbol(out, bwd_stamps,
+                                         sizeof(bwd_stamps));
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(blocks, bwd_blocks, sizeof(bwd_blocks));
+  return static_cast<int>(err);
+#else
+  (void)out;
+  (void)blocks;
+  return -1;
+#endif
 }
 
 const char* rwkv6_scan_error_string(int code) {

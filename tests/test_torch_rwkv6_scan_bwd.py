@@ -3,14 +3,16 @@ plain forward in float64 and against ``jax.grad`` of the reference's
 oracle in fp32; a torch-op copy of the CUDA backward kernel's
 decomposition held to both; the autograd Function on the CPU.
 
-The CUDA backward (``wkv_bwd`` + ``wkv_bwd_reduce`` in ``rwkv6_scan.cu``)
-walks each head's chunks in reverse from the forward's chunk states.
-:func:`_kernel_order` repeats it in torch ops: the chunk states as the
-forward's state pass makes them (compensated), S stepped forward per
-sub-chunk by fmaf, G as a compensated pair, the row sums as per-thread
-fmaf chains joined by the xor shuffles' tree, dv summed over row pairs,
-then the block's pairs, then the row tiles in order, du over t and then
-over b.  Its constants are read from the source."""
+The CUDA backward (``wkv_bwd_state``, ``wkv_bwd`` and ``wkv_bwd_du`` in
+``rwkv6_scan.cu``) writes G = dL/dS at every chunk's end in a reverse
+state pass, then walks every chunk at once from the forward's chunk
+states and those.  :func:`_kernel_order` repeats it in torch ops: both
+sets of chunk states as the state passes make them (compensated), S
+stepped forward per sub-chunk by fmaf, G walked back from its chunk end
+in plain fp32, the row sums as per-thread fmaf chains joined by the xor
+shuffles' tree, dv summed over row pairs, then the block's pairs, then the
+row tiles in order, du over a chunk's steps, then over chunks, then over
+b.  Its constants are read from the source."""
 import re
 
 import jax
@@ -117,46 +119,72 @@ def _fma(x, y, z):
     return (x.double() * y.double() + z.double()).float()
 
 
-def _chunk_states(k, v, w, c=CHUNK, sub=SUB_CHUNK):
-    """The states wkv_state writes: S0 of each chunk (zero for the first),
-    fp32, (B, H, hd, hd) each; S kept as a compensated pair, the running
-    products of w from the chunk's end, (kR)^T v joined `sub` steps at a
-    time (tests/test_torch_rwkv6_scan.py::_chunked)."""
-    b, t, h, hd = k.shape
-    nc = -(-t // c)
+def _chunks(x, nc, c=CHUNK):
+    """(B, T, H, hd) -> fp32 (B, H, nc, c, hd), zero past T as the
+    kernels' staging fills it."""
+    b, t, h, hd = x.shape
+    x = torch.nn.functional.pad(x.float().permute(0, 2, 1, 3),
+                                (0, 0, 0, nc * c - t))
+    return x.reshape(b, h, nc, c, hd)
 
-    def chunks(x):
-        x = torch.nn.functional.pad(x.float().permute(0, 2, 1, 3),
-                                    (0, 0, 0, nc * c - t))
-        return x.reshape(b, h, nc, c, hd)
-    kc, vc, wc = (chunks(x) for x in (k, v, w))
-    kr = torch.empty_like(kc)
-    p = torch.ones_like(kc[..., 0, :])
-    for s in range(c - 1, -1, -1):
-        kr[..., s, :] = kc[..., s, :] * p
+
+def _chunk_states(a, x, w, reverse=False, c=CHUNK, sub=SUB_CHUNK):
+    """The chunk states one of the two state walks writes, fp32, (B, H,
+    hd, hd) each, one per chunk (tests/test_torch_rwkv6_scan.py::_chunked
+    for the forward's): the state kept as a compensated pair, the running
+    products of w, (a P)^T x joined `sub` steps at a time.
+
+    Forward (wkv_state; a = k, x = v): S0 of each chunk, zero for the
+    first; the products R_s of w after s to the chunk's end.  Reverse
+    (wkv_bwd_state; a = r, x = dy): G_end, dL/dS at each chunk's end, zero
+    for the last, walked from the last chunk; the products E_t of w before
+    t from the chunk's start."""
+    b, t, h, hd = a.shape
+    nc = -(-t // c)
+    ac, xc, wc = (_chunks(y, nc, c) for y in (a, x, w))
+    ap = torch.empty_like(ac)
+    p = torch.ones_like(ac[..., 0, :])
+    for s in (range(c) if reverse else range(c - 1, -1, -1)):
+        ap[..., s, :] = ac[..., s, :] * p
         p = p * wc[..., s, :]
     st = torch.zeros((b, h, hd, hd))
     e = torch.zeros_like(st)
     out = [st.clone()]
-    for i in range(nc - 1):
+    for i in (range(nc - 1, 0, -1) if reverse else range(nc - 1)):
         pi = p[:, :, i, :, None].expand_as(st)
         hi = pi * st
         err = (pi.double() * st.double() - hi.double()).float()
         e, st = (pi.double() * e.double() - err.double()).float(), hi
         for j in range(0, c, sub):
-            d = (kr[:, :, i, j:j + sub].transpose(-1, -2)
-                 @ vc[:, :, i, j:j + sub])
+            d = (ap[:, :, i, j:j + sub].transpose(-1, -2)
+                 @ xc[:, :, i, j:j + sub])
             y = d - e
             tv = st + y
             e, st = (tv - st) - y, tv
         out.append(st - e)
-    return out
+    return out[::-1] if reverse else out
+
+
+def _g_ends_float64(r, w, dy):
+    """G_end of every chunk but the last, dL/dS at the chunk's end, from
+    the float64 plain backward's reverse recurrence (G = diag(w) G + r^T
+    dy from zero at T)."""
+    b, t, h, hd = r.shape
+    rf, wf, df = (x.double() for x in (r, w, dy))
+    g = torch.zeros((b, h, hd, hd), dtype=torch.float64)
+    out = {}
+    for i in range(t - 1, 0, -1):
+        g = wf[:, i, :, :, None] * g + rf[:, i, :, :, None] \
+            * df[:, i, :, None, :]
+        if i % CHUNK == 0:
+            out[i // CHUNK - 1] = g
+    return [out[c] for c in range(len(out))]
 
 
 def _lane_sum(terms_a, terms_b, cpt):
     """Each thread's fmaf chain over its cpt columns, then the sum over a
-    row's 16 lanes as xor shuffles 8, 4, 2, 1 take it; (..., hd) ->
-    (...)."""
+    row's 16 lanes as xor shuffles 8, 4, 2, 1 take it (the kernel's joint
+    tree for dk, dw, dr adds the same pairs); (..., hd) -> (...)."""
     a = terms_a.reshape(*terms_a.shape[:-1], BWD_LANES, cpt)
     bb = terms_b.reshape(*terms_b.shape[:-1], BWD_LANES, cpt)
     acc = torch.zeros(a.shape[:-1])
@@ -169,77 +197,97 @@ def _lane_sum(terms_a, terms_b, cpt):
 
 
 def _kernel_order(r, k, v, w, u, dy):
-    """What wkv_bwd and wkv_bwd_reduce compute, in their order, in fp32
-    torch ops: (dr, dk, dv, dw, du)."""
+    """What wkv_bwd_state, wkv_bwd and wkv_bwd_du compute, in their order,
+    in fp32 torch ops: (dr, dk, dv, dw, du).  Every chunk at once, as the
+    chunk pass's grid runs them: S from the forward's chunk state and G
+    from its G_end, sub-chunks of BWD_HIST / cpt steps from the last, S
+    stepped forward by fmaf to each and walked back with G in plain fp32;
+    dv summed over row pairs, the block's pairs, then the row tiles in
+    order; du over a chunk's steps from the last, then over chunks, then
+    over batch rows."""
     b, t, h, hd = r.shape
     cpt = hd // BWD_LANES
     sb, tiles, pairs = BWD_HIST // cpt, hd // BWD_ROWS, BWD_ROWS // 2
     nc = -(-t // C)
-    states = _chunk_states(k, v, w)
-    rf, kf, vf, wf, df = (x.float().permute(0, 2, 1, 3)
-                          for x in (r, k, v, w, dy))    # (B, H, T, hd)
-    uf = u.float()[None, :, :, None]                     # (1, H, hd, 1)
+    s0 = torch.stack(_chunk_states(k, v, w), dim=2)      # (B, H, nc, hd, hd)
+    g = torch.stack(_chunk_states(r, dy, w, reverse=True), dim=2)
+    rf, kf, vf, wf, df = (_chunks(x, nc) for x in (r, k, v, w, dy))
+    uf = u.float()[None, :, None, :, None]               # (1, H, 1, hd, 1)
+    dyv = _lane_sum(df, vf, cpt)                          # (B, H, nc, C)
 
     def step(s, i):
-        return _fma(wf[:, :, i, :, None], s,
-                    kf[:, :, i, :, None] * vf[:, :, i, None, :])
+        return _fma(wf[..., i, :, None], s,
+                    kf[..., i, :, None] * vf[..., i, None, :])
 
-    g = torch.zeros((b, h, hd, hd))
-    ge = torch.zeros_like(g)
-    dr, dk, dw = (torch.zeros((b, h, t, hd)) for _ in range(3))
-    dvp = torch.zeros((tiles, b, h, t, hd))
-    du = torch.zeros((b, h, hd))
-    for ch in range(nc - 1, -1, -1):
-        t0 = ch * C
-        for m in range(C // sb - 1, -1, -1):
-            ts0 = t0 + m * sb
-            if ts0 >= t:
-                continue
-            s = states[ch]
-            for i in range(t0, ts0):
-                s = step(s, i)
-            hist = []
-            for q in range(sb):
-                hist.append(s)
-                if q + 1 < sb and ts0 + q < t:
-                    s = step(s, ts0 + q)
-            for q in range(sb - 1, -1, -1):
-                i = ts0 + q
-                if i >= t:
-                    continue
-                ri, ki, wi = (x[:, :, i, :, None] for x in (rf, kf, wf))
-                vv, dd = vf[:, :, i, None, :], df[:, :, i, None, :]
-                uri = uf * ri
-                gv = g - ge
-                gt = _fma(uri, dd, gv)
-                a_dk = _lane_sum(gt, vv.expand_as(gt), cpt)
-                a_dw = _lane_sum(gv, hist[q], cpt)
-                a_dr = _lane_sum(dd.expand_as(gt), hist[q], cpt)
-                a_dyv = _lane_sum(dd.expand_as(gt), vv.expand_as(gt), cpt)
-                dr[:, :, i] = _fma(uf[..., 0] * ki[..., 0], a_dyv, a_dr)
-                dk[:, :, i], dw[:, :, i] = a_dk, a_dw
-                du = _fma(ri[..., 0] * ki[..., 0], a_dyv, du)
-                dvv = (gt * ki).reshape(b, h, tiles, pairs, 2, hd)
-                dvv = dvv[..., 0, :] + dvv[..., 1, :]
-                acc = torch.zeros((b, h, tiles, hd))
-                for pp in range(pairs):
-                    acc = acc + dvv[:, :, :, pp]
-                dvp[:, :, :, i] = acc.permute(2, 0, 1, 3)
-                hi = wi * g
-                ge = _fma(wi, ge, -(_fma(wi, g, -hi)))
-                g = hi
-                yv = ri * dd - ge
-                tv = g + yv
-                ge = (tv - g) - yv
-                g = tv
-    dv = dvp[0]
-    for tl in range(1, tiles):
-        dv = dv + dvp[tl]
-    dus = du[0]
-    for bb in range(1, b):
-        dus = dus + du[bb]
-    back = [x.permute(0, 2, 1, 3).to(r.dtype) for x in (dr, dk, dv, dw)]
-    return back + [dus]
+    dr, dk, dw = (torch.zeros((b, h, nc, C, hd)) for _ in range(3))
+    dvt = torch.zeros((tiles, b, h, nc, C, hd))
+    dup = torch.zeros((b, h, nc, hd))
+    for m in range(C // sb - 1, -1, -1):
+        s = s0
+        for i in range(m * sb):
+            s = step(s, i)
+        hist = []
+        for q in range(sb):
+            hist.append(s)
+            if q + 1 < sb:
+                s = step(s, m * sb + q)
+        for q in range(sb - 1, -1, -1):
+            i = m * sb + q
+            ri, ki, wi = (x[..., i, :, None] for x in (rf, kf, wf))
+            vv, dd = vf[..., i, None, :], df[..., i, None, :]
+            gt = _fma(uf * ri, dd, g)
+            dk[..., i, :] = _lane_sum(gt, vv.expand_as(gt), cpt)
+            dw[..., i, :] = _lane_sum(g, hist[q], cpt)
+            a_dr = _lane_sum(dd.expand_as(g), hist[q], cpt)
+            dr[..., i, :] = _fma(uf[..., 0] * ki[..., 0],
+                                 dyv[..., i, None], a_dr)
+            dup = _fma(ri[..., 0] * ki[..., 0], dyv[..., i, None], dup)
+            dvv = (gt * ki).reshape(b, h, nc, tiles, pairs, 2, hd)
+            dvv = dvv[..., 0, :] + dvv[..., 1, :]
+            acc = torch.zeros((b, h, nc, tiles, hd))
+            for pp in range(pairs):
+                acc = acc + dvv[..., pp, :]
+            dvt[..., i, :] = acc.permute(3, 0, 1, 2, 4)
+            g = _fma(wi, g, ri * dd)
+    dv = torch.zeros((b, h, nc, C, hd))
+    for tl in range(tiles):
+        dv = dv + dvt[tl]
+    du = torch.zeros((h, hd))
+    for bb in range(b):
+        s = torch.zeros((h, hd))
+        for ci in range(nc):
+            s = s + dup[bb, :, ci]
+        du = du + s
+    back = [x.reshape(b, h, nc * C, hd)[:, :, :t].permute(0, 2, 1, 3)
+            .to(r.dtype) for x in (dr, dk, dv, dw)]
+    return back + [du]
+
+
+# max |G - G_float64| over max |G_float64| of the reverse chunk pass:
+# compensated, its rounding is a few fp32 ulps of G (4.3e-7 at most over
+# these cases); an uncompensated sum would drift with T where w = 1
+G_TOL = 2e-6
+
+
+@pytest.mark.parametrize("t", [CHUNK + 1, 150, 1030])
+@pytest.mark.parametrize("regime", W_REGIMES)
+def test_g_chunk_states_match_float64(regime, t):
+    """The backward's reverse chunk pass (wkv_bwd_state), as the kernel
+    forms it (running products E_t from each chunk's start, a compensated
+    pair, (r E)^T dy joined 16 steps at a time), against G at each chunk's
+    end as the float64 plain backward steps it, in every regime of w, at
+    ragged T, and at T 1030 (w = 1 there: G grows with T)."""
+    arrs = _inputs(2, t, 2, 32, seed=t, regime=regime)
+    r, k, v, w, u, dy = _torch(arrs)
+    got = _chunk_states(r, dy, w, reverse=True)
+    r64, _, _, w64, _, dy64 = _torch(arrs, torch.float64)
+    want = _g_ends_float64(r64, w64, dy64)
+    assert len(got) == len(want) + 1 == -(-t // CHUNK)
+    assert torch.equal(got[-1], torch.zeros_like(got[-1]))
+    scale = max(float(x.abs().max()) for x in want)
+    for c, (g, x) in enumerate(zip(got, want)):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), c
+        assert float((g.double() - x).abs().max()) <= G_TOL * scale, c
 
 
 @pytest.mark.parametrize("t", [1, 37, CHUNK, 150])

@@ -94,12 +94,16 @@ def test_kernel_is_deterministic(cuda, hd):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def test_workspace_is_a_dv_partial_per_row_tile(cuda):
+def test_workspace_is_the_g_states_and_du_partials(cuda):
+    """G at every chunk's end but the last, (B, H, ceil(T/C) - 1, hd, hd),
+    and du's partials, (B, H, ceil(T/C), hd): no dv workspace."""
     from repro_torch.kernels.rwkv6_scan.ops import _library
     lib = _library()
     for hd in HEAD_DIMS:
-        assert lib.rwkv6_scan_bwd_workspace_floats(2, 100, 3, hd) == \
-            (hd // 16) * 2 * 100 * 3 * hd + 2 * 3 * hd
+        for t in (1, CHUNK, 100, 4096):
+            n = -(-t // CHUNK)
+            assert lib.rwkv6_scan_bwd_workspace_floats(2, t, 3, hd) == \
+                2 * 3 * (n - 1) * hd * hd + 2 * 3 * n * hd
 
 
 def test_backward_needs_the_chunk_states(cuda):
