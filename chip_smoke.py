@@ -19,10 +19,11 @@ line is printed:
    instantiations) and registers and spills of ``fa_bwd_dot``;
    each rwkv6_scan instantiation's (state and output pass) registers,
    spills and shared memory; each ssm_scan (``ssm_fwd``) instantiation's
-   registers, spills and shared memory; the scans' backward kernels'
-   registers and spills (``wkv_bwd_state`` and ``wkv_bwd`` per head dim,
-   with ``wkv_bwd``'s shared memory, ``ssm_bwd_state`` and ``ssm_bwd``
-   per state dim, both reductions);
+   registers, spills and shared memory (the no-grad ones and the fp32
+   saving ones that write the backward's checkpoints); the scans'
+   backward kernels' registers and spills (``wkv_bwd_state`` and
+   ``wkv_bwd`` per head dim, with ``wkv_bwd``'s shared memory, ``ssm_bwd``
+   per state dim with its shared memory, both reductions);
 2. each kernel against its plain PyTorch version on the card, at the
    reference's own kernel tolerances, at small and ragged batches and at
    the sweep's chunk shape; ppa_eval's one launch for both GPT-3 workloads
@@ -203,14 +204,16 @@ line is printed:
    backward kernels at the full-width training shapes, rwkv6_scan_bwd at
    (1, 4096, 64, 64) in four w regimes (U(0.3, 0.99), the model's, zeros
    and denormals, w = 1) and ssm_scan_bwd at (1, 4096, 16384, 16) in three
-   dt regimes (the test's, the model's, a long memory), against their
-   float64 plain backward at 5e-5 of each gradient's max |g| (ssm's long
-   memory: 1e-4 against float64, where fp32 itself lands, and 5e-5
-   against the fp32 plain backward), with the fp32 plain backward's own
-   distance printed; two launches bit for bit; ms per launch and each
-   pass's device time, the bound from *_bwd_cost and the plain
-   backward's ms; (h) rwkv6-7b trains: at full width cut to 2 layers, B
-   1, S 4096, fp32, one loss.backward() through rwkv6_scan's backward
+   dt regimes (the test's, the model's, a long memory), each from the
+   checkpoints its forward kernel wrote, against their float64 plain
+   backward at 5e-5 of each gradient's max |g| (ssm's long memory: 1e-4
+   against float64, where fp32 itself lands, and 5e-5 against the fp32
+   plain backward), with the fp32 plain backward's own distance printed;
+   two launches bit for bit; ms per launch and each pass's device time,
+   the bound from *_bwd_cost and the plain backward's ms, the forward's
+   ms (ssm: the saving forward beside the no-grad one); (h) rwkv6-7b
+   trains: at full width cut to 2 layers, B 1, S 4096, fp32, one
+   loss.backward() through rwkv6_scan's backward
    kernel and one with it routed to rwkv6_scan_bwd_plain, every gradient
    within 1e-3 of max |g|; then full width at 16 layers (the deepest
    whose fp32 weights, gradients and AdamW moments fit one card), B 1, S
@@ -777,41 +780,41 @@ def report_rwkv_build(build_mod, rwkv_ops) -> None:
 
 def report_ssm_build(torch, build_mod, ssm_ops) -> None:
     """Registers and spills (ptxas) and dynamic shared memory per block of
-    each ssm_fwd instantiation."""
+    each ssm_fwd instantiation: the no-grad ones (fp32, bf16) and the fp32
+    ones that also write the backward's checkpoints ("saving")."""
     import re
-    name = re.compile(r"ssm_fwdI(f|13__nv_bfloat16)Li(\d+)E")
+    name = re.compile(r"ssm_fwdI(f|13__nv_bfloat16)Li(\d+)ELb([01])E")
 
     def inst(line):
         m = name.search(line)
         return m and ("float32" if m.group(1) == "f" else "bfloat16",
-                      int(m.group(2)))
+                      int(m.group(2)), m.group(3) == "1")
     if "ssm_scan" not in build_mod.BUILD_LOGS:
         log("[1]   ssm_scan was built by an earlier run: ptxas not "
             "reported")
         return
     info = ptxas_by_entry(build_mod.BUILD_LOGS["ssm_scan"], inst)
     dts = _dtypes(torch)
-    for dn, n in sorted(info):
-        i = info[(dn, n)]
-        log(f"[1]   ssm_fwd<{dn}, {n}>: {i.get('regs')} registers, "
-            f"{i.get('spills')}; shared memory "
+    for dn, n, save in sorted(info):
+        i = info[(dn, n, save)]
+        log(f"[1]   ssm_fwd<{dn}, {n}{', saving' if save else ''}>: "
+            f"{i.get('regs')} registers, {i.get('spills')}; shared memory "
             f"{ssm_ops.smem_bytes(n, dts[dn])} B")
-    check(len(info) == 10, f"{len(info)} ssm_scan instantiations "
-          f"reported, want 10")
+    check(len(info) == 15, f"{len(info)} ssm_scan forward instantiations "
+          f"reported, want 15 (10 no-grad, 5 saving)")
 
 
-def report_scan_bwd_build(build_mod, rwkv_ops) -> None:
+def report_scan_bwd_build(build_mod, rwkv_ops, ssm_ops) -> None:
     """Registers and spills (ptxas) of each instantiation of the scans'
     backward kernels: rwkv6_scan's wkv_bwd_state and wkv_bwd (one each per
     head dim; wkv_bwd's dynamic shared memory per block too) and
-    wkv_bwd_du, ssm_scan's ssm_bwd_state and ssm_bwd (one each per N) and
-    ssm_bwd_reduce."""
+    wkv_bwd_du, ssm_scan's ssm_bwd (one per N, with its dynamic shared
+    memory per block) and ssm_bwd_reduce."""
     import re
     for src, pat, want in (
             ("rwkv6_scan", r"(wkv_bwd_state|wkv_bwd)ILi(\d+)E|(wkv_bwd_du)E",
              9),
-            ("ssm_scan", r"(ssm_bwd_state|ssm_bwd)ILi(\d+)E|"
-                         r"(ssm_bwd_reduce)E", 11)):
+            ("ssm_scan", r"(ssm_bwd)ILi(\d+)E|(ssm_bwd_reduce)E", 6)):
         name = re.compile(pat)
 
         def inst(line):
@@ -826,7 +829,9 @@ def report_scan_bwd_build(build_mod, rwkv_ops) -> None:
         for kern, n in sorted(info):
             i = info[(kern, n)]
             smem = (f"; shared memory {rwkv_ops.smem_bytes(n)['bwd']} B"
-                    if kern == "wkv_bwd" else "")
+                    if kern == "wkv_bwd" else
+                    f"; shared memory {ssm_ops.bwd_smem_bytes(n)} B"
+                    if kern == "ssm_bwd" else "")
             log(f"[1]   {kern}{f'<{n}>' if n else ''}: {i.get('regs')} "
                 f"registers, {i.get('spills')}{smem}")
         check(len(info) == want, f"{len(info)} {src} backward "
@@ -2577,7 +2582,11 @@ RWKV_BWD_PASSES = ("wkv_bwd_state<", "wkv_bwd<", "wkv_bwd_du")
 # steps) at RWKV_BWD, fp32, in earlier chip runs and in bench.py beside
 # this kernel (PERF.md section 6)
 RWKV_BWD_EARLIER_MS = "4.767-4.960"
-SSM_BWD_PASSES = ("ssm_bwd_state<", "ssm_bwd<", "ssm_bwd_reduce")
+SSM_BWD_PASSES = ("ssm_bwd<", "ssm_bwd_reduce")
+# the first ssm backward (a state pass of its own, each lane's walk reading
+# its inputs from global memory) at SSM_BWD, fp32, in earlier chip runs
+# and in ssm_scan/bench.py --bwd beside this kernel (PERF.md section 6)
+SSM_BWD_EARLIER_MS = "8.190-8.490"
 # 16h: rwkv6-7b at full width and the largest depth whose fp32 weights,
 # gradients and two AdamW moments (16 B a parameter) fit one 80 GB card:
 # 537 M (embedding + untied head) + 218.1 M a layer; 16 layers are 4.03 B
@@ -3049,9 +3058,10 @@ def phase16g_scan_bwd(torch, dev) -> dict:
             dy = torch.randn(uu.shape, device=dev, generator=torch.Generator(
                 device=dev).manual_seed(1))
             args = (uu, dt, a, bm, cm, dy)
+            _, states = ss._forward(uu, dt, a, bm, cm, save=True)
 
             def kernel():
-                return ss.ssm_scan_bwd(*args)
+                return ss.ssm_scan_bwd(*args, states=states)
             want = ss.ssm_scan_bwd_plain(
                 *(x.double() if x is not a else x for x in args))
             plain = ss.ssm_scan_bwd_plain(*args)
@@ -3100,12 +3110,17 @@ def phase16g_scan_bwd(torch, dev) -> dict:
                 extra = (f"; the first, T-walking kernel "
                          f"{RWKV_BWD_EARLIER_MS} ms in earlier runs")
             else:
-                f_ms = kernel_ms(torch, lambda: ss._forward(*args[:5]),
-                                 iters=10)
+                f_ms = kernel_ms(torch, lambda: ss._forward(
+                    *args[:5], save=True), iters=10)
+                nograd_ms = kernel_ms(torch, lambda: ss._forward(*args[:5]),
+                                      iters=10)
                 ops, nbytes, exps = ss.ssm_scan_bwd_cost(*SSM_BWD, 4)
                 extra = (f"; beside it {exps / 1e9:.2f} G exps on the SFU "
                          f"at 16 per clock per SM: "
-                         f"{exps / SFU_EXPS_PER_S * 1e3:.4f} ms")
+                         f"{exps / SFU_EXPS_PER_S * 1e3:.4f} ms; the first, "
+                         f"state-pass kernel {SSM_BWD_EARLIER_MS} ms in "
+                         f"earlier runs; the saving forward {f_ms:.3f} ms "
+                         f"against the no-grad {nograd_ms:.3f} ms")
             bnd = _scan_bwd_bound(ops, nbytes)
             row.update(ms=k_ms, plain_ms=p_ms, bound_ms=bnd["bound_ms"],
                        bound_by=bnd["bound_by"], library_ms=None,
@@ -3253,7 +3268,10 @@ def phase16i_jamba_grads(torch, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     res = _grad_route(
         torch, model, batch, ss, "ssm_scan_bwd",
-        lambda u, dt, a, b, c, dy: ss.ssm_scan_bwd_plain(u, dt, a, b, c, dy),
+        # the plain backward steps its own checkpoints; the kernel
+        # forward's, which SsmScanFn passes, are not used on this route
+        lambda u, dt, a, b, c, dy, states=None: ss.ssm_scan_bwd_plain(
+            u, dt, a, b, c, dy),
         "16i", _launches(flash_attention=2, flash_attention_bwd=1,
                          ssm_scan=2, ssm_scan_bwd=1),
         _launches(flash_attention=2, flash_attention_bwd=1, ssm_scan=2),
@@ -3759,7 +3777,7 @@ def main() -> int:
     report_fa_build(torch, _build, fa_ops)
     report_rwkv_build(_build, rwkv_ops)
     report_ssm_build(torch, _build, ssm_ops)
-    report_scan_bwd_build(_build, rwkv_ops)
+    report_scan_bwd_build(_build, rwkv_ops, ssm_ops)
 
     # ---- 2. kernel vs plain on the card -----------------------------------
     wls = {"ttft": gpt3_layer_prefill(), "tpot": gpt3_layer_decode()}

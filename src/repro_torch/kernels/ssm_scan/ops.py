@@ -7,7 +7,9 @@ kernel in ``ssm_scan.cu`` (built with nvcc at first use) on the current
 stream and counts the launch in ``ssm_scan.launches``; on a CPU tensor it
 runs :func:`ssm_scan_plain`, the same recurrence in torch ops.  When a
 gradient is wanted (grad mode on and an input that requires grad) the
-call goes through :class:`SsmScanFn`, whose backward is
+call goes through :class:`SsmScanFn`: its forward launches the kernel's
+fp32 instantiation that also writes the backward's checkpoints (h every
+:data:`BWD_CHUNK` steps) and keeps them, and its backward is
 :func:`ssm_scan_bwd`: the backward kernels of the same source on a CUDA
 tensor (counted in ``ssm_scan_bwd.launches``; fp32 only) and
 :func:`ssm_scan_bwd_plain` on a CPU tensor.  There is no fallback between
@@ -23,10 +25,9 @@ Replaces the TPU Pallas kernel ``_ssm_kernel`` / ``ssm_scan_fwd`` in
 limits (any T and D); see the note at the top of ``ssm_scan.cu`` for what
 bounds it on an H100 and how its design meets it.  The reference has no
 backward kernel: JAX differentiates the ``lax.scan`` of its oracle.  The
-backward here saves nothing in the forward (whose no-grad launch stays as
-it is): a state pass of its own writes h every :data:`BWD_CHUNK` steps,
-then a reverse pass recomputes each chunk's states from those (the note
-above ``ssm_bwd`` in the source).
+backward walks back from the forward's checkpoints, recomputing each
+chunk's states from them (the note above ``ssm_bwd`` in the source); the
+no-grad forward is compiled without the checkpoint stores.
 """
 from __future__ import annotations
 
@@ -43,8 +44,8 @@ FLAGS = TOLERANCE_FLAGS
 STATE_DIMS = (4, 8, 16, 32, 64)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}     # the kernel's
 PLAIN_DTYPES = (*DTYPES, torch.float64)            # the plain version's
-# ssm_scan.cu's BWD_C: steps between the states the backward's state pass
-# writes (the plain backward keeps the same checkpoints)
+# ssm_scan.cu's BWD_C: steps between the checkpoints the saving forward
+# writes (the plain versions keep the same ones)
 BWD_CHUNK = 64
 # the backward takes fp32 only; a bf16 backward is queued (ROADMAP.md §2)
 BWD_DTYPE_MSG = ("ssm_scan: the backward kernel takes float32 (the model "
@@ -105,48 +106,66 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 ssm_scan.launches = 0
 
 
-def _forward(u, dt, a, b, c) -> torch.Tensor:
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
+def _forward(u, dt, a, b, c, save: bool = False):
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor.
+    ``save=True`` (the forward a gradient takes; fp32 on the card) returns
+    (y, the backward's checkpoints): h after every :data:`BWD_CHUNK` steps
+    but the last, (B, ceil(T / BWD_CHUNK) - 1, D, N), from the kernel's
+    instantiation that also stores them (fp32), or from the plain version
+    (in its compute dtype)."""
     if u.device.type == "cpu":
-        return ssm_scan_plain(u, dt, a, b, c)
+        return ssm_scan_plain(u, dt, a, b, c, states=save)
     if u.device.type != "cuda":
         raise ValueError(f"ssm_scan: unsupported device {u.device}")
     if u.dtype not in DTYPES:
         raise TypeError(f"ssm_scan: the kernel takes {list(DTYPES)}, got "
                         f"{u.dtype}")
+    if save and u.dtype != torch.float32:
+        raise TypeError(f"{BWD_DTYPE_MSG}; got {u.dtype}")
     if u.shape[0] > 65535:
         raise ValueError(f"ssm_scan: B = {u.shape[0]} exceeds the grid")
-    y = _launch(_library(), u, dt, a, b, c)
+    out = _launch(_library(), u, dt, a, b, c, save)
     ssm_scan.launches += 1
-    return y
+    return out
+
+
+def _states_shape(u, a) -> tuple:
+    bsz, t, d = u.shape
+    return (bsz, -(-t // BWD_CHUNK) - 1, d, a.shape[1])
 
 
 class SsmScanFn(torch.autograd.Function):
-    """ssm_scan with a gradient: the forward keeps its inputs (the
-    backward recomputes the states); the backward is
-    :func:`ssm_scan_bwd`."""
+    """ssm_scan with a gradient: the forward keeps its inputs and the
+    checkpoints its launch wrote; the backward is :func:`ssm_scan_bwd`
+    from them."""
 
     @staticmethod
     def forward(ctx, u, dt, a, b, c):
-        ctx.save_for_backward(u, dt, a, b, c)
-        return _forward(u, dt, a, b, c)
+        y, states = _forward(u, dt, a, b, c, save=True)
+        ctx.save_for_backward(u, dt, a, b, c, states)
+        return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        u, dt, a, b, c = ctx.saved_tensors
-        du, ddt, da, db, dc = ssm_scan_bwd(u, dt, a, b, c, dy.contiguous())
+        u, dt, a, b, c, states = ctx.saved_tensors
+        du, ddt, da, db, dc = ssm_scan_bwd(u, dt, a, b, c, dy.contiguous(),
+                                           states=states)
         return du, ddt, da.to(a.dtype), db, dc
 
 
-def ssm_scan_bwd(u, dt, a, b, c, dy):
+def ssm_scan_bwd(u, dt, a, b, c, dy, *, states=None):
     """(du, ddt, da, db, dc) of ssm_scan for the output gradient `dy` (u's
     shape and dtype): du, ddt, db, dc in u's dtype, da (D, N).
 
-    A CUDA tensor launches the backward kernels (a state pass, the reverse
-    pass and a fixed-order reduction; counted once in
-    ``ssm_scan_bwd.launches``; fp32 only); a CPU tensor runs
-    :func:`ssm_scan_bwd_plain`."""
+    `states`: the checkpoints the saving forward wrote (h after every
+    :data:`BWD_CHUNK` steps but the last, (B, ceil(T / BWD_CHUNK) - 1, D,
+    N), contiguous, fp32 on the card, the plain version's compute dtype on
+    the CPU), as :class:`SsmScanFn` keeps them; None steps them afresh
+    (on the card by the saving forward, counted in ``ssm_scan.launches``).
+    A CUDA tensor launches the backward kernels (the reverse walk and a
+    fixed-order reduction; counted once in ``ssm_scan_bwd.launches``; fp32
+    only); a CPU tensor runs :func:`ssm_scan_bwd_plain`."""
     _check(u, dt, a, b, c)
     if dy.shape != u.shape or dy.dtype != u.dtype or dy.device != u.device:
         raise ValueError(f"ssm_scan_bwd: dy must be u's {tuple(u.shape)} "
@@ -155,7 +174,7 @@ def ssm_scan_bwd(u, dt, a, b, c, dy):
     if not dy.is_contiguous():
         raise ValueError("ssm_scan_bwd: dy must be contiguous")
     if u.device.type == "cpu":
-        return ssm_scan_bwd_plain(u, dt, a, b, c, dy)
+        return ssm_scan_bwd_plain(u, dt, a, b, c, dy, states=states)
     if u.device.type != "cuda":
         raise ValueError(f"ssm_scan_bwd: unsupported device {u.device}")
     if u.dtype != torch.float32:
@@ -164,6 +183,10 @@ def ssm_scan_bwd(u, dt, a, b, c, dy):
     n = a.shape[1]
     if bsz > 65535:
         raise ValueError(f"ssm_scan_bwd: B = {bsz} exceeds the grid")
+    if states is None:
+        states = _forward(u, dt, a, b, c, save=True)[1]
+    else:
+        _check_states(u, a, states, torch.float32)
     lib = _library()
     du, ddt = torch.empty_like(u), torch.empty_like(u)
     db, dc = torch.empty_like(b), torch.empty_like(c)
@@ -174,9 +197,9 @@ def ssm_scan_bwd(u, dt, a, b, c, dy):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ssm_scan_bwd_launch(
             u.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-            c.data_ptr(), dy.data_ptr(), du.data_ptr(), ddt.data_ptr(),
-            da.data_ptr(), db.data_ptr(), dc.data_ptr(), ws.data_ptr(),
-            ws.numel(), bsz, t, d, n, stream)
+            c.data_ptr(), dy.data_ptr(), states.data_ptr(), du.data_ptr(),
+            ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+            ws.data_ptr(), ws.numel(), bsz, t, d, n, stream)
     if err:
         raise RuntimeError("ssm_scan backward launch failed: "
                            + lib.ssm_scan_error_string(err).decode())
@@ -187,20 +210,42 @@ def ssm_scan_bwd(u, dt, a, b, c, dy):
 ssm_scan_bwd.launches = 0
 
 
-def _launch(lib: ctypes.CDLL, u, dt, a, b, c) -> torch.Tensor:
-    """The kernel in `lib` on checked CUDA inputs, on the current stream."""
+def _check_states(u, a, states, dtype) -> None:
+    """`states` must be the checkpoints of u's forward: (B, ceil(T /
+    BWD_CHUNK) - 1, D, N) `dtype`, contiguous, on u's device."""
+    want = _states_shape(u, a)
+    if (not isinstance(states, torch.Tensor)
+            or tuple(states.shape) != want or states.dtype != dtype
+            or states.device != u.device or not states.is_contiguous()):
+        got = ((tuple(states.shape), states.dtype, str(states.device))
+               if isinstance(states, torch.Tensor) else type(states))
+        raise ValueError(f"ssm_scan_bwd: states must be the forward's "
+                         f"checkpoints, {want} {dtype} contiguous on "
+                         f"{u.device}; got {got}")
+
+
+def _launch(lib: ctypes.CDLL, u, dt, a, b, c, save: bool = False):
+    """The kernel in `lib` on checked CUDA inputs, on the current stream:
+    y, or with ``save`` (fp32) (y, checkpoints) from the instantiation
+    that also stores them."""
     bsz, t, d = u.shape
     y = torch.empty_like(u)
+    args = [x.data_ptr() for x in (u, dt, a, b, c, y)]
     with torch.cuda.device(u.device):     # the launch uses the current device
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ssm_scan_launch(
-            u.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-            c.data_ptr(), y.data_ptr(), bsz, t, d, a.shape[1],
-            DTYPES[u.dtype], stream)
+        if save:
+            hs = torch.empty(_states_shape(u, a), dtype=torch.float32,
+                             device=u.device)
+            err = lib.ssm_scan_fwd_states_launch(
+                *args, hs.data_ptr(), hs.numel(), bsz, t, d, a.shape[1],
+                stream)
+        else:
+            err = lib.ssm_scan_launch(*args, bsz, t, d, a.shape[1],
+                                      DTYPES[u.dtype], stream)
     if err:
         raise RuntimeError("ssm_scan launch failed: "
                            + lib.ssm_scan_error_string(err).decode())
-    return y
+    return (y, hs) if save else y
 
 
 def _library() -> ctypes.CDLL:
@@ -209,13 +254,18 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ssm_scan_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.ssm_scan_launch.restype = i
-        lib.ssm_scan_bwd_launch.argtypes = [p] * 12 + [
+        lib.ssm_scan_fwd_states_launch.argtypes = [p] * 7 + [
+            ctypes.c_longlong, i, i, i, i, p]
+        lib.ssm_scan_fwd_states_launch.restype = i
+        lib.ssm_scan_bwd_launch.argtypes = [p] * 13 + [
             ctypes.c_longlong, i, i, i, i, p]
         lib.ssm_scan_bwd_launch.restype = i
         lib.ssm_scan_bwd_workspace_floats.argtypes = [i, i, i, i]
         lib.ssm_scan_bwd_workspace_floats.restype = ctypes.c_longlong
         lib.ssm_scan_smem_bytes.argtypes = [i, i]
         lib.ssm_scan_smem_bytes.restype = i
+        lib.ssm_scan_bwd_smem_bytes.argtypes = [i]
+        lib.ssm_scan_bwd_smem_bytes.restype = i
         lib.ssm_scan_error_string.argtypes = [i]
         lib.ssm_scan_error_string.restype = ctypes.c_char_p
         lib._repro_typed = True
@@ -228,24 +278,39 @@ def smem_bytes(n: int, dtype: torch.dtype) -> int:
     return int(_library().ssm_scan_smem_bytes(n, DTYPES[dtype]))
 
 
+def bwd_smem_bytes(n: int) -> int:
+    """One ``ssm_bwd`` block's dynamic shared memory in bytes at state dim
+    `n`, as the kernel states it (builds it if needed)."""
+    return int(_library().ssm_scan_bwd_smem_bytes(n))
+
+
 def ssm_scan_plain(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-                   b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+                   b: torch.Tensor, c: torch.Tensor, states: bool = False):
     """The reference oracle's recurrence (``ssm_scan_ref``) in torch ops,
     on any device: fp32 state (B, D, N) from zero (fp64 for fp64 inputs),
-    one step per time index; y in u's dtype."""
+    one step per time index; y in u's dtype.  ``states=True`` returns (y,
+    the backward's checkpoints): h after every :data:`BWD_CHUNK` steps but
+    the last, (B, ceil(T / BWD_CHUNK) - 1, D, N) in the state's dtype."""
     _check(u, dt, a, b, c)
     bsz, t, d = u.shape
     cdt = torch.promote_types(u.dtype, torch.float32)
     uf, dtf, bf, cf = (x.to(cdt) for x in (u, dt, b, c))
     af = a.to(cdt)[None]
     h = torch.zeros((bsz, d, a.shape[1]), dtype=cdt, device=u.device)
-    ys = []
+    ys, saved = [], []
     for i in range(t):
         da = torch.exp(dtf[:, i, :, None] * af)                 # (B, D, N)
         dbu = dtf[:, i, :, None] * bf[:, i, None, :] * uf[:, i, :, None]
         h = da * h + dbu
         ys.append(torch.einsum("bdn,bn->bd", h, cf[:, i]))
-    return torch.stack(ys, dim=1).to(u.dtype)
+        if states and (i + 1) % BWD_CHUNK == 0 and i + 1 < t:
+            saved.append(h)
+    y = torch.stack(ys, dim=1).to(u.dtype)
+    if not states:
+        return y
+    hs = (torch.stack(saved, dim=1) if saved else
+          torch.zeros((bsz, 0, d, a.shape[1]), dtype=cdt, device=u.device))
+    return y, hs
 
 
 def ssm_scan_cost(b: int, t: int, d: int, n: int, itemsize: int):
@@ -259,18 +324,44 @@ def ssm_scan_cost(b: int, t: int, d: int, n: int, itemsize: int):
     return ops, nbytes, b * t * d * n
 
 
+def _plain_step(uf, dtf, af, bf, h, i):
+    """h after step i, as :func:`ssm_scan_plain` steps it."""
+    e = torch.exp(dtf[:, i, :, None] * af)
+    return e * h + dtf[:, i, :, None] * bf[:, i, None, :] * uf[:, i, :, None]
+
+
+def _plain_states(uf, dtf, af, bf):
+    """The checkpoints :func:`ssm_scan_bwd_plain` steps when it is given
+    none: h after every :data:`BWD_CHUNK` steps but the last, (B, n, D,
+    N), stepped from zero in the inputs' (compute) dtype."""
+    bsz, t, d = uf.shape
+    h = torch.zeros((bsz, d, af.shape[1]), dtype=uf.dtype, device=uf.device)
+    saved = []
+    for i in range(t - 1):
+        h = _plain_step(uf, dtf, af, bf, h, i)
+        if (i + 1) % BWD_CHUNK == 0:
+            saved.append(h)
+    return (torch.stack(saved, dim=1) if saved else
+            torch.zeros((bsz, 0, d, af.shape[1]), dtype=uf.dtype,
+                        device=uf.device))
+
+
 def ssm_scan_bwd_plain(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-                       b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor):
+                       b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                       states: torch.Tensor | None = None):
     """The backward's reverse recurrence in torch ops, on any device, with
     no autograd: (du, ddt, db, dc in u's dtype, da (D, N)), in fp32
     (float64 for float64 inputs, da too).
 
-    h is stepped forward from zero once, keeping it every
-    :data:`BWD_CHUNK` steps, and recomputed forward per chunk (never
-    recovered by dividing by the decay); then, per step from the last, with
-    G = dL/dh_t: G += dy_t C_t; dC_t = sum_d dy_t h_t; dB_t = sum_d G dt_t
-    u_t; du_t = dt_t G.B_t; ddt_t = sum_n G (A e_t h_{t-1} + B_t u_t); dA
-    += G dt_t e_t h_{t-1}; G = e_t G, with e_t = exp(dt_t A)."""
+    h starts each :data:`BWD_CHUNK`-step chunk from its checkpoint:
+    `states`, the forward's ((B, ceil(T / BWD_CHUNK) - 1, D, N) in the
+    compute dtype, :func:`ssm_scan_plain` with ``states=True``), or, when
+    None, stepped forward from zero here the same way.  Each chunk's states
+    are recomputed forward from its checkpoint (never recovered by dividing
+    by the decay); then, per step from the last, with G = dL/dh_t: G +=
+    dy_t C_t; dC_t = sum_d dy_t h_t; dB_t = sum_d G dt_t u_t; du_t = dt_t
+    G.B_t; ddt_t = sum_n G (A e_t h_{t-1} + B_t u_t); dA += G dt_t e_t
+    h_{t-1}; G = e_t G, with e_t = exp(dt_t A)."""
     _check(u, dt, a, b, c)
     if dy.shape != u.shape:
         raise ValueError(f"ssm_scan_bwd_plain: dy must be {tuple(u.shape)}, "
@@ -279,18 +370,16 @@ def ssm_scan_bwd_plain(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     cdt = torch.promote_types(u.dtype, torch.float32)
     uf, dtf, bf, cf, df = (x.to(cdt) for x in (u, dt, b, c, dy))
     af = a.to(cdt)
+    if states is None:
+        states = _plain_states(uf, dtf, af, bf)
+    else:
+        _check_states(u, a, states, cdt)
 
     def step(h, i):
-        e = torch.exp(dtf[:, i, :, None] * af)
-        return e * h + dtf[:, i, :, None] * bf[:, i, None, :] \
-            * uf[:, i, :, None]
+        return _plain_step(uf, dtf, af, bf, h, i)
 
-    starts = []
     h = torch.zeros((bsz, d, a.shape[1]), dtype=cdt, device=u.device)
-    for t0 in range(0, t, BWD_CHUNK):
-        starts.append(h)
-        for i in range(t0, min(t0 + BWD_CHUNK, t)):
-            h = step(h, i)
+    starts = [h] + list(states.unbind(1))
     g = torch.zeros_like(h)
     du, ddt = torch.empty_like(uf), torch.empty_like(uf)
     db, dc = torch.empty_like(bf), torch.empty_like(cf)

@@ -1,16 +1,20 @@
 """ssm_scan's gradient: the plain backward against autograd through the
 plain forward in float64 and against ``jax.grad`` of the reference's
 oracle in fp32; a torch-op copy of the CUDA backward kernels'
-decomposition held to both; the autograd Function on the CPU.
+decomposition held to both; the checkpoints the forward keeps; the
+autograd Function on the CPU.
 
-The CUDA backward (``ssm_bwd_state``, ``ssm_bwd``, ``ssm_bwd_reduce`` in
-``ssm_scan.cu``) writes h every BWD_C steps, recomputes each chunk's
-states from those and walks back.  :func:`_kernel_order` repeats it in
-torch ops: h stepped as the forward steps it (x = dt*A, expf, h =
-fmaf(e, h, B*(dt*u))), each lane's fmaf chains over its BWD_SPT states
-joined by the xor shuffles' tree, each block's channels summed in order
-and the blocks' partials in order, dA over t and then over b.  Its
-constants are read from the source."""
+The CUDA backward (``ssm_bwd``, ``ssm_bwd_reduce`` in ``ssm_scan.cu``)
+starts each BWD_C-step chunk from the checkpoint the saving forward wrote,
+recomputes the chunk's states and decays and walks back.
+:func:`_kernel_order` repeats it in torch ops: h stepped as the forward
+steps it (x = dt*A, expf, h = fmaf(e, h, B*(dt*u))), each e taken in the
+sub-chunk's history and used again in its reverse step, each lane's fmaf
+chains over its BWD_SPT states (G.B, A (e h G), dt (e h G), and ddt's
+part u G.B + A (e h G)) joined by the xor shuffles' tree, the dB and dC
+terms summed over a warp's channels by the shuffles' halving tree, then
+the block's warps in order and the blocks' partials in order, dA over t
+and then over b.  Its constants are read from the source."""
 import re
 
 import jax
@@ -23,7 +27,8 @@ from repro.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.kernels.ssm_scan import (SsmScanFn, ssm_scan, ssm_scan_bwd,
                                           ssm_scan_bwd_cost,
                                           ssm_scan_bwd_plain, ssm_scan_plain)
-from repro_torch.kernels.ssm_scan.ops import BWD_CHUNK, SOURCE, STATE_DIMS
+from repro_torch.kernels.ssm_scan.ops import (BWD_CHUNK, SOURCE, STATE_DIMS,
+                                              _plain_states)
 
 torch.set_num_threads(1)
 
@@ -34,8 +39,11 @@ def _const(name: str) -> int:
     return int(re.search(rf"constexpr int {name} = (\d+);", _SRC).group(1))
 
 
-BWD_NT, BWD_SPT, BWD_C, BWD_SB = (_const("BWD_NT"), _const("BWD_SPT"),
-                                  _const("BWD_C"), _const("BWD_SB"))
+BWD_SPT, BWD_C, BWD_SB = _const("BWD_SPT"), _const("BWD_C"), _const("BWD_SB")
+# threads a block at each N (STATE_DIMS' order)
+BWD_THREADS = tuple(int(x) for x in re.search(
+    r"constexpr int BWD_THREADS\[\] = \{([\d, ]+)\};", _SRC).group(1)
+    .split(","))
 
 # the reference kernel tests' tolerance (tests/test_kernels.py)
 TOL = 5e-5
@@ -109,13 +117,24 @@ def _lanes(x, g):
     return x[..., 0]
 
 
+def _tree(x):
+    """The sum over the last axis as the shuffles' halving tree takes it:
+    element c joined with c + half, half = size / 2, size / 4, ..."""
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
 def _kernel_order(u, dt, a, b, c, dy):
-    """What the three backward kernels compute, in their order, in fp32
-    torch ops: (du, ddt, da, db, dc)."""
+    """What the backward kernels compute, in their order, in fp32 torch
+    ops, from the checkpoints the saving forward steps to: (du, ddt, da,
+    db, dc)."""
     bsz, t, d = u.shape
     n = a.shape[1]
-    g = n // BWD_SPT
-    cb = BWD_NT // g
+    g = n // BWD_SPT                                      # lanes a channel
+    nt = BWD_THREADS[STATE_DIMS.index(n)]
+    cb, cw, nw = nt // g, 32 // g, nt // 32       # channels a block, a warp
     nblk = -(-d // cb)
     uf, dtf, bf, cf, df = (x.float() for x in (u, dt, b, c, dy))
     av = a.float()[None]                                  # (1, D, N)
@@ -125,9 +144,12 @@ def _kernel_order(u, dt, a, b, c, dy):
         du = dtv * uf[:, i, :, None]
         return _fma(torch.exp(dtv * av), h, bf[:, i, None, :] * du)
 
+    def lanes(x):                          # (B, D, N) -> (B, D, g, BWD_SPT)
+        return x.expand(bsz, d, n).reshape(bsz, d, g, BWD_SPT)
+
     nc = -(-t // BWD_C)
     h = torch.zeros((bsz, d, n))
-    saved = [h]
+    saved = [h]                            # the saving forward's checkpoints
     for i in range(t):
         h = step(h, i)
         if (i + 1) % BWD_C == 0:
@@ -148,46 +170,46 @@ def _kernel_order(u, dt, a, b, c, dy):
             ts0 = t0 + m * BWD_SB
             if ts0 >= t:
                 continue
-            hist = [starts[m]]
+            hist, decay = [starts[m]], []
             for q in range(BWD_SB):
-                hist.append(step(hist[-1], ts0 + q) if ts0 + q < t
-                            else hist[-1])
-            for q in range(BWD_SB - 1, -1, -1):
                 i = ts0 + q
-                if i >= t:
-                    continue
+                if i < t:
+                    decay.append(torch.exp(dtf[:, i, :, None] * av))
+                    hist.append(_fma(decay[-1], hist[-1],
+                                     bf[:, i, None, :]
+                                     * (dtf[:, i, :, None]
+                                        * uf[:, i, :, None])))
+            for q in range(len(decay) - 1, -1, -1):
+                i = ts0 + q
                 dtv, uv, dyv = (x[:, i, :, None] for x in (dtf, uf, df))
                 bv, cv = bf[:, i, None, :], cf[:, i, None, :]
-                dtu = dtv * uv
+                e = decay[q]
                 gr = _fma(dyv, cv, gr)
+                xb[:, i] = gr * (dtv * uv)
                 xc[:, i] = dyv * hist[q + 1]
-                xb[:, i] = gr * dtu
-                e = torch.exp(dtv * av)
-                x = e * hist[q]
-                acc_du = torch.zeros((bsz, d, g))
-                acc_ddt = torch.zeros((bsz, d, g))
-                grl, bl, xl = (y.expand(bsz, d, n).reshape(bsz, d, g, BWD_SPT)
-                               for y in (gr, bv, x))
-                al = av.expand(bsz, d, n).reshape(bsz, d, g, BWD_SPT)
-                bu = (bv * uv).reshape(bsz, d, g, BWD_SPT)
+                y = gr * (e * hist[q])
+                gb = torch.zeros((bsz, d, g))
+                ga = torch.zeros((bsz, d, g))
+                grl, bl, yl, al = (lanes(x) for x in (gr, bv, y, av))
                 for j in range(BWD_SPT):
-                    acc_du = _fma(grl[..., j], bl[..., j], acc_du)
-                    acc_ddt = _fma(grl[..., j],
-                                   _fma(al[..., j], xl[..., j], bu[..., j]),
-                                   acc_ddt)
-                du_o[:, i] = dtv[..., 0] * _lanes(acc_du, g)
-                ddt_o[:, i] = _lanes(acc_ddt, g)
-                da = _fma(gr * dtv, x, da)
+                    gb = _fma(grl[..., j], bl[..., j], gb)
+                    ga = _fma(al[..., j], yl[..., j], ga)
+                dp = _fma(uv.expand(bsz, d, g), gb, ga)
+                du_o[:, i] = dtv[..., 0] * _lanes(gb, g)
+                ddt_o[:, i] = _lanes(dp, g)
+                da = _fma(dtv, y, da)
                 gr = e * gr
-    # each block's channels in order (zeros past D), then the blocks
+    # a warp's channels by the halving tree, the block's warps in order
+    # (zeros past D), then the blocks in order
     pad = nblk * cb - d
 
     def blocks(x):                         # (B, T, D, N) -> (B, T, N)
         x = torch.nn.functional.pad(x, (0, 0, 0, pad))
-        x = x.reshape(bsz, t, nblk, cb, n)
-        part = torch.zeros((bsz, t, nblk, n))
-        for cc in range(cb):
-            part = part + x[:, :, :, cc]
+        x = x.reshape(bsz, t, nblk, nw, cw, n)
+        x = _tree(x.transpose(-1, -2))                  # (B, T, nblk, nw, N)
+        part = x[:, :, :, 0]
+        for w in range(1, nw):
+            part = part + x[:, :, :, w]
         out = part[:, :, 0]
         for k in range(1, nblk):
             out = out + part[:, :, k]
@@ -197,6 +219,19 @@ def _kernel_order(u, dt, a, b, c, dy):
         da_s = da_s + da[bb]
     return (du_o.to(u.dtype), ddt_o.to(u.dtype), da_s,
             blocks(xb).to(u.dtype), blocks(xc).to(u.dtype))
+
+
+def test_block_layout_read_from_the_source():
+    """One thread a block at each N keeps BWD_SPT states; 128 channels a
+    block at N 4-16 (the jamba shape's 16,384 channels: 128 blocks, one an
+    SM), a warp a multiple of the channel's lanes."""
+    assert len(BWD_THREADS) == len(STATE_DIMS)
+    for n, nt in zip(STATE_DIMS, BWD_THREADS):
+        g = n // BWD_SPT
+        assert nt % 32 == 0 and 32 % g == 0, n
+        if n <= 16:
+            assert nt // g == 128, n
+    assert BWD_C == BWD_CHUNK and BWD_C % BWD_SB == 0
 
 
 @pytest.mark.parametrize("t", [1, 37, BWD_CHUNK, 150])
@@ -301,6 +336,83 @@ def test_function_on_the_cpu_runs_the_plain_backward():
     got = ssm_scan_bwd(u, dt, a, bm, cm, dy)
     assert all(torch.equal(p, q) for p, q in zip(got, want))
     assert ssm_scan(u, dt, a, bm, cm).grad_fn is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("t", [1, 63, BWD_CHUNK, BWD_CHUNK + 1, 150, 200])
+def test_plain_states_equal_the_backward_stepping(t, dtype):
+    """The checkpoints ssm_scan_plain returns are the ones
+    ssm_scan_bwd_plain steps when given none, bit for bit: h after every
+    BWD_CHUNK steps but the last, (B, ceil(T / 64) - 1, D, N)."""
+    u, dt, a, bm, cm, _ = _torch(_inputs(2, t, 9, 8, seed=t, regime="model"),
+                                 dtype)
+    y, states = ssm_scan_plain(u, dt, a, bm, cm, states=True)
+    assert torch.equal(y, ssm_scan_plain(u, dt, a, bm, cm))
+    assert states.shape == (2, -(-t // BWD_CHUNK) - 1, 9, 8)
+    assert states.dtype == dtype
+    own = _plain_states(u, dt, a.to(dtype), bm)
+    assert torch.equal(states, own)
+
+
+@pytest.mark.parametrize("regime", REGIMES)
+def test_plain_backward_with_and_without_states(regime):
+    """ssm_scan_bwd_plain from the forward's checkpoints equals the one
+    that steps them itself, bit for bit (fp32 and float64)."""
+    for dtype in (torch.float32, torch.float64):
+        u, dt, a, bm, cm, dy = _torch(_inputs(2, 150, 11, 16, seed=3,
+                                              regime=regime), dtype)
+        _, states = ssm_scan_plain(u, dt, a, bm, cm, states=True)
+        with_states = ssm_scan_bwd_plain(u, dt, a, bm, cm, dy, states=states)
+        without = ssm_scan_bwd_plain(u, dt, a, bm, cm, dy)
+        for name, x, y in zip(NAMES, with_states, without):
+            assert torch.equal(x, y), (name, dtype)
+        got = ssm_scan_bwd(u, dt, a, bm, cm, dy, states=states)
+        assert all(torch.equal(x, y) for x, y in zip(got, without))
+
+
+@pytest.mark.parametrize("t", [1, 70, 150])
+def test_function_on_the_cpu_equals_autograd(t):
+    """SsmScanFn on the CPU (forward keeps the plain checkpoints, backward
+    ssm_scan_bwd_plain from them) against autograd through
+    ssm_scan_plain, in float64."""
+    u, dt, a, bm, cm, dy = _torch(_inputs(2, t, 7, 8, seed=t, regime="model"),
+                                  torch.float64)
+    xs = [x.clone().requires_grad_(True) for x in (u, dt, a, bm, cm)]
+    y = ssm_scan(*xs)
+    assert isinstance(y.grad_fn, SsmScanFn._backward_cls)
+    got = torch.autograd.grad(y, xs, dy)
+    want = _autograd(u, dt, a, bm, cm, dy)
+    for name, g, w in zip(NAMES, got, want):
+        rtol = 1e-6 if name == "da" else 1e-10
+        np.testing.assert_allclose(g.double().numpy(), w.double().numpy(),
+                                   rtol=rtol,
+                                   atol=rtol * float(w.abs().max()),
+                                   err_msg=name)
+
+
+def test_backward_checks_states():
+    """states must be the forward's checkpoints: shape, dtype, device and
+    layout are checked before anything runs."""
+    u, dt, a, bm, cm, dy = _torch(_inputs(1, 150, 6, 8, seed=4))
+    _, states = ssm_scan_plain(u, dt, a, bm, cm, states=True)
+    assert states.shape == (1, 2, 6, 8)
+    bad = {"shape": states[:, :1].contiguous(),
+           "dtype": states.double(),
+           "device": torch.empty(states.shape, device="meta"),
+           "layout": states.transpose(2, 3).contiguous().transpose(2, 3),
+           "type": states.tolist()}
+    for what, x in bad.items():
+        with pytest.raises(ValueError, match="checkpoints"):
+            ssm_scan_bwd(u, dt, a, bm, cm, dy, states=x)
+        with pytest.raises(ValueError, match="checkpoints"):
+            ssm_scan_bwd_plain(u, dt, a, bm, cm, dy, states=x)
+    # float64 inputs take float64 checkpoints on the CPU
+    args64 = [x.double() if x is not a else x for x in (u, dt, a, bm, cm)]
+    _, s64 = ssm_scan_plain(*args64, states=True)
+    assert s64.dtype == torch.float64
+    ssm_scan_bwd(*args64, dy.double(), states=s64)
+    with pytest.raises(ValueError, match="checkpoints"):
+        ssm_scan_bwd(*args64, dy.double(), states=states)
 
 
 def test_backward_wrapper_checks_dy():

@@ -1,5 +1,6 @@
 """ssm_scan's backward kernels on the card, against the float64 plain
-backward; their determinism; the hybrid model's gradient through them.
+backward, from the saving forward's checkpoints and without them; their
+determinism; the hybrid model's gradient through them.
 
 Needs an NVIDIA GPU with nvcc (the kernel is built at first use); skipped
 elsewhere.  On the card: ``python -m pytest -q -m cuda
@@ -10,7 +11,7 @@ import torch
 
 from repro_torch.kernels.ssm_scan import (ssm_scan, ssm_scan_bwd,
                                           ssm_scan_bwd_plain)
-from repro_torch.kernels.ssm_scan.ops import STATE_DIMS
+from repro_torch.kernels.ssm_scan.ops import STATE_DIMS, _forward
 
 torch.set_num_threads(1)
 
@@ -85,11 +86,45 @@ def test_kernel_matches_plain(cuda, b, t, d, n, regime):
 
 
 @pytest.mark.parametrize("n", STATE_DIMS)
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 150])
+def test_kernel_ragged_from_the_forward_states(cuda, t, n):
+    """T on and off the 64-step chunks and the 32-step halves, D off every
+    block's channels, B 2: the backward from the saving forward's
+    checkpoints against the float64 plain backward, and bit for bit the
+    backward that steps them itself (states=None)."""
+    u, dt, a, bm, cm, dy = args = _inputs(2, t, 133, n, cuda, seed=t + n,
+                                          regime="model")
+    f0 = ssm_scan.launches
+    _, states = _forward(u, dt, a, bm, cm, save=True)
+    assert ssm_scan.launches == f0 + 1
+    got = ssm_scan_bwd(*args, states=states)
+    again = ssm_scan_bwd(*args)                  # runs the saving forward
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == f0 + 2
+    want = ssm_scan_bwd_plain(u.double(), dt.double(), a, bm.double(),
+                              cm.double(), dy.double())
+    for name, g, h, x in zip(NAMES, got, again, want):
+        assert torch.equal(g, h), name
+        assert _rel(g, x) <= TOL, f"{name}: {_rel(g, x):.3g}"
+
+
+def test_backward_checks_states_on_the_card(cuda):
+    """The checkpoints must be the forward's: fp32, (B, ceil(T / 64) - 1,
+    D, N), contiguous, on the inputs' device."""
+    u, dt, a, bm, cm, dy = args = _inputs(1, 150, 40, 16, cuda)
+    _, states = _forward(u, dt, a, bm, cm, save=True)
+    for bad in (states[:, :1].contiguous(), states.double(), states.cpu()):
+        with pytest.raises(ValueError, match="checkpoints"):
+            ssm_scan_bwd(*args, states=bad)
+
+
+@pytest.mark.parametrize("n", STATE_DIMS)
 def test_kernel_is_deterministic(cuda, n):
     """No atomics and a fixed order of sums: two calls agree bit for bit."""
     args = _inputs(2, 333, 1000, n, cuda, seed=n, regime="model")
-    a = ssm_scan_bwd(*args)
-    b = ssm_scan_bwd(*args)
+    states = _forward(*args[:5], save=True)[1]
+    a = ssm_scan_bwd(*args, states=states)
+    b = ssm_scan_bwd(*args, states=states)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 

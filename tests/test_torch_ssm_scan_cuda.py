@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
+from repro_torch.kernels.ssm_scan.ops import STATE_DIMS, _forward
 
 torch.set_num_threads(1)
 
@@ -98,6 +99,21 @@ def test_unaligned_pointers(cuda, dtype):
         moved.append(x)
     assert moved[0].data_ptr() % 16 != 0
     _hold(ssm_scan(*moved), ssm_scan_plain(*args), TOL[dtype])
+
+
+@pytest.mark.parametrize("n", STATE_DIMS)
+@pytest.mark.parametrize("b,t,d", [(2, 150, 130), (1, 4096, 512),
+                                   (2, 64, 37), (1, 65, 9)])
+def test_saving_forward(cuda, b, t, d, n):
+    """The fp32 forward a gradient takes: its y equals the no-grad
+    forward's bit for bit, and its checkpoints (h after every 64 steps
+    but the last) match the plain version's stepping."""
+    args = _inputs(b, t, d, n, torch.float32, cuda, regime="model")
+    y, states = _forward(*args, save=True)
+    assert torch.equal(y, ssm_scan(*args))
+    _, want = ssm_scan_plain(*args, states=True)
+    assert states.shape == want.shape == (b, -(-t // 64) - 1, d, n)
+    _hold(states, want, TOL[torch.float32])
 
 
 def test_model_prefill_launches_the_kernel(cuda):
