@@ -259,6 +259,25 @@ line is printed:
    device's idle share during a 2-worker socket dispatch, and the TLS
    path where ``openssl`` is on PATH (said so where it is not).
 
+18. the mesh (``launch/mesh.py``, ``launch/shardings.py``, the sharded
+   train step on DTensors): (a) ``choose_mesh()`` on one card is a (1, 1)
+   ("data", "model") mesh over a one-rank group with nccl for CUDA tensors;
+   (b) llama3.2-1b at full width and depth, B 2, S 4096, fp32, remat, AdamW
+   defaults: 3 steps under ``train()``'s mesh path (``shard_model``:
+   parameters and ZeRO-1 moments as DTensors, batches placed by
+   ``make_batch_iter(mesh=)``, ``flash_attention`` and its backward through
+   ``local_map``) against the same 3 plain steps run here (16c's first 3
+   losses): losses, grad norms, parameters and moments bit for bit, 32 + 16
+   launches a step, step wall, tokens/s, peak memory and a profiled step's
+   idle share beside the plain step's and 16c's; (c) rwkv6-7b at full width
+   cut to 2 layers, B 1, S 4096: the gradient under the mesh
+   (``rwkv6_scan`` and its backward through ``local_map``) against the
+   plain model's, bit for bit, 4 + 2 launches; (d) the full-space sweep
+   with ``shard=True`` equal to phase 4's (front, top-k, stall seeds; 37
+   ``ppa_eval`` launches); (e) a smoke llama step on the mesh saved and
+   restored with ``shardings=``, every leaf bit for bit in its placements
+   (scratch under ``build/chip_smoke_mesh/``, removed after).
+
 Kernel launch counters are zeroed just before each part of the main path
 and read just after; every kernel of that part must have launched there.
 The second to last line is ``{"kernels": [...]}``; the last line is
@@ -2937,7 +2956,8 @@ def phase16c_train(torch, dev) -> dict:
     torch.cuda.empty_cache()
     return {"step_s": med, "tokens_per_s": b * s / med, "peak": peak,
             "fwd_launches": sum(c[0] for c in counts),
-            "bwd_launches": sum(c[1] for c in counts), "shares": shares}
+            "bwd_launches": sum(c[1] for c in counts), "shares": shares,
+            "losses": losses, "gnorms": gnorms}
 
 
 def phase16d_resume(torch, dev, work_dir: str) -> None:
@@ -3714,6 +3734,294 @@ def _wait_lapsed(view, address, timeout_s: float = 60.0) -> bool:
     return True
 
 
+MESH_STEPS = 3                                       # 18b
+MESH_RWKV = ("rwkv6-7b", 2, 1, 4096)                # 18c: arch, layers, B, S
+
+
+def _mesh_step_run(torch, step, state, batches, flash) -> tuple:
+    """Each step of `step` over `batches`: (state, [(loss, grad norm)],
+    walls, [(flash_attention, flash_attention_bwd) launches])."""
+    fwd, bwd = flash
+    out, walls, counts = [], [], []
+    for bt in batches:
+        torch.cuda.synchronize()
+        fwd.launches = bwd.launches = 0
+        t0 = time.perf_counter()
+        state, met = step(state, bt)
+        out.append((float(met["loss"]), float(met["grad_norm"])))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append((fwd.launches, bwd.launches))
+    return state, out, walls, counts
+
+
+def _same_tensors(torch, got: dict, want: dict, what: str) -> None:
+    """Each DTensor of `got` (on a mesh of one) equal to `want`'s plain
+    tensor of the same name, bit for bit."""
+    check(sorted(got) == sorted(want), f"{what}: names differ")
+    for n, t in want.items():
+        g = got[n].full_tensor()
+        if not torch.equal(g, t):
+            d = float((g.double() - t.double()).abs().max())
+            check(False, f"{what}: {n} differs from the plain run's by up "
+                  f"to {d:.3g}")
+
+
+def phase18b_mesh_train(torch, dev, mesh, train16c: dict) -> dict:
+    """18b: llama3.2-1b at full width, 3 steps on the mesh of one against
+    the same 3 plain steps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticLMDataset, make_batch_iter
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import activate_mesh, data_axes
+    from repro_torch.optim import AdamWConfig, adamw_init
+    arch, b, s = TRAIN
+    cfg = get_arch(arch)
+    ds = SyntheticLMDataset(cfg.vocab, s, b)
+    flash = (flash_attention, flash_attention_bwd)
+    saved = (flash_attention.launches, flash_attention_bwd.launches)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    plain = build_full_width(torch, arch, dev, tag="18b")
+    pstep = steps_mod.make_train_step(plain, AdamWConfig())
+    pstate = adamw_init(dict(plain.named_parameters()))
+    pstate, p_out, p_walls, p_counts = _mesh_step_run(
+        torch, pstep, pstate, make_batch_iter(ds, 0, MESH_STEPS, device=dev),
+        flash)
+    p_peak = torch.cuda.max_memory_allocated() - base
+    same16c = ([o[0] for o in p_out] == train16c["losses"][:MESH_STEPS]
+               and [o[1] for o in p_out] == train16c["gnorms"][:MESH_STEPS])
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_full_width(torch, arch, dev, tag="18b")
+    with activate_mesh(mesh):
+        sh = steps_mod.shard_model(mesh, model, cfg,
+                                   ShapeConfig("18b", s, b, "train"))
+        step = steps_mod.make_train_step(model, AdamWConfig())
+        params = dict(model.named_parameters())
+        state = adamw_init(params, sh["opt"])
+        batches = make_batch_iter(ds, 0, MESH_STEPS, mesh=mesh,
+                                  dp_axes=data_axes(mesh))
+        state, out, walls, counts = _mesh_step_run(torch, step, state,
+                                                   batches, flash)
+        peak = torch.cuda.max_memory_allocated() - base
+        flash_attention.launches, flash_attention_bwd.launches = saved
+        check(counts == [(2 * cfg.n_layers, cfg.n_layers)] * MESH_STEPS,
+              f"18b: launches per step (fwd, bwd) {counts}, want "
+              f"({2 * cfg.n_layers}, {cfg.n_layers})")
+        check(out == p_out, f"18b: (loss, grad norm) on the mesh {out}, "
+              f"plain {p_out}")
+        _same_tensors(torch, params, dict(plain.named_parameters()),
+                      "18b params")
+        _same_tensors(torch, state["m"], pstate["m"], "18b m")
+        _same_tensors(torch, state["v"], pstate["v"], "18b v")
+        pl = {str(p.placements) for p in params.values()}
+        med, p_med = float(np.median(walls[1:])), float(np.median(p_walls[1:]))
+        log(f"[18b] {arch} train B={b} S={s} fp32 remat, {MESH_STEPS} steps "
+            f"on the mesh {tuple(mesh.mesh.shape)} (placements {pl}): "
+            f"(loss, grad norm) {out} bit for bit the plain steps' (equal "
+            f"to 16c's first {MESH_STEPS}: {same16c}); parameters, m and v "
+            f"bit for bit (deterministic algorithms on for both); "
+            f"launches per step fwd {counts[0][0]} bwd {counts[0][1]} "
+            f"through local_map")
+        log(f"[18b] step walls mesh {[round(x, 3) for x in walls]} s, plain "
+            f"{[round(x, 3) for x in p_walls]} s; median of steps "
+            f"2-{MESH_STEPS}: mesh {med:.3f} s ({b * s / med:,.0f} tokens/s), "
+            f"plain {p_med:.3f} s ({b * s / p_med:,.0f} tokens/s), 16c "
+            f"{train16c['step_s']:.3f} s ({train16c['tokens_per_s']:,.0f} "
+            f"tokens/s); peak memory of the run mesh {peak / 2**30:.2f} GiB, "
+            f"plain {p_peak / 2**30:.2f} GiB, 16c "
+            f"{train16c['peak'] / 2**30:.2f} GiB")
+        bt = next(iter(make_batch_iter(ds, MESH_STEPS, 1, mesh=mesh,
+                                       dp_axes=data_axes(mesh))))
+        shares = profile_device(
+            torch, lambda: step(state, bt), "18b",
+            "one llama3.2-1b train step on the mesh of one (B 2, S 4096)",
+            keep="fa_",
+            ranges=((steps_mod, "adamw_update", "adamw_update", None),),
+            groups={"fp32 GEMMs": lambda n: "gemm" in n.lower(),
+                    "fa_fwd": lambda n: "fa_fwd" in n,
+                    "fa_bwd": lambda n: "fa_bwd" in n})
+        flash_attention.launches, flash_attention_bwd.launches = saved
+    log(f"[18b] idle share of a step: mesh {shares.get('idle', float('nan')):.4f}, "
+        f"16c {train16c['shares'].get('idle', float('nan')):.4f}")
+    del model, state, step, plain, pstate, pstep, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_s": med, "plain_step_s": p_med, "peak": peak,
+            "plain_peak": p_peak, "shares": shares,
+            "fwd_launches": sum(c[0] for c in counts),
+            "bwd_launches": sum(c[1] for c in counts)}
+
+
+def phase18c_mesh_rwkv(torch, dev, mesh) -> dict:
+    """18c: a 2-layer full-width rwkv6-7b gradient on the mesh of one
+    against the plain model's."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticLMDataset, make_batch_iter
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import activate_mesh, data_axes
+    arch, layers, b, s = MESH_RWKV
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    ds = SyntheticLMDataset(cfg.vocab, s, b)
+    want_counts = _launches(rwkv6_scan=2 * layers, rwkv6_scan_bwd=layers)
+    saved = _zero_counts()
+    try:
+        plain = build_full_width(torch, cfg, dev, tag="18c")
+        plain.requires_grad_(True)
+        p_loss, p_grads = steps_mod.loss_and_grads(
+            plain, next(iter(make_batch_iter(ds, 0, 1, device=dev))))
+        torch.cuda.synchronize()
+        check(_read_counts() == want_counts, f"18c: plain route launched "
+              f"{_read_counts()}, want {want_counts}")
+        model = build_full_width(torch, cfg, dev, tag="18c")
+        with activate_mesh(mesh):
+            steps_mod.shard_model(mesh, model, cfg,
+                                  ShapeConfig("18c", s, b, "train"))
+            model.requires_grad_(True)
+            bt = next(iter(make_batch_iter(ds, 0, 1, mesh=mesh,
+                                           dp_axes=data_axes(mesh))))
+            _zero_counts()
+            loss, grads = steps_mod.loss_and_grads(model, bt)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+    finally:
+        _restore_counts(saved)
+    check(counts == want_counts, f"18c: the mesh route launched {counts}, "
+          f"want {want_counts}")
+    check(torch.equal(loss, p_loss), f"18c: loss {float(loss)} on the mesh, "
+          f"{float(p_loss)} plain")
+    _same_tensors(torch, grads, p_grads, "18c gradients")
+    check(all(float(g.abs().max()) > 0 for n, g in p_grads.items()
+              if n.endswith((".rwkv.r.w", ".rwkv.u"))),
+          "18c: the scan's inputs have no gradient")
+    log(f"[18c] {arch} cut to {layers} layers, full width, B={b} S={s}: loss "
+        f"{float(loss):.6f} and all {len(grads)} gradients on the mesh bit "
+        f"for bit the plain model's; launches rwkv6_scan "
+        f"{counts['rwkv6_scan']} (remat) rwkv6_scan_bwd "
+        f"{counts['rwkv6_scan_bwd']} through local_map")
+    del model, plain, grads, p_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase18e_mesh_restore(torch, dev, mesh, work_dir: str) -> None:
+    """18e: a smoke llama step on the mesh, saved, restored with
+    shardings=: every leaf bit for bit, in its placements."""
+    import shutil
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticLMDataset, make_batch_iter
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import activate_mesh, data_axes
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    shutil.rmtree(work_dir, ignore_errors=True)
+    cfg = get_arch(TRAIN[0]).smoke()
+    shape = ShapeConfig("18e", TRAIN[2], 2, "train")
+    saved = _zero_counts()
+    try:
+        with activate_mesh(mesh):
+            model = build_model(cfg, dtype=torch.float32, device=dev)
+            model.init_weights(torch.Generator(device=dev).manual_seed(0))
+            sh = steps_mod.shard_model(mesh, model, cfg, shape)
+            params = dict(model.named_parameters())
+            state = adamw_init(params, sh["opt"])
+            step = steps_mod.make_train_step(model, AdamWConfig())
+            ds = SyntheticLMDataset(cfg.vocab, shape.seq_len, 2)
+            state, _ = step(state, next(iter(make_batch_iter(
+                ds, 0, 1, mesh=mesh, dp_axes=data_axes(mesh)))))
+            tree = {"params": params, "opt": state}
+            save_checkpoint(work_dir, 1, tree)
+            other = build_model(cfg, dtype=torch.float32, device=dev)
+            osh = steps_mod.shard_model(mesh, other, cfg, shape)
+            oparams = dict(other.named_parameters())
+            got = restore_checkpoint(
+                work_dir, 1, {"params": oparams,
+                              "opt": adamw_init(oparams, osh["opt"])},
+                shardings={"params": osh["params"],
+                           "opt": dict(osh["opt"], step=None)})
+            n = 0
+            for part in ("params", "m", "v"):
+                a = got["params"] if part == "params" else got["opt"][part]
+                e = params if part == "params" else state[part]
+                for k, t in e.items():
+                    check(a[k].placements == t.placements
+                          and torch.equal(a[k].to_local(), t.to_local()),
+                          f"18e: restored {part} {k} differs")
+                    n += 1
+            check(int(got["opt"]["step"]) == 1, "18e: restored step")
+    finally:
+        _restore_counts(saved)
+        shutil.rmtree(work_dir, ignore_errors=True)
+    log(f"[18e] smoke {TRAIN[0]} step on the mesh saved and restored with "
+        f"shardings=: all {n} leaves bit for bit in their placements")
+
+
+def phase18_mesh(torch, dev, res_k, smi: str, train16c: dict,
+                 work_dir: str) -> dict:
+    """18: the mesh on one card (see the module docstring).  Returns the
+    phase's launches on the path."""
+    import torch.distributed as dist
+    from repro_torch.kernels.ppa_eval import ppa_eval
+    from repro_torch.launch.mesh import group_backend
+    from repro_torch.launch.train import choose_mesh
+    from repro_torch.perfmodel import SweepEngine, get_evaluator
+    t_phase = time.perf_counter()
+    log(f"[18] card: {smi}")
+    mesh = choose_mesh()
+    check(tuple(mesh.mesh.shape) == (1, 1)
+          and tuple(mesh.mesh_dim_names) == ("data", "model")
+          and mesh.device_type == "cuda" and group_backend("cuda") == "nccl"
+          and dist.get_world_size() == 1,
+          f"18a: choose_mesh() gave {tuple(mesh.mesh.shape)} "
+          f"{mesh.mesh_dim_names} on {mesh.device_type}, backend "
+          f"{dist.get_backend()}")
+    log(f"[18a] choose_mesh(): {tuple(mesh.mesh.shape)} "
+        f"{mesh.mesh_dim_names} on {mesh.device_type}, process group "
+        f"{dist.get_backend()} of {dist.get_world_size()}")
+    # both routes under deterministic algorithms, as 16d's resume: the
+    # comparison is of the mesh's arithmetic, not of kernel selection
+    torch.use_deterministic_algorithms(True)
+    try:
+        train = phase18b_mesh_train(torch, dev, mesh, train16c)
+        rwkv = phase18c_mesh_rwkv(torch, dev, mesh)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    ev = get_evaluator("proxy", backend="cuda")
+    eng = SweepEngine(ev, stall_topk=8, backend="cuda", shard=True)
+    check(eng.chunk_size == SWEEP_CHUNK and eng._shard_devs == [],
+          f"18d: shard=True on one card changed the chunk to "
+          f"{eng.chunk_size}")
+    eng.run(0, 2 * eng.chunk_size)                         # warm-up
+    torch.cuda.synchronize()
+    saved = ppa_eval.launches
+    ppa_eval.launches = 0
+    res = eng.run()
+    sweep_launches = ppa_eval.launches
+    ppa_eval.launches = saved + sweep_launches
+    n_chunks = -(-res.n_evaluated // eng.chunk_size)
+    check(sweep_launches == n_chunks == 37, f"18d: {sweep_launches} "
+          f"launches for {n_chunks} chunks")
+    same_sweep(res, res_k, "18d: shard=True against phase 4's sweep")
+    log(f"[18d] sweep cuda shard=True on one card: equal to phase 4's "
+        f"(n_superior {res.n_superior}, front {len(res.pareto_ids)}, top-k, "
+        f"stall seeds); wall {res.seconds:.3f} s; ppa_eval launches "
+        f"{sweep_launches}")
+
+    phase18e_mesh_restore(torch, dev, mesh, work_dir)
+    log(f"[18] phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return {"train": train, "rwkv": rwkv, "sweep_launches": sweep_launches}
+
+
 def main() -> int:
     # cuBLAS reads its workspace size once, at its first call: fix it here,
     # before any, so that 16d's deterministic algorithms hold for every GEMM
@@ -4048,6 +4356,10 @@ def main() -> int:
     serve = phase17_serve(torch, dev, res_k, smi, os.path.join(
         ROOT, "build", "chip_smoke_serve"))
 
+    # ---- 18. the mesh: the sharded train step on a mesh of one card -------
+    mesh = phase18_mesh(torch, dev, res_k, smi, training["train"],
+                        os.path.join(ROOT, "build", "chip_smoke_mesh"))
+
     kt = times["both"]                 # the main path's launch: a chunk
     kernels = [{
         "name": "ppa_eval", "route": "cuda",
@@ -4055,7 +4367,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/ppa_eval/kernel.py:42",
         "launches": (sweep_launches + loop_launches + zoo["launches"]
                      + methods["launches"] + faults["launches"]
-                     + serve["launches"]),
+                     + serve["launches"] + mesh["sweep_launches"]),
         "max_abs_err": max(max_abs_err, zoo["max_abs_err"]),
         "ms": kt["ms"], "plain_ms": kt["plain_ms"],
         "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],
@@ -4070,11 +4382,12 @@ def main() -> int:
              "src/repro/kernels/flash_attention/kernel.py:25",
              pre_llama["counts"]["flash_attention"] + jc["flash_attention"]
              + families["launches"] + training["train"]["fwd_launches"]
-             + jg["flash_attention"]),
+             + jg["flash_attention"] + mesh["train"]["fwd_launches"]),
             ("rwkv6_scan", "src/repro_torch/kernels/rwkv6_scan/rwkv6_scan.cu",
              "src/repro/kernels/rwkv6_scan/kernel.py:25",
              pre_rwkv["counts"]["rwkv6_scan"]
-             + training["rwkv_train"]["fwd_launches"]),
+             + training["rwkv_train"]["fwd_launches"]
+             + mesh["rwkv"]["rwkv6_scan"]),
             ("ssm_scan", "src/repro_torch/kernels/ssm_scan/ssm_scan.cu",
              "src/repro/kernels/ssm_scan/kernel.py:24",
              jc["ssm_scan"] + jg["ssm_scan"])):
@@ -4096,7 +4409,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:25",
         "launches": (training["train"]["bwd_launches"]
-                     + jg["flash_attention_bwd"]),
+                     + jg["flash_attention_bwd"]
+                     + mesh["train"]["bwd_launches"]),
         "max_abs_err": training["fa_bwd"]["max_abs_err"],
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
@@ -4105,7 +4419,8 @@ def main() -> int:
             ("rwkv6_scan_bwd",
              "src/repro_torch/kernels/rwkv6_scan/rwkv6_scan.cu",
              "src/repro/kernels/rwkv6_scan/kernel.py:25",
-             training["rwkv_train"]["bwd_launches"],
+             training["rwkv_train"]["bwd_launches"]
+             + mesh["rwkv"]["rwkv6_scan_bwd"],
              training["scan_bwd"]["rwkv6"]),
             ("ssm_scan_bwd", "src/repro_torch/kernels/ssm_scan/ssm_scan.cu",
              "src/repro/kernels/ssm_scan/kernel.py:24",

@@ -16,6 +16,12 @@ the module, and raises naming the module when a compressed checkpoint
 meets a machine without it.  numpy has no bfloat16, so a bf16 tensor is
 written as fp32 (exact) and cast back to the dtype of the leaf it
 restores into.
+
+On a mesh a leaf may be a DTensor: it is saved whole (every rank joins in
+gathering it), one rank (rank 0) writes the files, and the others wait for
+the write at the next ``wait()``.  ``restore_checkpoint(...,
+shardings=)`` places each leaf with its sharding's placements on its mesh,
+whatever mesh wrote it: the elastic restart's resharding path.
 """
 from __future__ import annotations
 
@@ -59,9 +65,30 @@ def _unflatten(like: Any, leaves: List[Any]) -> Any:
     return build(like)
 
 
+def _distributed(leaves: List[Any]) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(x, DTensor) for x in leaves)
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or a process without a
+    group."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def _to_host(x: Any) -> np.ndarray:
     """A host copy of one leaf (a copy even of a CPU tensor: the trainer
-    updates its tensors in place after the snapshot)."""
+    updates its tensors in place after the snapshot); a DTensor whole."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         x = x.detach()
         if x.dtype == torch.bfloat16:
@@ -116,8 +143,16 @@ def _save_host(ckpt_dir: str, step: int, host: List[np.ndarray]) -> str:
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any) -> str:
     """Synchronous save of a nested dict of tensors or arrays.  Returns
-    the step directory."""
-    return _save_host(ckpt_dir, step, [_to_host(x) for x in _leaves(tree)])
+    the step directory.  With DTensor leaves every rank calls it and
+    returns once rank 0 has written."""
+    leaves = _leaves(tree)
+    host = [_to_host(x) for x in leaves]
+    out = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _writer():
+        _save_host(ckpt_dir, step, host)
+    if _distributed(leaves):
+        _barrier()
+    return out
 
 
 def _steps(ckpt_dir: str) -> List[int]:
@@ -133,10 +168,27 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir: str, step: int, like: Any,
-                       device: DeviceLike = None) -> Any:
+                       device: DeviceLike = None, shardings: Any = None
+                       ) -> Any:
     """Restore into the structure of `like`, each leaf a tensor on
     `device` (None: the CUDA device) in the dtype of `like`'s leaf where
-    that is a tensor, else the file's."""
+    that is a tensor, else the file's.
+
+    `shardings` (a tree of ``launch.steps.NamedSharding`` in `like`'s
+    structure, ``named(mesh, specs)``; a None leaf stays a plain tensor)
+    places each leaf as a DTensor on its mesh, on the mesh's device: the
+    resharding path, for a checkpoint written on any mesh.  Every rank
+    reads the files and keeps its own shard."""
+    sh_leaves = None
+    if shardings is not None:
+        from torch.distributed.tensor import distribute_tensor
+        sh_leaves = _leaves(shardings)
+        if len(sh_leaves) != len(_leaves(like)):
+            raise ValueError(f"shardings has {len(sh_leaves)} leaves, like "
+                             f"{len(_leaves(like))}")
+        meshes = [sh.mesh for sh in sh_leaves if sh is not None]
+        if meshes:
+            device = meshes[0].device_type
     dev = resolve_device(device)
     src = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(src, "manifest.json")) as f:
@@ -152,6 +204,10 @@ def restore_checkpoint(ckpt_dir: str, step: int, like: Any,
         t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
         if isinstance(ref, torch.Tensor):
             t = t.to(ref.dtype)
+        if sh_leaves is not None and sh_leaves[i] is not None:
+            sh = sh_leaves[i]
+            t = distribute_tensor(t, sh.mesh, sh.placements,
+                                  src_data_rank=None)
         placed.append(t)
     return _unflatten(like, placed)
 
@@ -165,10 +221,15 @@ class AsyncCheckpointer:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._distributed = False
 
     def save(self, step: int, tree: Any) -> None:
         self.wait()                                   # one in flight at a time
-        host = [_to_host(x) for x in _leaves(tree)]   # sync device -> host
+        leaves = _leaves(tree)
+        host = [_to_host(x) for x in leaves]          # sync device -> host
+        self._distributed = _distributed(leaves)
+        if not _writer():
+            return
 
         def work():
             try:
@@ -181,9 +242,14 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self) -> None:
+        """The write in flight done (and, after a save of DTensors, every
+        rank past this point only once rank 0's write is)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._distributed:
+            self._distributed = False
+            _barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -75,19 +75,61 @@ class PrefetchIterator:
         return item
 
 
+def _data_rows(mesh, dp_axes, rows: int) -> Optional[slice]:
+    """This rank's rows of a batch of `rows` split over `dp_axes` (in
+    mesh order, major to minor, as DTensor splits a dim), or None where
+    the batch stays whole: one row, or rows the axes do not divide
+    (``batch_spec``'s rule)."""
+    names = tuple(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    index, parts = 0, 1
+    for a in dp_axes:
+        n = mesh.size(names.index(a))
+        index = index * n + coord[names.index(a)]
+        parts *= n
+    if rows <= 1 or rows % parts:
+        return None
+    per = rows // parts
+    return slice(index * per, (index + 1) * per)
+
+
 def make_batch_iter(ds: SyntheticLMDataset, start_step: int, num_steps: int,
-                    device: DeviceLike = None, prefetch: int = 2):
+                    device: DeviceLike = None, prefetch: int = 2, mesh=None,
+                    dp_axes=("data",)):
     """Yields the batches of steps [start_step, start_step + num_steps) as
     int64 tensors on `device` (None: the CUDA device), built and copied on
     a background thread.  A CUDA copy goes through pinned memory and does
-    not block; ``device="cpu"`` leaves the batch on the host."""
-    dev = resolve_device(device)
+    not block; ``device="cpu"`` leaves the batch on the host.
 
-    def place(a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a.astype(np.int64))
+    With a `mesh` each batch is a DTensor on it (its device type is the
+    device), rows split over `dp_axes` and replicated on the other mesh
+    dims, as the reference's ``PartitionSpec(dp_axes, None)`` places it:
+    each rank copies only its own rows.  A batch of one row, or of rows
+    the axes do not divide, is replicated instead, as ``batch_spec``
+    leaves it."""
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        from torch.distributed.tensor import DTensor
+        from repro_torch.models.dtensor import P, to_placements
+        dev = resolve_device(mesh.device_type)
+        rows = _data_rows(mesh, dp_axes, ds.global_batch)
+        placements = to_placements(
+            mesh, P(tuple(dp_axes) if rows is not None else None, None))
+
+    def copy(a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a.astype(np.int64)))
         if dev.type == "cpu":
             return t
         return t.pin_memory().to(dev, non_blocking=True)
+
+    def place(a: np.ndarray) -> torch.Tensor:
+        if mesh is None:
+            return copy(a)
+        local = a if rows is None else a[rows]
+        return DTensor.from_local(copy(local), mesh, placements,
+                                  run_check=False, shape=a.shape,
+                                  stride=(a.shape[1], 1))
 
     def gen():
         for step in range(start_step, start_step + num_steps):

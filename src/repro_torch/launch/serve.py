@@ -3,10 +3,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --smoke --batch 4 --prompt-len 32 --gen 16
 
-Runs on the CUDA device unless ``--device cpu`` is given.  As in the
-reference, the prompt is prefilled by decode steps (cache-correct), then
-tokens are decoded greedily; the audio family's encoder runs once first, on
-frames drawn from the seed after the prompts.
+Runs on the CUDA device unless ``--device cpu`` is given, under
+``choose_mesh()`` as the reference's server does (one card is a mesh of
+1); as there, nothing is placed on the mesh, so the tokens are the
+unsharded model's.  As in the reference, the prompt is prefilled by decode
+steps (cache-correct), then tokens are decoded greedily; the audio
+family's encoder runs once first, on frames drawn from the seed after the
+prompts.
 """
 from __future__ import annotations
 
@@ -19,7 +22,9 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import activate_mesh
 from repro_torch.launch.steps import make_serve_step
+from repro_torch.launch.train import choose_mesh
 from repro_torch.models import Model, build_model
 
 
@@ -75,19 +80,21 @@ def serve(arch: str, batch: int, prompt_len: int, gen: int, smoke: bool,
     if smoke:
         cfg = cfg.smoke()
     dev = resolve_device(device)
-    model = build_model(cfg, dtype=dtype, device=dev)
-    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
-    rng = np.random.default_rng(seed)
-    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt_len)),
-                              device=dev)
-    enc = None
-    if cfg.family == "audio":
-        frames = torch.as_tensor(
-            rng.standard_normal((batch, cfg.enc_ctx, cfg.d_model)),
-            dtype=dtype, device=dev)
-        with torch.no_grad():
-            enc = model.encode(frames)
-    return greedy_generate(model, prompts, gen, enc_out=enc)
+    mesh = choose_mesh(dev)
+    with activate_mesh(mesh):
+        model = build_model(cfg, dtype=dtype, device=dev)
+        model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+        rng = np.random.default_rng(seed)
+        prompts = torch.as_tensor(
+            rng.integers(0, cfg.vocab, (batch, prompt_len)), device=dev)
+        enc = None
+        if cfg.family == "audio":
+            frames = torch.as_tensor(
+                rng.standard_normal((batch, cfg.enc_ctx, cfg.d_model)),
+                dtype=dtype, device=dev)
+            with torch.no_grad():
+                enc = model.encode(frames)
+        return greedy_generate(model, prompts, gen, enc_out=enc)
 
 
 def main() -> None:

@@ -6,8 +6,9 @@ is the flash-attention algorithm in torch ops (online-softmax rescaling
 over q/kv blocks), the plain version of the ``flash_attention`` kernel.
 The layer picks the implementation by sequence length, as the reference
 does: above :data:`CHUNKED_THRESHOLD` causal self-attention on a CUDA
-tensor launches the kernel and on a CPU tensor runs ``chunked_attention``;
-at or below it ``full_attention`` (torch ops) runs on either device.
+tensor launches the kernel and on a CPU tensor runs ``chunked_attention``
+(on DTensors, either on each rank's local shards); at or below it
+``full_attention`` (torch ops) runs on either device.
 """
 from __future__ import annotations
 
@@ -18,6 +19,9 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.dtensor import (attention_kernel, gather_seq,
+                                        is_dtensor, replicated_like,
+                                        split_heads)
 from repro_torch.models.layers import Linear, apply_rope, linear
 
 NEG_INF = -1e30
@@ -44,7 +48,8 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sq, sk = q.shape[1], k.shape[1]
         qi = torch.arange(sq, device=q.device)[:, None] + q_offset
         ki = torch.arange(sk, device=q.device)[None, :]
-        logits = torch.where(ki <= qi, logits, NEG_INF)
+        logits = torch.where(replicated_like(logits, ki <= qi), logits,
+                             NEG_INF)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
@@ -145,18 +150,37 @@ class Attention(nn.Module):
             p.init_weights(gen)
 
 
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+           ) -> torch.Tensor:
+    """The kernel (it reads KV head h // n_rep itself)."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=True)
+
+
+def _chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+             ) -> torch.Tensor:
+    n_rep = q.shape[2] // k.shape[2]
+    return chunked_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
+                             causal=True)
+
+
 def attention_block(p: Attention, x: torch.Tensor, *, n_heads: int,
                     n_kv_heads: int, head_dim: int,
                     rope_theta: Optional[float],
                     positions: Optional[torch.Tensor] = None,
                     kv: Optional[torch.Tensor] = None, causal: bool = True,
                     impl: str = "auto") -> torch.Tensor:
-    """Self-attention (kv=None) or cross-attention (kv=encoder output)."""
+    """Self-attention (kv=None) or cross-attention (kv=encoder output).
+    On DTensors the long causal self-attention (the kernel, or
+    ``chunked_attention`` on the CPU) runs on each rank's local batch rows
+    and heads (``models.dtensor.attention_kernel``), the sequence of a
+    sequence-parallel input gathered first (``gather_seq``)."""
     b, s, _ = x.shape
-    src = kv if kv is not None else x
-    q = linear(p.q, x).reshape(b, s, n_heads, head_dim)
-    k = linear(p.k, src).reshape(b, src.shape[1], n_kv_heads, head_dim)
-    v = linear(p.v, src).reshape(b, src.shape[1], n_kv_heads, head_dim)
+    x = gather_seq(x)
+    src = gather_seq(kv) if kv is not None else x
+    q = split_heads(linear(p.q, x), n_heads, head_dim)
+    k = split_heads(linear(p.k, src), n_kv_heads, head_dim)
+    v = split_heads(linear(p.v, src), n_kv_heads, head_dim)
     if rope_theta is not None and kv is None:
         pos = (positions if positions is not None
                else torch.arange(s, device=x.device)[None, :])
@@ -164,17 +188,13 @@ def attention_block(p: Attention, x: torch.Tensor, *, n_heads: int,
         k = apply_rope(k, pos, rope_theta)
     use_chunked = impl == "chunked" or (impl == "auto"
                                         and s > CHUNKED_THRESHOLD)
-    if use_chunked and causal and kv is None and x.is_cuda:
-        # the kernel reads KV head h // n_rep itself
-        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            causal=True)
+    if use_chunked and causal and kv is None:
+        fn = _flash if x.is_cuda else _chunked
+        o = attention_kernel(fn, q, k, v) if is_dtensor(q) else fn(q, k, v)
     else:
         n_rep = n_heads // n_kv_heads
         k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
-        if use_chunked and causal and kv is None:
-            o = chunked_attention(q, k, v, causal=True)
-        else:
-            o = full_attention(q, k, v, causal=causal and kv is None)
+        o = full_attention(q, k, v, causal=causal and kv is None)
     o = o.reshape(b, s, n_heads * head_dim)
     return linear(p.o, o)
 

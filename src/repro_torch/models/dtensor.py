@@ -1,0 +1,282 @@
+"""The model's ops on DTensors: each hand-written kernel on its local
+shards, and the explicit fall-backs to replicated inputs.
+
+Under a mesh (``launch.train``) the parameters and the batch are
+``DTensor``s and most ops propagate their placements through aten.  A
+kernel knows nothing of DTensors, so each kernel call site goes through
+``local_map``: the inputs are redistributed to a layout in which every
+rank's local slice is a whole problem (batch rows over the data axes,
+whole heads or channels over ``model``, everything else replicated), the
+kernel's wrapper (``flash_attention``, ``rwkv6_scan``, ``ssm_scan``, and
+through them ``FlashAttentionFn`` / ``Rwkv6ScanFn`` / ``SsmScanFn``, so
+the backward kernels run too) is called on the local tensors, and the
+outputs are wrapped back with that layout.  A parameter that every rank
+reads whole while its batch rows or channels are split (``u``, ``A``,
+Mamba's B and C) gets a ``Partial`` gradient, which the redistribution's
+backward reduces.
+
+Where DTensor has no sharding rule for an op, or only a wrong one, the op
+runs on replicated inputs (:func:`replicated_call`, :func:`gather_rows`);
+ROADMAP.md lists each such place as later performance work.
+
+A :class:`PartitionSpec` (the port's own, entry for entry the
+reference's) and :func:`to_placements`, its placements on a mesh, are
+here too: the model's ``hidden_pspec`` and the data pipeline's batches
+read them, and ``launch.shardings`` builds its spec trees from them.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+import types
+from typing import Callable, Iterator, Optional, Sequence
+
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import (implicit_replication,
+                                                   local_map)
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dim (trailing dims may be left out): None
+    (replicated), a mesh axis name, or a tuple of names (the dim split
+    over several axes, major to minor).  A tuple of one name is that
+    name, and an empty one None, as ``jax.sharding.PartitionSpec``
+    normalizes them."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, (_entry(p) for p in parts))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def _entry(part):
+    if isinstance(part, (tuple, list)):
+        part = tuple(part)
+        return None if not part else part[0] if len(part) == 1 else part
+    return part
+
+
+P = PartitionSpec
+
+
+def to_placements(mesh, spec: Sequence, ndim: Optional[int] = None) -> tuple:
+    """The DTensor placements of `spec` on `mesh`: ``Shard(d)`` on each
+    mesh dim whose name the spec puts on tensor dim d, else
+    ``Replicate()``.  A mesh dim of size 1 is ``Replicate()`` whatever
+    the spec says: its one rank holds the whole dim either way, and
+    DTensor's view rules refuse some shards of a size-1 mesh dim (a
+    (1, S, d) batch split over one rank cannot be flattened).
+
+    DTensor splits a dim over several mesh dims in mesh order, so a tuple
+    entry must name its axes in the mesh's order; another order is a
+    different layout and raises, as does an axis the mesh lacks, one
+    named twice, or a spec longer than `ndim`."""
+    names = tuple(mesh.mesh_dim_names)
+    if ndim is not None and len(spec) > ndim:
+        raise ValueError(f"spec {tuple(spec)} has more entries than the "
+                         f"tensor's {ndim} dims")
+    placements = [Replicate()] * len(names)
+    seen = set()
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"spec {tuple(spec)} names axis {a!r}; the "
+                                 f"mesh has {names}")
+            if a in seen:
+                raise ValueError(f"spec {tuple(spec)} names axis {a!r} twice")
+            seen.add(a)
+        pos = [names.index(a) for a in axes]
+        if pos != sorted(pos):
+            raise ValueError(
+                f"spec {tuple(spec)} splits dim {d} over {axes}, out of the "
+                f"mesh's order {names}: DTensor shards a dim over mesh dims "
+                f"in mesh order, so this layout has no placements")
+        for i in pos:
+            if mesh.size(i) > 1:
+                placements[i] = Shard(d)
+    return tuple(placements)
+
+
+def is_dtensor(x) -> bool:
+    return isinstance(x, DTensor)
+
+
+# open plain_as_replicated blocks, across threads: implicit_replication
+# is one switch for the process, and its exit turns it off rather than
+# back, so only the outermost block turns it on and off
+_implicit = {"lock": threading.Lock(), "depth": 0, "ctx": None}
+
+
+@contextlib.contextmanager
+def plain_as_replicated(x) -> Iterator[None]:
+    """Within the block a plain tensor meeting a DTensor counts as
+    replicated (positions, masks, zero states), when `x` is a DTensor;
+    re-entrant, unlike ``implicit_replication`` alone."""
+    if not is_dtensor(x):
+        yield
+        return
+    with _implicit["lock"]:
+        if _implicit["depth"] == 0:
+            _implicit["ctx"] = implicit_replication()
+            _implicit["ctx"].__enter__()
+        _implicit["depth"] += 1
+    try:
+        yield
+    finally:
+        with _implicit["lock"]:
+            _implicit["depth"] -= 1
+            if _implicit["depth"] == 0:
+                _implicit["ctx"].__exit__(None, None, None)
+                _implicit["ctx"] = None
+
+
+def replicated_like(x, t: torch.Tensor) -> torch.Tensor:
+    """t as a replicated DTensor on x's mesh when x is a DTensor (else t):
+    for a plain tensor that an op keeps for its backward (RoPE's angles, a
+    mask), since the backward runs outside :func:`plain_as_replicated`."""
+    if not is_dtensor(x) or is_dtensor(t):
+        return t
+    mesh = x.device_mesh
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
+def _roles(lead, tensors: Sequence, split_dim: int) -> tuple:
+    """Per mesh dim of `lead`: "batch" where it is Shard(0), "split"
+    where every tensor of `tensors` is Shard(split_dim) (whole heads or
+    channels a rank), else "rep"."""
+    out = []
+    for i, p in enumerate(lead.placements):
+        if p == Shard(0):
+            out.append("batch")
+        elif all(is_dtensor(t) and t.placements[i] == Shard(split_dim)
+                 for t in tensors):
+            out.append("split")
+        else:
+            out.append("rep")
+    return tuple(out)
+
+
+def _pl(roles, batch, split, rep=None) -> tuple:
+    rep = Replicate() if rep is None else rep
+    return tuple({"batch": batch, "split": split, "rep": rep}[r]
+                 for r in roles)
+
+
+def _call_local(fn: Callable, mesh, args, in_pl, grad_pl, out_pl):
+    """local_map of fn: placements per input (`in_pl`), per input's
+    gradient (`grad_pl`) and per output (`out_pl`)."""
+    return local_map(fn, out_placements=out_pl, in_placements=in_pl,
+                     in_grad_placements=grad_pl, redistribute_inputs=True,
+                     device_mesh=mesh)(*args)
+
+
+def gather_seq(x: torch.Tensor) -> torch.Tensor:
+    """x with its sequence gathered: a DTensor split on dim 1 (the
+    sequence-parallel residual stream that ``Model._constrain`` leaves)
+    replicated on those mesh dims, its other placements kept.  This is
+    Megatron-SP's all-gather of the activations at a tensor-parallel
+    block's entry: the column-parallel linear after it then splits its
+    output features (whole heads or channels a rank), where on a
+    sequence-split input DTensor would gather the weight instead."""
+    if not is_dtensor(x) or Shard(1) not in x.placements:
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p == Shard(1) else p for p in x.placements])
+
+
+def split_heads(t: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
+    """(B, S, n_heads * head_dim) -> (B, S, n_heads, head_dim).  A DTensor
+    whose flat dim is split over a mesh dim that does not divide the heads
+    (2 KV heads on 4 ranks) is first replicated on that mesh dim, so that
+    no rank holds part of a head."""
+    b, s = t.shape[0], t.shape[1]
+    if is_dtensor(t):
+        mesh = t.device_mesh
+        pl = list(t.placements)
+        for i, p in enumerate(pl):
+            if p == Shard(2) and n_heads % mesh.size(i):
+                pl[i] = Replicate()
+        if pl != list(t.placements):
+            t = t.redistribute(mesh, pl)
+    return t.reshape(b, s, n_heads, head_dim)
+
+
+def attention_kernel(fn: Callable, q, k, v):
+    """fn(q, k, v) (the ``flash_attention`` wrapper) on each rank's local
+    batch rows and whole heads: heads stay split over a mesh dim only
+    where q, k and v all split them (GQA's head h reads KV head
+    h // n_rep on the same rank then)."""
+    roles = _roles(q, (q, k, v), 2)
+    pl = _pl(roles, Shard(0), Shard(2))
+    return _call_local(fn, q.device_mesh, (q, k, v), (pl, pl, pl),
+                       (pl, pl, pl), (pl,))
+
+
+def rwkv_kernel(fn: Callable, r, k, v, w, u):
+    """fn(r, k, v, w, u) (the ``rwkv6_scan`` wrapper) on local batch rows
+    and heads; u (H, hd) is read whole by every batch shard."""
+    roles = _roles(r, (r, k, v, w), 2)
+    x = _pl(roles, Shard(0), Shard(2))
+    return _call_local(fn, r.device_mesh, (r, k, v, w, u),
+                       (x, x, x, x, _pl(roles, Replicate(), Shard(0))),
+                       (x, x, x, x, _pl(roles, Partial(), Shard(0))), (x,))
+
+
+def ssm_kernel(fn: Callable, u, dt, a, b, c):
+    """fn(u, dt, A, B, C) (the ``ssm_scan`` wrapper) on local batch rows
+    and channels; A (D, N) is read whole by every batch shard, B and C
+    (B, T, N) by every channel shard."""
+    roles = _roles(u, (u, dt), 2)
+    x = _pl(roles, Shard(0), Shard(2))
+    a_in = _pl(roles, Replicate(), Shard(0))
+    a_grad = _pl(roles, Partial(), Shard(0))
+    bc_in = _pl(roles, Shard(0), Replicate())
+    bc_grad = _pl(roles, Shard(0), Partial())
+    return _call_local(fn, u.device_mesh, (u, dt, a, b, c),
+                       (x, x, a_in, bc_in, bc_in),
+                       (x, x, a_grad, bc_grad, bc_grad), (x,))
+
+
+def gather_rows(table, idx):
+    """``table[idx]`` for a DTensor table: DTensor has no rule for an
+    index into a split table, so the table is replicated and each rank
+    gathers its own batch rows of `idx`."""
+    mesh = table.device_mesh
+    roles = tuple("batch" if is_dtensor(idx) and p == Shard(0) else "rep"
+                  for p in (idx.placements if is_dtensor(idx)
+                            else [Replicate()] * mesh.ndim))
+    rows = _pl(roles, Shard(0), None)
+    return _call_local(lambda t, i: t[i], mesh, (table, idx),
+                       (_pl(roles, Replicate(), None), rows),
+                       (_pl(roles, Partial(), None), rows), (rows,))
+
+
+def replicated_call(fn: Callable, mesh, tensors: Sequence, n_out: int):
+    """fn(*local tensors) with every input replicated on every mesh dim
+    and each of its `n_out` outputs declared replicated: every rank runs
+    the whole op."""
+    rep = (Replicate(),) * mesh.ndim
+    return _call_local(fn, mesh, tuple(tensors), (rep,) * len(tensors),
+                       (rep,) * len(tensors), (rep,) * n_out)
+
+
+def module_view(mod: torch.nn.Module, tensors: dict):
+    """A stand-in for `mod` in which the parameters named in `tensors`
+    (dotted names, as ``named_parameters()`` gives them) are those
+    tensors, for a function that reads a module's parameters as
+    attributes."""
+    ns = types.SimpleNamespace(**{k: v for k, v in vars(mod).items()
+                                  if not k.startswith("_")})
+    vars(ns).update(mod._parameters)
+    for k, sub in mod._modules.items():
+        setattr(ns, k, None if sub is None else module_view(
+            sub, {n[len(k) + 1:]: t for n, t in tensors.items()
+                  if n.startswith(k + ".")}))
+    vars(ns).update({n: t for n, t in tensors.items() if "." not in n})
+    return ns

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models.dtensor import gather_seq, replicated_like
+
 
 def upcast(x: torch.Tensor) -> torch.Tensor:
     """x in fp32, or in fp64 if it is fp64: the reference's fp32 casts,
@@ -62,8 +64,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)                   # (hd/2,)
     ang = positions[..., :, None].float() * freqs             # (..., seq, hd/2)
-    cos = torch.cos(ang)[..., :, None, :]                     # (..., seq, 1, hd/2)
-    sin = torch.sin(ang)[..., :, None, :]
+    cos = replicated_like(x, torch.cos(ang)[..., :, None, :])  # (..., seq, 1, hd/2)
+    sin = replicated_like(x, torch.sin(ang)[..., :, None, :])
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -124,6 +126,7 @@ class MLP(nn.Module):
 
 
 def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
+    x = gather_seq(x)
     if p.gated:
         g = torch.matmul(x, p.w_gate)
         u = torch.matmul(x, p.w_up)

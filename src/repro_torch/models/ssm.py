@@ -4,7 +4,8 @@ the RWKV6 ("Finch") time-mix with data-dependent decay, and channel-mix.
 The port's counterpart of ``repro.models.ssm``.  In a forward pass (no
 carried state) the Mamba scan goes through the ``ssm_scan`` kernel and the
 RWKV6 WKV recurrence through the ``rwkv6_scan`` kernel on a CUDA tensor,
-and through their plain versions on a CPU tensor; in decode (a carried
+and through their plain versions on a CPU tensor (on DTensors, either
+on each rank's local shards: ``models.dtensor``); in decode (a carried
 state) :func:`_selective_scan` and :func:`wkv6_scan` run them in torch
 ops, since the kernels start from a zero state and return none.
 """
@@ -19,6 +20,8 @@ from torch import nn
 
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.kernels.ssm_scan import ssm_scan
+from repro_torch.models.dtensor import (gather_seq, is_dtensor, rwkv_kernel,
+                                        split_heads, ssm_kernel)
 from repro_torch.models.layers import Linear, empty_param, linear, upcast
 
 
@@ -90,8 +93,10 @@ def mamba_block(p: Mamba, x: torch.Tensor, state: Optional[Dict] = None
     """x: (B, L, d).  state (decode): {"h": (B, d_in, N), "conv": (B,
     d_conv-1, d_in)}.  Returns (y, new_state).  Without a carried state
     the scan is the ``ssm_scan`` kernel, which returns no state: ``h`` is
-    then None."""
+    then None.  A sequence-parallel input is gathered first
+    (``gather_seq``)."""
     b, L, _ = x.shape
+    x = gather_seq(x)
     d_conv, d_in = p.conv_w.shape
     n = p.A_log.shape[1]
 
@@ -117,8 +122,9 @@ def mamba_block(p: Mamba, x: torch.Tensor, state: Optional[Dict] = None
     if state is None:
         # fp32 in, fp32 out, as the reference's scan casts its inputs
         uf = upcast(u)
-        y = ssm_scan(uf.contiguous(), dt.to(uf.dtype), A,
-                     upcast(Bm).contiguous(), upcast(Cm).contiguous())
+        args = (uf, dt.to(uf.dtype), A, upcast(Bm), upcast(Cm))
+        y = (ssm_kernel(_ssm_local, *args) if is_dtensor(uf)
+             else _ssm_local(*args))
         y = y + p.D[None, None, :] * uf
         h = None
     else:
@@ -126,6 +132,11 @@ def mamba_block(p: Mamba, x: torch.Tensor, state: Optional[Dict] = None
     y = y.to(x.dtype) * F.silu(upcast(z)).to(x.dtype)
     out = linear(p.out_proj, y)
     return out, {"h": h, "conv": new_conv}
+
+
+def _ssm_local(u, dt, a, b, c):
+    return ssm_scan(u.contiguous(), dt.contiguous(), a, b.contiguous(),
+                    c.contiguous())
 
 
 def mamba_init_state(b: int, d_model: int, d_state: int, d_conv: int,
@@ -215,18 +226,19 @@ def rwkv_time_mix(p: RWKV, x: torch.Tensor, head_size: int,
     def mix(m):
         return x * m + xs * (1 - m)
 
-    r = linear(p.r, mix(p.mix_r)).reshape(b, L, h, head_size)
-    k = linear(p.k, mix(p.mix_k)).reshape(b, L, h, head_size)
-    v = linear(p.v, mix(p.mix_v)).reshape(b, L, h, head_size)
+    r = split_heads(linear(p.r, mix(p.mix_r)), h, head_size)
+    k = split_heads(linear(p.k, mix(p.mix_k)), h, head_size)
+    v = split_heads(linear(p.v, mix(p.mix_v)), h, head_size)
     g = linear(p.g, mix(p.mix_g))
     # data-dependent decay (the Finch contribution)
     w_ = upcast(linear(p.w_proj, mix(p.mix_w)))
-    w = torch.exp(-torch.exp(w_ + p.w_bias)).reshape(b, L, h, head_size)
+    w = split_heads(torch.exp(-torch.exp(w_ + p.w_bias)), h, head_size)
 
     if state is None:
         # fp32 in, fp32 out, as the reference's scan casts its inputs
-        y = rwkv6_scan(upcast(r).contiguous(), upcast(k).contiguous(),
-                       upcast(v).contiguous(), w.contiguous(), p.u)
+        args = (upcast(r), upcast(k), upcast(v), w, p.u)
+        y = (rwkv_kernel(_rwkv_local, *args) if is_dtensor(w)
+             else _rwkv_local(*args))
         s = None
     else:
         y, s = wkv6_scan(r, k, v, w, p.u, state["wkv"])
@@ -236,6 +248,11 @@ def rwkv_time_mix(p: RWKV, x: torch.Tensor, head_size: int,
     y = y * F.silu(upcast(g)).to(x.dtype)
     out = linear(p.out, y)
     return out, {"wkv": s, "shift": new_shift}
+
+
+def _rwkv_local(r, k, v, w, u):
+    return rwkv6_scan(r.contiguous(), k.contiguous(), v.contiguous(),
+                      w.contiguous(), u)
 
 
 def rwkv_channel_mix(p: RWKV, x: torch.Tensor,

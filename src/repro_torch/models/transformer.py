@@ -20,6 +20,14 @@ default) each layer body runs under ``torch.utils.checkpoint`` while grad
 mode is on, as the reference's scan body runs under ``jax.checkpoint``:
 its activations are recomputed in the backward instead of kept.  Under
 ``torch.no_grad`` (prefill, decode, serve) it runs as is.
+
+Under a mesh the parameters and the batch are DTensors
+(``launch.train``) and the same code runs on them: plain tensors made
+inside (positions, zero states) count as replicated, the kernels run on
+each rank's local shards (``models.dtensor``), and ``hidden_pspec`` /
+``hidden_divisors`` (set by the launcher, as the reference's are)
+redistribute the residual stream between blocks (:meth:`Model._constrain`,
+Megatron sequence parallelism).
 """
 from __future__ import annotations
 
@@ -34,6 +42,9 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.models.dtensor import (gather_rows, is_dtensor, module_view,
+                                        plain_as_replicated, replicated_call,
+                                        to_placements)
 from repro_torch.models.layers import (MLP, Linear, empty_param, linear, mlp,
                                        rms_norm)
 
@@ -151,7 +162,9 @@ class Model(nn.Module):
     or ``load_state_dict``.  ``device=None`` means the CUDA device.
     ``moe_capacity`` is the MoE token-dropping capacity factor; set it to
     ``n_experts`` to disable drops.  ``remat`` recomputes each layer's
-    activations in the backward (see the module docstring)."""
+    activations in the backward (see the module docstring).
+    ``hidden_pspec`` (a PartitionSpec for the residual stream) and
+    ``hidden_divisors`` ((dp_size, model_size)) are the launcher's."""
 
     def __init__(self, cfg: ArchConfig, dtype=torch.bfloat16,
                  device: DeviceLike = None, moe_capacity: float = 1.25,
@@ -164,6 +177,8 @@ class Model(nn.Module):
         self.dtype = dtype
         self.moe_capacity = moe_capacity
         self.remat = remat
+        self.hidden_pspec = None
+        self.hidden_divisors = None
         self.device = resolve_device(device)
         dev = self.device
         self.embed = empty_param((cfg.vocab, cfg.d_model), dtype, dev)
@@ -208,11 +223,15 @@ class Model(nn.Module):
         the audio family also reads batch["frames"]: (B, enc_ctx, d).
         -> logits (B, S, vocab), and the summed MoE aux loss (fp32 scalar)
         with `collect_aux`."""
+        with plain_as_replicated(self.embed):
+            return self._forward(batch, collect_aux)
+
+    def _forward(self, batch: Dict[str, torch.Tensor], collect_aux: bool):
         cfg = self.cfg
         if "embeds" in batch:
             x = batch["embeds"].to(self.dtype)
         else:
-            x = self.embed[batch["tokens"]]
+            x = self._embed(batch["tokens"])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "ssm":
             x = self._rwkv_stack(x)
@@ -235,25 +254,64 @@ class Model(nn.Module):
         turned them on (they are built without)."""
         logits, aux = self.forward(batch, collect_aux=True)
         labels = batch["labels"]
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None].long())
-        mask = (labels >= 0).float()
-        nll = -(ll[..., 0] * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-        return nll + 0.01 * aux
+        with plain_as_replicated(self.embed):
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            ll = torch.gather(logp, -1,
+                              labels.clamp(min=0)[..., None].long())
+            mask = (labels >= 0).float()
+            nll = -(ll[..., 0] * mask).sum() / torch.clamp(mask.sum(),
+                                                           min=1.0)
+            return nll + 0.01 * aux
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        if is_dtensor(self.embed):
+            return gather_rows(self.embed, tokens)
+        return self.embed[tokens]
+
+    def _constrain(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual stream redistributed to ``hidden_pspec``'s
+        placements where the reference constrains it: a 3-dim DTensor
+        whose batch divides the data axes and whose sequence divides the
+        model axis (and is at least it, which is above 1)."""
+        if self.hidden_pspec is None or x.dim() != 3 or not is_dtensor(x):
+            return x
+        dp, mp = self.hidden_divisors or (1, 1)
+        if x.shape[0] % max(dp, 1) == 0 and x.shape[1] % max(mp, 1) == 0 \
+                and x.shape[1] >= mp > 1:
+            mesh = x.device_mesh
+            return x.redistribute(mesh, to_placements(mesh, self.hidden_pspec,
+                                                      x.dim()))
+        return x
 
     def _layer(self, body, *args):
         """body(*args), under activation checkpointing when ``remat`` and
         grad mode are on (the model draws no random numbers, so no RNG
         state is kept for the recompute)."""
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(body, *args, use_reentrant=False,
+            # the recompute runs in the backward, outside forward()'s block
+            def run(*a):
+                with plain_as_replicated(self.embed):
+                    return body(*a)
+            return checkpoint(run, *args, use_reentrant=False,
                               preserve_rng_state=False)
         return body(*args)
 
     def _moe(self, p: M.MoE, hin: torch.Tensor):
+        """The MoE block; on a DTensor it runs whole on every rank, on
+        replicated inputs and weights (the expert-sharded dispatch is not
+        ported yet)."""
         cfg = self.cfg
-        return M.moe_block(p, hin, n_experts=cfg.n_experts, top_k=cfg.top_k,
-                           capacity_factor=self.moe_capacity)
+        kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k,
+                  capacity_factor=self.moe_capacity)
+        if not is_dtensor(hin):
+            return M.moe_block(p, hin, **kw)
+        names = [n for n, _ in p.named_parameters()]
+
+        def local(x, *ts):
+            return M.moe_block(module_view(p, dict(zip(names, ts))), x, **kw)
+        return replicated_call(local, hin.device_mesh,
+                               (hin, *(t for _, t in p.named_parameters())),
+                               2)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -305,7 +363,7 @@ class Model(nn.Module):
             head_dim=cfg.head_dim, rope_theta=self._rope_theta())
         h = self._cross(lp, h + a, enc)
         f, al = self._ffn(lp, h)
-        return h + f, al
+        return self._constrain(h + f), al
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """The audio encoder (``_encoder_stack``): frames (B, enc_ctx, d),
@@ -323,11 +381,13 @@ class Model(nn.Module):
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.head_dim, rope_theta=None, causal=False)
         h = h + a
-        return h + mlp(lp.mlp, rms_norm(lp.ln2, h, cfg.norm_eps))
+        return self._constrain(
+            h + mlp(lp.mlp, rms_norm(lp.ln2, h, cfg.norm_eps)))
 
     def _rwkv_stack(self, h: torch.Tensor) -> torch.Tensor:
         for i in range(len(self.layers)):
-            h = self._layer(lambda j, x: self.rwkv_layer(j, x)[0], i, h)
+            h = self._layer(
+                lambda j, x: self._constrain(self.rwkv_layer(j, x)[0]), i, h)
         return h
 
     def _jamba_stack(self, h: torch.Tensor):
@@ -363,7 +423,7 @@ class Model(nn.Module):
                 f = mlp(bp.mlp[di], hin)
                 di += 1
             h = h + f
-        return h, aux
+        return self._constrain(h), aux
 
     def rwkv_layer(self, i: int, h: torch.Tensor,
                    state: Optional[Dict] = None
@@ -420,7 +480,7 @@ class Model(nn.Module):
         """tokens: (B,) integer -> logits (B, vocab), updated cache (the KV
         cache tensors are written in place)."""
         cfg = self.cfg
-        x = self.embed[tokens][:, None, :]                # (B, 1, d)
+        x = self._embed(tokens)[:, None, :]               # (B, 1, d)
         if cfg.family == "ssm":
             x, cache = self._rwkv_decode(cache, x)
         elif cfg.family == "hybrid":

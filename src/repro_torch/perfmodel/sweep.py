@@ -28,6 +28,10 @@ model (or the CUDA ``ppa_eval`` kernel) in fixed-size chunks, with
   (``telemetry()``), and ``sweep.run`` / ``sweep.span`` trace spans;
 * ``chunk_size="auto"``: a short timed probe over ``chunk_candidates``
   picks the fastest chunk size (memoized per process);
+* ``shard=True``: each chunk's designs split evenly over the local CUDA
+  devices, each part evaluated on its own card and the results brought
+  back to the engine's for the reduction (a no-op on one device; the
+  chunk rounds up to a multiple of the device count);
 * **portfolio mode**: an evaluator carrying several
   :class:`~repro_torch.perfmodel.workload.Scenario`\\ s (e.g.
   ``get_evaluator(suite="zoo")``) streams the id range ONCE — one op-term
@@ -54,6 +58,7 @@ import hashlib
 import math
 import os
 import time
+import types
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple, Union
@@ -80,6 +85,17 @@ ROBUST = ("worst", "geomean")
 
 # chunk_size="auto" probe results, memoized per (device type, backend, config)
 _CHUNK_AUTO_CACHE: Dict[tuple, int] = {}
+
+
+def _device_count(device: torch.device) -> int:
+    """The local devices a sharded sweep spreads over: every CUDA device
+    for an engine on the card, the engine's one device otherwise."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def _shard_devices(device: torch.device, n: int) -> List[torch.device]:
+    """The n local devices a chunk splits over."""
+    return [torch.device(device.type, i) for i in range(n)]
 
 
 def _np(x) -> np.ndarray:
@@ -242,6 +258,10 @@ class SweepEngine:
         ``"roofline"`` evaluates chunks with the torch op-term model;
         ``"cuda"`` through the ``ppa_eval`` kernel (bare roofline tier, pair
         sweeps only).  ``None`` (default) follows the evaluator.
+    shard:
+        Split each chunk's designs over all local CUDA devices (a no-op on
+        one device).  The chunk rounds up to a multiple of the device
+        count, and on the ``cuda`` backend to ``lcm(devices, 256)``.
     robust:
         Portfolio scalarization of the reference-normalized latencies:
         ``"worst"`` (max over scenarios) or ``"geomean"``.
@@ -260,7 +280,7 @@ class SweepEngine:
                  ref_point: Optional[np.ndarray] = None,
                  backend: Optional[str] = None,
                  stall_topk: int = 0, stall_rank: str = "ttft",
-                 robust: str = "worst",
+                 robust: str = "worst", shard: bool = False,
                  chunk_candidates: Tuple[int, ...] = (65_536, 131_072,
                                                       262_144),
                  device: DeviceLike = None,
@@ -331,6 +351,11 @@ class SweepEngine:
         self.local_filter = int(local_filter)
         self.backend = backend
         self.archive_capacity = archive_capacity
+        self.shard = bool(shard)
+        ndev = _device_count(self.device) if shard else 1
+        self._shard_devs = (_shard_devices(self.device, ndev) if ndev > 1
+                            else [])
+        self._on_device: Dict[str, object] = {}
         self._cards = tuple(int(c) for c in space.cardinalities)
 
         # ---- portfolio mode: S > 1 scenarios over one stacked op union ----
@@ -355,12 +380,15 @@ class SweepEngine:
                     f"chunk_size must be an int or 'auto', got {chunk_size!r}")
             chunk_size = self._autotune_chunk(chunk_candidates)
         chunk_size = int(chunk_size)
+        # the chunk divides by the shard count, and on the cuda backend by
+        # the kernel's block (ids past `stop` are masked)
+        multiple = max(ndev, 1)
         if backend == "cuda":
-            # whole kernel blocks per chunk (ids past `stop` are masked)
             from repro_torch.kernels.ppa_eval.ops import BLOCK, kernel_tables
-            chunk_size += (-chunk_size) % BLOCK
+            multiple = math.lcm(multiple, BLOCK)
             self._tables = kernel_tables([ttft_model.wl, tpot_model.wl],
                                          self.device)
+        chunk_size += (-chunk_size) % multiple
         self.chunk_size = chunk_size
         self._iota = torch.arange(self.chunk_size, dtype=torch.int32,
                                   device=self.device)
@@ -439,12 +467,15 @@ class SweepEngine:
 
     def _autotune_chunk(self, candidates: Tuple[int, ...]) -> int:
         """Timed probe: one warmed chunk step per candidate size, keep the
-        highest-throughput one (memoized per process)."""
+        highest-throughput one (memoized per process).  Probe engines
+        inherit the shard flag, so a sharded sweep is tuned on the sharded
+        path."""
         if not candidates:
             raise ValueError("chunk_size='auto' needs a non-empty "
                              "chunk_candidates tuple")
         key = (self.device.type, self.backend, self.fingerprint(),
-               int(self.stall_topk), tuple(int(c) for c in candidates))
+               int(self.stall_topk), self.shard,
+               tuple(int(c) for c in candidates))
         cached = _CHUNK_AUTO_CACHE.get(key)
         if cached is not None:
             return cached
@@ -456,7 +487,7 @@ class SweepEngine:
                 archive_capacity=self.archive_capacity,
                 ref_point=(self.ref_points if self._portfolio
                            else self.ref_point),
-                backend=self.backend, robust=self.robust,
+                backend=self.backend, robust=self.robust, shard=self.shard,
                 stall_topk=self.stall_topk, stall_rank=self.stall_rank)
             span = min(eng.chunk_size, self.size)
             eng.run(0, span)                       # build + warm
@@ -469,6 +500,37 @@ class SweepEngine:
         return best
 
     # ------------------------------------------------------------------
+    def _sharded(self, fn, idx: torch.Tensor):
+        """fn(idx) -> (ys, dom or None), with idx's rows split evenly over
+        the shard devices when there are several: each part on its own
+        device, the parts' results back on the engine's, in order."""
+        devs = self._shard_devs
+        if not devs:
+            return fn(idx)
+        outs = [fn(part.to(d, non_blocking=True))
+                for d, part in zip(devs, idx.chunk(len(devs)))]
+        ys = torch.cat([o[0].to(self.device) for o in outs])
+        dom = (None if outs[0][1] is None
+               else torch.cat([o[1].to(self.device) for o in outs]))
+        return ys, dom
+
+    def _tables_on(self, device: torch.device) -> dict:
+        """Per-device copies of the chunk step's constant tensors."""
+        key = str(device)
+        if key not in self._on_device:
+            if device == self.device:
+                self._on_device[key] = self
+            elif self._portfolio:
+                self._on_device[key] = types.SimpleNamespace(
+                    _uops={k: v.to(device) for k, v in self._uops.items()},
+                    _gather=self._gather.to(device),
+                    _gcount=self._gcount.to(device))
+            else:
+                self._on_device[key] = types.SimpleNamespace(
+                    _tables=dataclasses.replace(
+                        self._tables, ops=self._tables.ops.to(device)))
+        return self._on_device[key]
+
     def _chunk_eval(self, idx: torch.Tensor):
         """(c, n_params) int32 -> ((c, 3) objectives, dominant-stall (c,)
         or None).  Decode + hardware derivation run once per chunk; stall
@@ -476,7 +538,8 @@ class SweepEngine:
         if self.backend == "cuda":
             from repro_torch.kernels.ppa_eval import ppa_eval_workloads
             lat, area, stall = ppa_eval_workloads(
-                self.space.decode_values(idx), self._tables)
+                self.space.decode_values(idx),
+                self._tables_on(idx.device)._tables)
             ys = torch.stack([lat[0], lat[1], area], dim=1)
             dom = (torch.argmax(stall[0], dim=1).to(torch.int32)
                    if self.stall_topk else None)
@@ -500,7 +563,7 @@ class SweepEngine:
         ids = self._iota + start
         valid = ids < stop
         idx = _unrank(torch.clamp(ids, max=self.size - 1), self._cards)
-        ys, dom = self._chunk_eval(idx)                       # (c, 3), (c,)
+        ys, dom = self._sharded(self._chunk_eval, idx)        # (c, 3), (c,)
         ysm = torch.where(valid[:, None], ys, math.inf)
 
         # ---- reference-superiority count (exact, streaming) ----
@@ -564,8 +627,9 @@ class SweepEngine:
         bit."""
         hw = derive_hardware(self.space.decode(idx))
         hwb = {kk: vv[:, None] for kk, vv in hw.items()}
-        t = self._rep_model._op_terms(hwb, ops=self._uops)
-        t_op = t["t_unit"][:, self._gather] * self._gcount   # (c, W, L)
+        on = self._tables_on(idx.device)
+        t = self._rep_model._op_terms(hwb, ops=on._uops)
+        t_op = t["t_unit"][:, on._gather] * on._gcount       # (c, W, L)
         lat = _seq_sum(t_op)                                 # (c, W)
         c, S = idx.shape[0], len(self.scenarios)
         ys = torch.stack([lat[:, 0::2], lat[:, 1::2],
@@ -573,7 +637,7 @@ class SweepEngine:
         dom = None
         if self.stall_topk:
             dom_u = _dominant_class(t)                       # (c, U)
-            dom_p = dom_u[:, self._gather[0::2]]             # (c, S, L)
+            dom_p = dom_u[:, on._gather[0::2]]               # (c, S, L)
             t_p = t_op[:, 0::2]
             stall = torch.stack(
                 [_seq_sum(torch.where(dom_p == k, t_p, 0.0))
@@ -604,7 +668,8 @@ class SweepEngine:
         ids = self._iota + start
         valid = ids < stop
         idx = _unrank(torch.clamp(ids, max=self.size - 1), self._cards)
-        ys_s, dom = self._chunk_eval_portfolio(idx)       # (c,S,3), (c,S)
+        ys_s, dom = self._sharded(self._chunk_eval_portfolio,
+                                  idx)                    # (c,S,3), (c,S)
         ys_r = self._robust_objectives(ys_s)              # (c,3)
         ys_all = torch.cat([ys_s, ys_r[:, None, :]], dim=1)
         ysm = torch.where(valid[:, None, None], ys_all, math.inf)

@@ -1,0 +1,273 @@
+"""Process side of the mesh tests (``test_torch_mesh.py``): gloo ranks on
+the CPU that run the port's sharded train step, ``train()`` and the
+resharding restore, and write what rank 0 gathered to files the test
+reads.  Imports the port only (no jax), so that each spawned process
+starts in a second or two.
+
+:func:`start_group` spawns `world` processes, each joining one process
+group over a ``FileStore`` (no TCP port, so parallel test workers never
+collide) and running the jobs in order; :func:`join_group` waits for
+them, and a rank that fails or outlives the deadline fails the call with
+its traceback, every process stopped.
+"""
+from __future__ import annotations
+
+import os
+import time
+import traceback
+from typing import Dict, List
+
+import torch
+
+B = 2                              # batch rows; divides every data axis here
+OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10)
+N_STEPS = 3
+
+
+def start_group(world: int, jobs: List[dict], work_dir: str,
+                deadline_s: float = 120.0) -> tuple:
+    """Spawns the group's `world` processes and returns at once; the
+    caller may work meanwhile, then :func:`join_group` waits."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    store = os.path.join(work_dir, f"store_{world}_{time.monotonic_ns()}")
+    procs = [ctx.Process(target=_child, args=(r, world, store, work_dir, jobs))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, time.monotonic() + deadline_s, work_dir, deadline_s
+
+
+def join_group(group: tuple) -> None:
+    procs, end, work_dir, deadline_s = group
+    try:
+        while any(p.is_alive() for p in procs):
+            failed = [p for p in procs if p.exitcode not in (None, 0)]
+            if failed or time.monotonic() > end:
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    errors = []
+    for r, p in enumerate(procs):
+        path = os.path.join(work_dir, f"error_{r}.txt")
+        if os.path.exists(path):
+            with open(path) as f:
+                errors.append(f"rank {r}:\n{f.read()}")
+        elif p.exitcode != 0:
+            errors.append(f"rank {r}: exit code {p.exitcode}")
+    if errors:
+        raise AssertionError("mesh group failed (or passed its "
+                             f"{deadline_s:.0f} s deadline):\n"
+                             + "\n".join(errors))
+
+
+def _child(rank: int, world: int, store: str, work_dir: str,
+           jobs: List[dict]) -> None:
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                                rank=rank, world_size=world)
+        for job in jobs:
+            out = JOBS[job["kind"]](job)
+            if rank == 0 and out is not None:
+                torch.save(out, os.path.join(work_dir, job["out"]))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(work_dir, f"error_{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _full(x):
+    """x whole (it may share storage with x's local shard)."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _model(job: dict):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    cfg = get_arch(job["arch"]).smoke()
+    dtype = getattr(torch, job.get("dtype", "float32"))
+    m = build_model(cfg, dtype=dtype, device="cpu",
+                    remat=job.get("remat", False))
+    m.load_state_dict(torch.load(job["params"]), strict=True)
+    return cfg, m
+
+
+def _sharded(job: dict):
+    """The model placed on the job's mesh, its shardings and batches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticLMDataset, make_batch_iter
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import data_axes, make_mesh
+    cfg, model = _model(job)
+    b = job.get("batch", B)
+    mesh = make_mesh(tuple(job["mesh"]), ("data", "model"), device="cpu")
+    sh = ST.shard_model(mesh, model, cfg,
+                        ShapeConfig("t", job["seq"], b, "train"))
+    ds = SyntheticLMDataset(cfg.vocab, job["seq"], b)
+    batches = list(make_batch_iter(ds, 0, job.get("steps", N_STEPS),
+                                   mesh=mesh, dp_axes=data_axes(mesh)))
+    return model, mesh, sh, batches
+
+
+def _gathered(model, state) -> Dict:
+    return {"params": {n: _full(p).detach().clone()
+                       for n, p in model.named_parameters()},
+            "m": {n: _full(t).clone() for n, t in state["m"].items()},
+            "v": {n: _full(t).clone() for n, t in state["v"].items()}}
+
+
+def steps_job(job: dict) -> Dict:
+    """The gradient at the loaded parameters on batch 0, then the job's
+    AdamW steps (N_STEPS unless it says) (the state after the first gathered whole), every tensor
+    gathered whole.  Also the placements the residual stream left each
+    block with, each moment's local and whole size, the CPU attention's
+    and Mamba scan's calls through ``local_map``, and whether one update from a gradient
+    whose norm is under the clip equals the unsharded update bit for
+    bit."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    t0 = time.perf_counter()
+    model, mesh, sh, batches = _sharded(job)
+    hidden = []
+    constrain = model._constrain
+
+    def recording(x):
+        y = constrain(x)
+        hidden.append([str(p) for p in y.placements])
+        return y
+    model._constrain = recording
+    chunked, calls = attn_mod._chunked, []
+
+    def counting(q, k, v):
+        calls.append((type(q).__name__, tuple(q.shape), tuple(k.shape)))
+        return chunked(q, k, v)
+    attn_mod._chunked = counting
+    ssm_local, ssm_calls = ssm_mod._ssm_local, []
+
+    def counting_ssm(u, *rest):
+        ssm_calls.append((type(u).__name__, tuple(u.shape)))
+        return ssm_local(u, *rest)
+    ssm_mod._ssm_local = counting_ssm
+    opt = AdamWConfig(**OPT)
+    opt_sh = sh["opt"]
+    try:
+        model.requires_grad_(True)
+        t1 = time.perf_counter()
+        loss0, grads = ST.loss_and_grads(model, batches[0])
+        t2 = time.perf_counter()
+        model.zero_grad(set_to_none=True)
+        step = ST.make_train_step(model, opt)
+        params = dict(model.named_parameters())
+        state = adamw_init(params, opt_sh)
+        losses, gnorms, first = [], [], None
+        for b in batches:
+            state, met = step(state, b)
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["grad_norm"]))
+            if first is None:
+                first = _gathered(model, state)
+    finally:
+        attn_mod._chunked = chunked
+        ssm_mod._ssm_local = ssm_local
+        model._constrain = constrain
+    # one update from the same gradient, scaled under the clip (scale 1
+    # whatever order the norm's sum takes): sharded == unsharded
+    small = {n: g * 1e-3 for n, g in grads.items()}
+    plain_p = {n: _full(p).detach().clone() for n, p in params.items()}
+    plain_s = {"m": {n: _full(t).clone() for n, t in state["m"].items()},
+               "v": {n: _full(t).clone() for n, t in state["v"].items()},
+               "step": state["step"].clone()}
+    adamw_update(opt, {n: _full(g) for n, g in small.items()}, plain_s,
+                 plain_p)
+    state, _ = adamw_update(opt, small, state, params)
+    after = _gathered(model, state)
+    same = all(torch.equal(after["params"][n], plain_p[n])
+               and torch.equal(after["m"][n], plain_s["m"][n])
+               and torch.equal(after["v"][n], plain_s["v"][n])
+               for n in params)
+    zero1 = {n: (m.to_local().numel(), m.numel(),
+                 [str(p) for p in m.placements])
+             for n, m in state["m"].items()}
+    return {"loss0": float(loss0),
+            "grads": {n: _full(g) for n, g in grads.items()},
+            "losses": losses, "gnorms": gnorms, "step1": first,
+            "update_equal": same, "hidden": hidden, "zero1": zero1,
+            "chunked_calls": calls, "ssm_calls": ssm_calls,
+            "seconds": (t1 - t0, t2 - t1, time.perf_counter() - t2),
+            "param_placements": {n: [str(p) for p in t.placements]
+                                 for n, t in params.items()}}
+
+
+def train_job(job: dict) -> Dict:
+    """``train()`` under ``choose_mesh()`` on this world."""
+    from repro_torch.launch.train import choose_mesh, train
+    mesh = choose_mesh("cpu")
+    losses = train(job["arch"], steps=job["steps"], batch=job["batch"],
+                   seq=job["seq"], smoke=True, ckpt_dir=None,
+                   log_every=1000, device="cpu")
+    return {"losses": losses, "mesh": tuple(mesh.mesh.shape),
+            "axes": tuple(mesh.mesh_dim_names)}
+
+
+def save_job(job: dict) -> Dict:
+    """One step on the job's mesh, then a checkpoint of the parameters
+    and moments; returns what was saved, gathered whole."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import AdamWConfig, adamw_init
+    model, mesh, sh, batches = _sharded(job)
+    step = ST.make_train_step(model, AdamWConfig(**OPT))
+    params = dict(model.named_parameters())
+    state = adamw_init(params, sh["opt"])
+    state, _ = step(state, batches[0])
+    tree = {"params": params, "opt": state}
+    save_checkpoint(job["dir"], 1, tree)
+    return {"params": {n: _full(p).detach().clone()
+                       for n, p in params.items()},
+            "m": {n: _full(t) for n, t in state["m"].items()},
+            "v": {n: _full(t) for n, t in state["v"].items()},
+            "step": int(state["step"])}
+
+
+def restore_job(job: dict) -> Dict:
+    """The checkpoint restored onto the job's mesh with its shardings:
+    each leaf's placements and whole value."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw_init
+    cfg, model = _model(job)
+    mesh = make_mesh(tuple(job["mesh"]), ("data", "model"), device="cpu")
+    sh = ST.shardings_for(mesh, model, cfg,
+                          ShapeConfig("t", job["seq"], B, "train"))
+    params = dict(model.named_parameters())
+    like = {"params": params, "opt": adamw_init(params)}
+    opt_sh = ST.named(mesh, sh["opt"])
+    got = restore_checkpoint(job["dir"], 1, like, shardings={
+        "params": ST.named(mesh, sh["params"]),
+        "opt": dict(opt_sh, step=None)})
+    want_pl = {n: s.placements for n, s in opt_sh["m"].items()}
+    placed = all(tuple(got["opt"]["m"][n].placements) == want_pl[n]
+                 for n in want_pl)
+    return {"params": {n: _full(t) for n, t in got["params"].items()},
+            "m": {n: _full(t) for n, t in got["opt"]["m"].items()},
+            "v": {n: _full(t) for n, t in got["opt"]["v"].items()},
+            "step": int(got["opt"]["step"]), "placed": placed,
+            "local": {n: t.to_local().numel()
+                      for n, t in got["opt"]["m"].items()}}
+
+
+JOBS = {"steps": steps_job, "train": train_job, "save": save_job,
+        "restore": restore_job}

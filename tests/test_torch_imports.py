@@ -29,7 +29,9 @@ SUBPACKAGES = ("repro_torch", "repro_torch.perfmodel", "repro_torch.core",
                "repro_torch.obs.report", "repro_torch.optim",
                "repro_torch.data", "repro_torch.checkpoint",
                "repro_torch.launch.steps", "repro_torch.launch.train",
-               "repro_torch.serve", "repro_torch.serve.worker")
+               "repro_torch.serve", "repro_torch.serve.worker",
+               "repro_torch.launch.mesh", "repro_torch.launch.shardings",
+               "repro_torch.models.dtensor")
 
 
 def _forbidden(name: str) -> bool:
@@ -156,6 +158,23 @@ def test_training_entry_points_default_to_the_card(tmp_path):
                 call()
     assert len(train("llama3.2-1b", 1, 1, 8, True, None,
                      device="cpu")) == 1
+
+
+def test_mesh_entry_points_default_to_the_card():
+    """make_mesh and choose_mesh take the CUDA device (nccl) unless asked
+    for the CPU (gloo), and never fall back on their own."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import choose_mesh
+    if torch.cuda.is_available():
+        assert choose_mesh().device_type == "cuda"
+    else:
+        for call in (lambda: make_mesh((1, 1), ("data", "model")),
+                     choose_mesh):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+    mesh = choose_mesh("cpu")
+    assert mesh.device_type == "cpu" and tuple(mesh.mesh.shape) == (1, 1)
+    assert mesh.mesh_dim_names == ("data", "model")
 
 
 def test_kernel_libraries_are_keyed_by_their_own_flags():
