@@ -278,6 +278,18 @@ line is printed:
    restored with ``shardings=``, every leaf bit for bit in its placements
    (scratch under ``build/chip_smoke_mesh/``, removed after).
 
+19. the expert-parallel MoE block (``models/moe_shard.py``, ``Model``'s
+   ``moe_impl="shard_map"``) on the (1, 1) mesh, fp32: (a) qwen2-moe-a2.7b
+   at full width and depth (phase 15's weights), prefill B 1, S 4096,
+   through the dense block and then through ``moe_block_sharded``, whose
+   all-to-alls and gather run on the mesh's one-rank nccl group: 24
+   ``flash_attention`` launches each, routing flips between the paths
+   counted (phase 11's records), logits bit for bit over every position
+   before the first flip (all of them without one), each path's MoE share
+   of the device time (reported, not gated); (b) the same model cut to 6
+   layers: one gradient (loss, every parameter) at B 1, S 4096 through
+   each path, bit for bit, with 12 + 6 ``flash_attention`` launches each.
+
 Kernel launch counters are zeroed just before each part of the main path
 and read just after; every kernel of that part must have launched there.
 The second to last line is ``{"kernels": [...]}``; the last line is
@@ -4022,6 +4034,185 @@ def phase18_mesh(torch, dev, res_k, smi: str, train16c: dict,
     return {"train": train, "rwkv": rwkv, "sweep_launches": sweep_launches}
 
 
+# ------------------------------------------------------ expert-parallel MoE
+MOE_SHARD_LAYERS = 6     # 19b: qwen2-moe-a2.7b's depth cut for the gradient
+
+
+def _route_flips(plain, sharded, top_k: int) -> tuple:
+    """(position, layer) pairs whose expert set differs between two runs'
+    `_routings` records (one record a MoE layer, in order), and the first
+    position where any layer differs (None where none does)."""
+    check(len(plain) == len(sharded), f"{len(plain)} plain MoE calls "
+          f"recorded, {len(sharded)} sharded")
+    flips, first = 0, None
+    for (ia, _), (ib, _) in zip(plain, sharded):
+        a = ia.reshape(-1, top_k).sort(dim=-1).values
+        b = ib.reshape(-1, top_k).sort(dim=-1).values
+        diff = (a != b).any(dim=-1).nonzero().flatten().tolist()
+        flips += len(diff)
+        if diff:
+            first = diff[0] if first is None else min(first, diff[0])
+    return flips, first
+
+
+def phase19a_moe_prefill(torch, dev, mesh) -> dict:
+    """19a: qwen2-moe-a2.7b at full width and depth (phase 15's weights),
+    prefill B 1, S 4096 through the dense block, then through
+    moe_block_sharded on the mesh of one: counted launches, routings,
+    logits, and each path's MoE share of the device time."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import moe_shard as ms_mod
+    arch, batch, seq = QWEN_MOE
+    model = build_full_width(torch, arch, dev, tag="19a")
+    cfg = model.cfg
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (batch, seq)), device=dev)
+    step = make_prefill_step(model)
+    out = {}
+    for impl in ("dense", "shard_map"):
+        model.moe_impl = impl
+        model.moe_mesh = mesh if impl == "shard_map" else None
+        records, restore = _routings(moe_mod)
+        saved = _zero_counts()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = step({"tokens": toks})
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            counts = _read_counts()
+        finally:
+            restore()
+            _restore_counts(saved)
+        check(counts == _launches(flash_attention=PHASE15_LAUNCHES[arch]),
+              f"19a: {impl} prefill launched {counts}, want flash_attention "
+              f"x{PHASE15_LAUNCHES[arch]}")
+        check(logits.shape == (batch, seq, cfg.vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"19a: {impl} logits {tuple(logits.shape)} not finite")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step({"tokens": toks})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        label = "moe_block" if impl == "dense" else "moe_block_sharded"
+        mod = moe_mod if impl == "dense" else ms_mod
+        shares = profile_device(
+            torch, lambda: step({"tokens": toks}), "19a",
+            f"one {arch} prefill, moe_impl={impl!r}", "fa_fwd",
+            ranges=[(mod, label, label, None)],
+            ops_under=[(label, "aten::einsum")])
+        out[impl] = {"logits": logits, "routes": records, "counts": counts,
+                     "first_s": first_s, "wall": wall,
+                     "share": shares.get(label), "shares": shares}
+        log(f"[19a] {arch} prefill B={batch} S={seq} moe_impl={impl!r}: "
+            f"launches {counts}, wall {first_s:.3f} s (first), {wall:.3f} s "
+            f"(second)")
+    flips, first = _route_flips(out["dense"]["routes"],
+                                out["shard_map"]["routes"], cfg.top_k)
+    a, b = out["dense"]["logits"], out["shard_map"]["logits"]
+    n_same = seq if first is None else first
+    same = bool(torch.equal(a[:, :n_same], b[:, :n_same]))
+    diff = float((a.double() - b.double()).abs().max())
+    check(same, f"19a: sharded logits differ from the dense path's at "
+          f"positions the two route alike (before {n_same}); max |d| "
+          f"{diff:.3g}")
+    log(f"[19a] routing flips (position, layer) between the paths: {flips} "
+        f"of {seq * cfg.n_layers}; logits bit for bit over the first "
+        f"{n_same} positions (all {seq} where no route flips); max |d| over "
+        f"all positions {diff:.3g}")
+    log(f"[19a] MoE share of the prefill's busy device time: dense "
+        f"moe_block {out['dense']['share']}, moe_block_sharded "
+        f"{out['shard_map']['share']}; idle {out['dense']['shares'].get('idle')}"
+        f" / {out['shard_map']['shares'].get('idle')}")
+    launches = out["shard_map"]["counts"]["flash_attention"]
+    res = {"flips": flips, "launches": launches, "max_abs_diff": diff,
+           "walls": {k: v["wall"] for k, v in out.items()},
+           "shares": {k: v["share"] for k, v in out.items()}}
+    del model, step, toks, out, a, b, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase19b_moe_grads(torch, dev, mesh) -> dict:
+    """19b: qwen2-moe-a2.7b at full width cut to MOE_SHARD_LAYERS layers:
+    one gradient at B 1, S 4096 through the dense block and one through
+    moe_block_sharded on the mesh of one, held bit for bit."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import loss_and_grads
+    arch, batch, seq = QWEN_MOE
+    cfg = dataclasses.replace(get_arch(arch), n_layers=MOE_SHARD_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_full_width(torch, cfg, dev, tag="19b")
+    model.requires_grad_(True)
+    bt = _train_batch(torch, cfg, batch, seq, dev)
+    want = _launches(flash_attention=2 * cfg.n_layers,
+                     flash_attention_bwd=cfg.n_layers)
+    runs = {}
+    for impl in ("dense", "shard_map"):
+        model.moe_impl = impl
+        model.moe_mesh = mesh if impl == "shard_map" else None
+        saved = _zero_counts()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = loss_and_grads(model, bt)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _read_counts()
+        finally:
+            _restore_counts(saved)
+        model.zero_grad(set_to_none=True)
+        check(counts == want, f"19b: {impl} gradient launched {counts}, "
+              f"want {want}")
+        runs[impl] = (loss, grads, counts, wall)
+    (l_d, g_d, _, w_d), (l_s, g_s, counts, w_s) = runs["dense"], \
+        runs["shard_map"]
+    check(torch.equal(l_d, l_s), f"19b: loss {float(l_s)!r} sharded, "
+          f"{float(l_d)!r} dense")
+    differ = [n for n in g_d if not torch.equal(g_d[n], g_s[n])]
+    check(not differ, f"19b: {len(differ)} gradients differ from the dense "
+          f"path's, e.g. {differ[:4]}")
+    moe = [n for n in g_s if ".moe." in n and "shared" not in n]
+    check(all(float(g_s[n].abs().max()) > 0 for n in moe),
+          "19b: an expert stack or router has no gradient")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[19b] {arch} cut to {cfg.n_layers} layers, full width, B={batch} "
+        f"S={seq}: loss {float(l_s):.6f} and all {len(g_s)} gradients "
+        f"through moe_block_sharded bit for bit the dense block's; "
+        f"launches {counts}; wall {w_d:.3f} s dense, {w_s:.3f} s sharded "
+        f"(first calls); peak {peak:.1f} GiB")
+    del model, runs, g_d, g_s, bt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"fwd_launches": counts["flash_attention"],
+            "bwd_launches": counts["flash_attention_bwd"],
+            "walls": (w_d, w_s), "peak_gib": peak}
+
+
+def phase19_moe_shard(torch, dev, smi: str) -> dict:
+    """19: the expert-parallel MoE block on one card (see the module
+    docstring).  Returns the phase's flash_attention launches."""
+    from repro_torch.launch.train import choose_mesh
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[19] card: {smi}")
+    mesh = choose_mesh()
+    check(tuple(mesh.mesh.shape) == (1, 1) and mesh.device_type == "cuda",
+          f"19: choose_mesh() gave {tuple(mesh.mesh.shape)} on "
+          f"{mesh.device_type}")
+    pre = phase19a_moe_prefill(torch, dev, mesh)
+    grads = phase19b_moe_grads(torch, dev, mesh)
+    log(f"[19] phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return {"prefill": pre, "grads": grads,
+            "fwd_launches": pre["launches"] + grads["fwd_launches"],
+            "bwd_launches": grads["bwd_launches"]}
+
+
 def main() -> int:
     # cuBLAS reads its workspace size once, at its first call: fix it here,
     # before any, so that 16d's deterministic algorithms hold for every GEMM
@@ -4360,6 +4551,9 @@ def main() -> int:
     mesh = phase18_mesh(torch, dev, res_k, smi, training["train"],
                         os.path.join(ROOT, "build", "chip_smoke_mesh"))
 
+    # ---- 19. the expert-parallel MoE block on the mesh of one card --------
+    moe_shard = phase19_moe_shard(torch, dev, smi)
+
     kt = times["both"]                 # the main path's launch: a chunk
     kernels = [{
         "name": "ppa_eval", "route": "cuda",
@@ -4382,7 +4576,8 @@ def main() -> int:
              "src/repro/kernels/flash_attention/kernel.py:25",
              pre_llama["counts"]["flash_attention"] + jc["flash_attention"]
              + families["launches"] + training["train"]["fwd_launches"]
-             + jg["flash_attention"] + mesh["train"]["fwd_launches"]),
+             + jg["flash_attention"] + mesh["train"]["fwd_launches"]
+             + moe_shard["fwd_launches"]),
             ("rwkv6_scan", "src/repro_torch/kernels/rwkv6_scan/rwkv6_scan.cu",
              "src/repro/kernels/rwkv6_scan/kernel.py:25",
              pre_rwkv["counts"]["rwkv6_scan"]
@@ -4410,7 +4605,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:25",
         "launches": (training["train"]["bwd_launches"]
                      + jg["flash_attention_bwd"]
-                     + mesh["train"]["bwd_launches"]),
+                     + mesh["train"]["bwd_launches"]
+                     + moe_shard["bwd_launches"]),
         "max_abs_err": training["fa_bwd"]["max_abs_err"],
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],

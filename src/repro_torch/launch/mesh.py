@@ -10,8 +10,9 @@ A process with no process group (one card, a laptop, a test) gets a
 one-rank group from :func:`make_mesh` itself, over a
 ``torch.distributed.HashStore`` and with no ``MASTER_ADDR``: gloo for CPU
 tensors and, where there is a card, nccl for CUDA ones.  A mesh refuses a
-group whose backend does not suit its device type (:data:`BACKENDS`).  One card is a mesh of 1, and runs the same sharded code
-path as 256.  :class:`MeshShape` is a mesh's shape and names without
+group whose backend does not suit its device type (:data:`BACKENDS`); a
+world of fake ranks (:data:`FAKE_BACKEND`, the dry run's) suits any.  One
+card is a mesh of 1, and runs the same sharded code path as 256.  :class:`MeshShape` is a mesh's shape and names without
 devices: the spec rules (:mod:`repro_torch.launch.shardings`,
 ``steps.shardings_for``) read only those, so they can be held at the
 production sizes on a machine with one CPU.
@@ -54,6 +55,10 @@ class MeshShape:
 
 # the collectives a mesh of each device type needs
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+# torch's fake process group (``torch.testing._internal.distributed.
+# fake_pg``): ranks that exist only in name, whose collectives move
+# nothing.  The dry run (``launch.dryrun``) builds its meshes on one.
+FAKE_BACKEND = "fake"
 
 
 def group_backend(device_type: str) -> Optional[str]:
@@ -88,7 +93,7 @@ def _ensure_group(device_type: str, world: int) -> None:
         dist.init_process_group("cpu:gloo,cuda:nccl" if both else "gloo",
                                 store=dist.HashStore(), rank=0, world_size=1)
     want = BACKENDS[device_type]
-    if group_backend(device_type) != want:
+    if group_backend(device_type) not in (want, FAKE_BACKEND):
         raise ValueError(
             f"a {device_type} mesh needs {want} collectives; the process "
             f"group's backend is {dist.get_backend()!r}: start it with "

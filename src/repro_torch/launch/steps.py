@@ -291,14 +291,15 @@ def named(mesh, spec_tree: PyTree) -> PyTree:
     raise TypeError(f"not a spec tree: {type(spec_tree).__name__}")
 
 
-def shard_model(mesh, model: Model, cfg: ArchConfig, shape: ShapeConfig
-                ) -> Dict[str, PyTree]:
+def shard_model(mesh, model: Model, cfg: ArchConfig, shape: ShapeConfig,
+                zero1: bool = True, policy: str = "tp") -> Dict[str, PyTree]:
     """The trainer's placement, as the reference's ``train()`` does it:
-    ``shardings_for`` on `mesh`, the model's ``hidden_pspec`` /
-    ``hidden_divisors`` set from it, and the parameters placed.  Returns
-    the :class:`NamedSharding` trees of the parameters (``"params"``) and
-    of the moments (``"opt"``, for ``adamw_init`` and a restore)."""
-    sh = shardings_for(mesh, model, cfg, shape)
+    ``shardings_for`` on `mesh` (with `zero1` and `policy`), the model's
+    ``hidden_pspec`` / ``hidden_divisors`` set from it, and the parameters
+    placed.  Returns the :class:`NamedSharding` trees of the parameters
+    (``"params"``) and of the moments (``"opt"``, for ``adamw_init`` and a
+    restore)."""
+    sh = shardings_for(mesh, model, cfg, shape, zero1=zero1, policy=policy)
     model.hidden_pspec = sh["hidden"]
     model.hidden_divisors = sh["divisors"]
     out = {"params": named(mesh, sh["params"]), "opt": named(mesh, sh["opt"])}

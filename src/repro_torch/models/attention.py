@@ -21,7 +21,7 @@ from torch import nn
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.dtensor import (attention_kernel, gather_seq,
                                         is_dtensor, replicated_like,
-                                        split_heads)
+                                        split_heads, write_position)
 from repro_torch.models.layers import Linear, apply_rope, linear
 
 NEG_INF = -1e30
@@ -118,7 +118,10 @@ def gqa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     group dim."""
     b, _, h, hd = q.shape
     kvh = k_cache.shape[2]
-    qg = q.reshape(b, kvh, h // kvh, hd)
+    # (a DTensor's query heads are replicated where a mesh dim splits them
+    # but not the KV heads, as split_heads does)
+    qg = split_heads(q.reshape(b, 1, h * hd), kvh, (h // kvh) * hd) \
+        .reshape(b, kvh, h // kvh, hd)
     scale = 1.0 / math.sqrt(hd)
     logits = torch.einsum("bkgd,bskd->bkgs", qg, k_cache).float() * scale
     mask = torch.arange(k_cache.shape[1], device=q.device) < kv_len
@@ -212,16 +215,16 @@ def cached_attention_step(p: Attention, x: torch.Tensor, cache: Dict, *,
     """
     b = x.shape[0]
     pos = cache["len"]
-    q = linear(p.q, x).reshape(b, 1, n_heads, head_dim)
-    k = linear(p.k, x).reshape(b, 1, n_kv_heads, head_dim)
-    v = linear(p.v, x).reshape(b, 1, n_kv_heads, head_dim)
+    q = split_heads(linear(p.q, x), n_heads, head_dim)
+    k = split_heads(linear(p.k, x), n_kv_heads, head_dim)
+    v = split_heads(linear(p.v, x), n_kv_heads, head_dim)
     if rope_theta is not None:
         pos_t = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
         q = apply_rope(q, pos_t, rope_theta)
         k = apply_rope(k, pos_t, rope_theta)
     k_cache, v_cache = cache["k"], cache["v"]
-    k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+    write_position(k_cache, pos, k)
+    write_position(v_cache, pos, v)
     o = gqa_decode_attention(q, k_cache, v_cache, pos + 1)
     out = linear(p.o, o.reshape(b, 1, n_heads * head_dim))
     return out, {"k": k_cache, "v": v_cache, "len": pos + 1}

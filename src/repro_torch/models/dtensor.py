@@ -207,6 +207,33 @@ def split_heads(t: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
     return t.reshape(b, s, n_heads, head_dim)
 
 
+def write_position(cache: torch.Tensor, pos: int, new: torch.Tensor) -> None:
+    """cache[:, pos] = new[:, 0], in place: a decode step's key or value
+    written into a (B, S, ...) cache.  On a DTensor cache whose sequence
+    is split (the flash-decode layout), only the rank holding position
+    `pos` writes, into its local shard; `new` is first placed as the cache
+    is, with its one position replicated."""
+    if not is_dtensor(cache):
+        cache[:, pos] = new[:, 0].to(cache.dtype)
+        return
+    mesh = cache.device_mesh
+    new = new.redistribute(mesh, [Replicate() if p == Shard(1) else p
+                                  for p in cache.placements])
+    # this rank's block of the sequence: split over the Shard(1) mesh dims
+    # in mesh order, major to minor
+    coord, index, parts = mesh.get_coordinate(), 0, 1
+    for i, p in enumerate(cache.placements):
+        if p == Shard(1):
+            index, parts = index * mesh.size(i) + coord[i], parts * mesh.size(i)
+    if cache.shape[1] % parts:
+        raise ValueError(f"cache {tuple(cache.shape)}: its sequence does not "
+                         f"split evenly into {parts} blocks")
+    n = cache.shape[1] // parts
+    if index * n <= pos < (index + 1) * n:
+        cache.to_local()[:, pos - index * n] = \
+            new.to_local()[:, 0].to(cache.dtype)
+
+
 def attention_kernel(fn: Callable, q, k, v):
     """fn(q, k, v) (the ``flash_attention`` wrapper) on each rank's local
     batch rows and whole heads: heads stay split over a mesh dim only

@@ -9,18 +9,19 @@ path only), by the reference's rule: positions are a cumulative count over
 the flattened (token, k) order, so earlier tokens win.  The expert FFN is
 a plain batched product (``torch.einsum``), as the reference leaves it to
 XLA.  The ``moe`` family's shared expert is one always-on gated MLP added
-to the routed output, as in the reference (no sigmoid gate on it).  Not
-ported yet: expert sharding across cards (``moe_shard.py``).
+to the routed output, as in the reference (no sigmoid gate on it).  The
+expert-parallel block on a mesh is :mod:`repro_torch.models.moe_shard`.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models.dtensor import is_dtensor, to_placements
 from repro_torch.models.layers import MLP, empty_param, mlp, upcast
 
 
@@ -59,18 +60,31 @@ def init_moe(p: MoE, gen: torch.Generator) -> None:
     p.w_down.normal_(0.0, s_ff, generator=gen)
 
 
+def constrain(t: torch.Tensor, spec: Optional[Sequence]) -> torch.Tensor:
+    """t redistributed to `spec`'s placements on its mesh when t is a
+    DTensor and `spec` is given; otherwise t."""
+    if spec is None or not is_dtensor(t):
+        return t
+    mesh = t.device_mesh
+    return t.redistribute(mesh, to_placements(mesh, spec, t.dim()))
+
+
 def route(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
-          capacity_factor: float = 1.25, n_groups: int = 1) -> Dict:
+          capacity_factor: float = 1.25, n_groups: int = 1,
+          e_tot: Optional[int] = None) -> Dict:
     """Routing and drop decisions of :func:`moe_block` for x (B, S, d):
 
     ``probs`` (G, Tg, E) fp32, ``gate_vals`` (G, Tg, k) renormalised,
     ``gate_idx`` (G, Tg, k) in ``top_k`` order, ``flat_expert`` and
     ``pos`` (G, Tg*k) (each assignment's slot in its expert), ``keep``
     (G, Tg*k) = pos < cap, and ``cap`` = ceil(Tg k / E * capacity_factor),
-    computed on the host in float64 as the reference does."""
+    computed on the host in float64 as the reference does.  `e_tot`, the
+    experts with the zero-traffic pad ones, is ``p.w_up``'s leading dim
+    unless given (``moe_shard`` routes for experts held on other ranks)."""
     b, s, d = x.shape
     t = b * s
-    e_tot = p.w_up.shape[0]              # includes zero-traffic pad experts
+    if e_tot is None:
+        e_tot = p.w_up.shape[0]          # includes zero-traffic pad experts
     g_n = max(1, math.gcd(n_groups, t))
     tg = t // g_n
     xg = x.reshape(g_n, tg, d)
@@ -92,7 +106,8 @@ def route(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
 
 
 def moe_block(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
-              capacity_factor: float = 1.25, n_groups: int = 1
+              capacity_factor: float = 1.25, n_groups: int = 1,
+              buf_pspec: Optional[Sequence] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out, aux_loss).
 
@@ -100,6 +115,9 @@ def moe_block(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
     groups, routing positions are computed within each group, and the
     dispatch buffer is (G, E, C, d) with per-group capacity
     C = ceil(Tg * top_k / E * capacity_factor) (:func:`route`).
+    `buf_pspec` (a PartitionSpec) places a DTensor buffer, as the
+    reference's ``with_sharding_constraint`` does (:func:`constrain`); a
+    plain buffer stays as it is.
     """
     b, s, d = x.shape
     t = b * s
@@ -122,6 +140,7 @@ def moe_block(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
     src = torch.where(keep[..., None], src, 0)
     g_idx = torch.arange(g_n, device=x.device)[:, None].expand_as(e_idx)
     buf.index_put_((g_idx, e_idx, c_idx), src, accumulate=True)
+    buf = constrain(buf, buf_pspec)
 
     # expert FFN: one batched product over the (group, expert) dims
     gme = torch.einsum("gecd,edf->gecf", buf, p.w_gate)

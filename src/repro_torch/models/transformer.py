@@ -41,6 +41,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
+from repro_torch.models import moe_shard as MS
 from repro_torch.models import ssm as S
 from repro_torch.models.dtensor import (gather_rows, is_dtensor, module_view,
                                         plain_as_replicated, replicated_call,
@@ -164,11 +165,21 @@ class Model(nn.Module):
     ``n_experts`` to disable drops.  ``remat`` recomputes each layer's
     activations in the backward (see the module docstring).
     ``hidden_pspec`` (a PartitionSpec for the residual stream) and
-    ``hidden_divisors`` ((dp_size, model_size)) are the launcher's."""
+    ``hidden_divisors`` ((dp_size, model_size)) are the launcher's.
+
+    The MoE fields are the reference's: ``moe_groups`` (the dense
+    dispatch's group count, the launcher's DP degree) and
+    ``moe_buf_pspec`` (its buffer's PartitionSpec); ``moe_impl``
+    ``"dense"`` (:func:`moe.moe_block`, run whole on every rank under a
+    mesh) or ``"shard_map"`` (:func:`moe_shard.moe_block_sharded`, expert
+    parallel on ``moe_mesh`` with ``moe_dp_axes`` as the data axes; train
+    and prefill only, decode always takes the dense block)."""
 
     def __init__(self, cfg: ArchConfig, dtype=torch.bfloat16,
                  device: DeviceLike = None, moe_capacity: float = 1.25,
-                 remat: bool = True):
+                 remat: bool = True, moe_groups: int = 1,
+                 moe_buf_pspec=None, moe_impl: str = "dense",
+                 moe_mesh=None, moe_dp_axes: Tuple[str, ...] = ("data",)):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r} ({cfg.name}); "
@@ -177,6 +188,13 @@ class Model(nn.Module):
         self.dtype = dtype
         self.moe_capacity = moe_capacity
         self.remat = remat
+        if moe_impl not in ("dense", "shard_map"):
+            raise ValueError(f"moe_impl {moe_impl!r}: 'dense' or 'shard_map'")
+        self.moe_groups = moe_groups
+        self.moe_buf_pspec = moe_buf_pspec
+        self.moe_impl = moe_impl
+        self.moe_mesh = moe_mesh
+        self.moe_dp_axes = tuple(moe_dp_axes)
         self.hidden_pspec = None
         self.hidden_divisors = None
         self.device = resolve_device(device)
@@ -296,13 +314,19 @@ class Model(nn.Module):
                               preserve_rng_state=False)
         return body(*args)
 
-    def _moe(self, p: M.MoE, hin: torch.Tensor):
-        """The MoE block; on a DTensor it runs whole on every rank, on
-        replicated inputs and weights (the expert-sharded dispatch is not
-        ported yet)."""
+    def _moe(self, p: M.MoE, hin: torch.Tensor, decode: bool = False):
+        """The MoE block: the expert-parallel one with ``moe_impl=
+        "shard_map"`` and a ``moe_mesh`` (not at `decode`), else the dense
+        one, which on a DTensor runs whole on every rank, on replicated
+        inputs and weights."""
         cfg = self.cfg
         kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k,
                   capacity_factor=self.moe_capacity)
+        if self.moe_impl == "shard_map" and self.moe_mesh is not None \
+                and not decode:
+            return MS.moe_block_sharded(p, hin, mesh=self.moe_mesh,
+                                        dp_axes=self.moe_dp_axes, **kw)
+        kw.update(n_groups=self.moe_groups, buf_pspec=self.moe_buf_pspec)
         if not is_dtensor(hin):
             return M.moe_block(p, hin, **kw)
         names = [n for n, _ in p.named_parameters()]
@@ -333,13 +357,13 @@ class Model(nn.Module):
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.head_dim, rope_theta=None, kv=enc)
 
-    def _ffn(self, lp: DecoderLayer, h: torch.Tensor):
+    def _ffn(self, lp: DecoderLayer, h: torch.Tensor, decode: bool = False):
         """(FFN output, MoE aux loss) of the decoder layer on h."""
         cfg = self.cfg
         hin = rms_norm(lp.ln2, h, cfg.norm_eps)
         if lp.moe is None:
             return mlp(lp.mlp, hin), None
-        f, aux = self._moe(lp.moe, hin)
+        f, aux = self._moe(lp.moe, hin, decode)
         if lp.mlp is not None:                     # Arctic's dense residual
             f = f + mlp(lp.mlp, hin)
         return f, aux
@@ -479,6 +503,11 @@ class Model(nn.Module):
                     ) -> Tuple[torch.Tensor, Dict]:
         """tokens: (B,) integer -> logits (B, vocab), updated cache (the KV
         cache tensors are written in place)."""
+        with plain_as_replicated(self.embed):
+            return self._decode_step(cache, tokens)
+
+    def _decode_step(self, cache: Dict, tokens: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Dict]:
         cfg = self.cfg
         x = self._embed(tokens)[:, None, :]               # (B, 1, d)
         if cfg.family == "ssm":
@@ -502,7 +531,7 @@ class Model(nn.Module):
                 n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                 head_dim=cfg.head_dim, rope_theta=self._rope_theta())
             h = self._cross(lp, h + a, enc)
-            h = h + self._ffn(lp, h)[0]
+            h = h + self._ffn(lp, h, decode=True)[0]
         return h, dict(cache, len=cache["len"] + 1)
 
     def _rwkv_decode(self, cache: Dict, h: torch.Tensor):
@@ -536,7 +565,7 @@ class Model(nn.Module):
                     h = h + m
                 hin = rms_norm(bp.ffn_ln[i], h, cfg.norm_eps)
                 if i % 2 == 0:
-                    f, _ = self._moe(bp.moe[i // 2], hin)
+                    f, _ = self._moe(bp.moe[i // 2], hin, decode=True)
                 else:
                     f = mlp(bp.mlp[i // 2], hin)
                 h = h + f

@@ -1,7 +1,8 @@
-"""Process side of the mesh tests (``test_torch_mesh.py``): gloo ranks on
-the CPU that run the port's sharded train step, ``train()`` and the
-resharding restore, and write what rank 0 gathered to files the test
-reads.  Imports the port only (no jax), so that each spawned process
+"""Process side of the mesh tests (``test_torch_mesh.py``,
+``test_torch_moe_shard.py``): gloo ranks on the CPU that run the port's
+sharded train step, ``train()``, the resharding restore and the
+expert-parallel MoE block, and write what rank 0 gathered to files the
+test reads.  Imports the port only (no jax), so that each spawned process
 starts in a second or two.
 
 :func:`start_group` spawns `world` processes, each joining one process
@@ -269,5 +270,104 @@ def restore_job(job: dict) -> Dict:
                       for n, t in got["opt"]["m"].items()}}
 
 
+AUX_W = 0.37                       # the aux loss's weight in moe jobs' loss
+
+
+def _placed(t, mesh, spec, requires_grad=True):
+    """The whole tensor t (the same on every rank) as a DTensor in spec's
+    placements, a leaf that requires grad."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models.dtensor import to_placements
+    d = distribute_tensor(t.detach(), mesh, to_placements(mesh, spec, t.dim()),
+                          src_data_rank=None)
+    return d.requires_grad_(requires_grad)
+
+
+def moe_block_job(job: dict) -> Dict:
+    """``moe_block_sharded`` on each of the job's cases whose mesh has this
+    world's size: the inputs of ``job["inputs"]`` placed as the model
+    places them (x split over data, expert stacks over model, the router
+    and shared expert replicated), loss = sum(out * r) + AUX_W aux, and
+    out, aux and every gradient gathered whole.  Also the placements of
+    the block's output and aux, and of a dispatch buffer constrained by
+    ``moe.constrain`` to ``P("data", "model")``."""
+    import numpy as np
+    from types import SimpleNamespace
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.dtensor import P
+    from repro_torch.models.moe_shard import moe_block_sharded
+    world = torch.distributed.get_world_size()
+    inp = {k: torch.from_numpy(v) for k, v in np.load(job["inputs"]).items()}
+    out = {}
+    for case in job["cases"]:
+        if int(np.prod(case["mesh"])) != world:
+            continue
+        mesh = make_mesh(tuple(case["mesh"]), ("data", "model"), device="cpu")
+        dt = getattr(torch, case["dtype"])
+        w = {k: _placed(inp[k].to(dt), mesh, P("model"))
+             for k in ("w_gate", "w_up", "w_down")}
+        p = SimpleNamespace(router=_placed(inp["router"], mesh, P()), **w,
+                            shared=None)
+        if case["shared"]:
+            p.shared = SimpleNamespace(gated=True, b_down=None, **{
+                k: _placed(inp["shared_" + k].to(dt), mesh, P())
+                for k in ("w_gate", "w_up", "w_down")})
+        x = _placed(inp["x"].to(dt), mesh, P("data"))
+        y, aux = moe_block_sharded(
+            p, x, n_experts=case["n_experts"], top_k=case["top_k"],
+            mesh=mesh, dp_axes=("data",), capacity_factor=case["capacity"])
+        loss = (y.full_tensor().float() * inp["r"]).sum() \
+            + AUX_W * aux.full_tensor()
+        loss.backward()
+        grads = {"x": x.grad, "router": p.router.grad,
+                 **{k: t.grad for k, t in w.items()}}
+        if p.shared is not None:
+            grads.update({f"shared/{k}": getattr(p.shared, k).grad
+                          for k in ("w_gate", "w_up", "w_down")})
+        buf = _placed(torch.zeros(2, 8, 3, 4), mesh, P(), False)
+        out[case["tag"]] = {
+            "out": _full(y).detach().float(), "aux": float(_full(aux)),
+            "grads": {k: _full(g).float() for k, g in grads.items()},
+            "placements": ([str(q) for q in y.placements],
+                           [str(q) for q in aux.placements]),
+            "buf": [str(q) for q in moe_mod.constrain(
+                buf, P("data", "model")).placements]}
+    return out
+
+
+def moe_model_job(job: dict) -> Dict:
+    """The smoke model on the job's mesh with ``moe_impl="shard_map"``:
+    loss and every gradient (gathered whole) on batch 0."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import data_axes
+    from repro_torch.models import moe_shard as ms_mod
+    job = dict(job, steps=1)
+    model, mesh, sh, batches = _sharded(job)
+    model.moe_impl, model.moe_mesh = "shard_map", mesh
+    model.moe_dp_axes = data_axes(mesh)
+    model.moe_capacity = job.get("capacity", model.moe_capacity)
+    model.requires_grad_(True)
+    a2a, sent = ms_mod.funcol.all_to_all_single_autograd, []
+
+    def recording(t, *rest):
+        sent.append(tuple(t.shape))
+        return a2a(t, *rest)
+    ms_mod.funcol.all_to_all_single_autograd = recording
+    try:
+        loss, grads = ST.loss_and_grads(model, batches[0])
+    finally:
+        ms_mod.funcol.all_to_all_single_autograd = a2a
+    params = dict(model.named_parameters())
+    return {"loss": float(loss),
+            "grads": {n: _full(g) for n, g in grads.items()},
+            "all_to_all": sent,
+            "param_placements": {n: [str(p) for p in t.placements]
+                                 for n, t in params.items()},
+            "expert_local": {n: tuple(t.to_local().shape)
+                             for n, t in params.items() if ".w_up" in n}}
+
+
 JOBS = {"steps": steps_job, "train": train_job, "save": save_job,
-        "restore": restore_job}
+        "restore": restore_job, "moe_block": moe_block_job,
+        "moe_model": moe_model_job}

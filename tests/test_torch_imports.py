@@ -31,7 +31,8 @@ SUBPACKAGES = ("repro_torch", "repro_torch.perfmodel", "repro_torch.core",
                "repro_torch.launch.steps", "repro_torch.launch.train",
                "repro_torch.serve", "repro_torch.serve.worker",
                "repro_torch.launch.mesh", "repro_torch.launch.shardings",
-               "repro_torch.models.dtensor")
+               "repro_torch.models.dtensor", "repro_torch.models.moe_shard",
+               "repro_torch.launch.dryrun")
 
 
 def _forbidden(name: str) -> bool:
