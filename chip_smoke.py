@@ -289,6 +289,20 @@ line is printed:
    of the device time (reported, not gated); (b) the same model cut to 6
    layers: one gradient (loss, every parameter) at B 1, S 4096 through
    each path, bit for bit, with 12 + 6 ``flash_attention`` launches each.
+20. the analysis tooling on the card's host: (a) the influence graph
+   extracted from the port's perfmodel source (``repro_torch.analysis``),
+   timed, its signature the checked-in artifact's and every site under
+   ``src/repro_torch/perfmodel/``, then ``python -m
+   repro_torch.analysis.extract --check`` as a process (exit 0); (b)
+   ``python -m repro_torch.analysis.lint --baseline`` with the port's
+   baseline as a process (exit 0, no new finding); (c) on phase 13's
+   ``cuda`` evaluator the rule audit against the extracted graph and
+   against the artifact, equal, ``metric_probe_only`` empty, then a
+   budget-20 LUMINA run whose oracle and strategy engine read the
+   extracted primaries, against the same run given the artifact's
+   primaries and against phase 5's run: the same sample ids,
+   ``superior_count`` and ``normalized_phv`` (its ``ppa_eval`` launches
+   count on the main path).
 
 Kernel launch counters are zeroed just before each part of the main path
 and read just after; every kernel of that part must have launched there.
@@ -4213,6 +4227,115 @@ def phase19_moe_shard(torch, dev, smi: str) -> dict:
             "bwd_launches": grads["bwd_launches"]}
 
 
+LINT_BASELINE = os.path.join("src", "repro_torch", "analysis",
+                             "lint-baseline.json")
+
+
+def _run_module(args, what: str, timeout: float = 300.0):
+    """`python -m ...args` from the checkout's root with its src/ on the
+    path: (stdout, seconds); fails unless it exits 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    check(r.returncode == 0, f"{what}: exit {r.returncode}\n"
+          f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+    return r.stdout, time.perf_counter() - t0
+
+
+def phase20_analysis(torch, dev, res_k, phase5: dict) -> dict:
+    """20: the extractor and the linter on the card's host, and LUMINA on
+    the extracted primaries (see the module docstring).  `phase5`: phase
+    5's sample ids, superior_count and normalized_phv.  Returns the
+    phase's ppa_eval launches."""
+    from repro_torch.analysis import influence as I
+    from repro_torch.core.llm import RuleOracle
+    from repro_torch.core.loop import LuminaDSE
+    from repro_torch.kernels.ppa_eval import ppa_eval
+    from repro_torch.perfmodel import OracleEvaluator, get_evaluator
+    t_phase = time.perf_counter()
+
+    # ---- 20a. the extraction from the port's source, and --check
+    I.extract_influence_graph.cache_clear()
+    t0 = time.perf_counter()
+    graph = I.extract_influence_graph()
+    extract_s = time.perf_counter() - t0
+    artifact = I.load_artifact()
+    check(graph.signature() == artifact.signature(),
+          "20a: the extracted graph's signature differs from the artifact's")
+    files = sorted({site.rpartition(":")[0] for e in graph.edges
+                    for site in e.sites})
+    check(files and all(f.startswith("src/repro_torch/perfmodel/")
+                        for f in files),
+          f"20a: sites outside the port's perfmodel: {files}")
+    check(graph.primary_resources() == I.primary_resources()
+          == artifact.primary_resources(),
+          "20a: the extracted primaries differ from the artifact's")
+    log(f"[20a] extracted {len(graph.edges)} edges from {', '.join(files)} "
+        f"in {extract_s:.3f} s; primaries {graph.primary_resources()}")
+    txt, check_s = _run_module(["repro_torch.analysis.extract", "--check"],
+                               "20a: extract --check")
+    check("OK: influence graph matches" in txt,
+          f"20a: extract --check said {txt[-500:]}")
+    log(f"[20a] python -m repro_torch.analysis.extract --check: exit 0 in "
+        f"{check_s:.2f} s: {txt.strip().splitlines()[-1][:100]}")
+
+    # ---- 20b. the linter against the port's baseline
+    txt, lint_s = _run_module(["repro_torch.analysis.lint", "--baseline",
+                               LINT_BASELINE], "20b: lint")
+    last = txt.strip().splitlines()[-1]
+    check(last.startswith("0 new finding(s)"), f"20b: lint said {last}")
+    log(f"[20b] python -m repro_torch.analysis.lint --baseline "
+        f"{LINT_BASELINE}: exit 0 in {lint_s:.2f} s: {last}")
+
+    # ---- 20c. the rule audit and LUMINA on the extracted primaries
+    ev_k = get_evaluator("proxy", backend="cuda", device=dev)
+    imap = LuminaDSE(ev_k, seed=0).imap
+    audit = I.cross_validate(graph, imap)
+    check(audit.as_dict() == I.cross_validate(artifact, imap).as_dict(),
+          "20c: the rule audit differs between the extracted graph and "
+          "the artifact")
+    check(audit.counts()["metric_probe_only"] == 0,
+          "20c: metric_probe_only is not empty")
+    log(f"[20c] rule audit (extracted graph == artifact): {audit.counts()}")
+    oracle = OracleEvaluator(ev_k, result=res_k)
+    art_primary = artifact.primary_resources()
+    runs, launches = {}, 0
+    for what, kw in (("extracted", {}),
+                     ("artifact", {"primary_map": art_primary,
+                                   "llm": RuleOracle(
+                                       primary_map=art_primary)})):
+        ppa_eval.launches = 0
+        dse = LuminaDSE(ev_k, seed=0, **kw)
+        check(dse.llm.primary_map == art_primary,
+              f"20c: the {what} run's oracle reads other primaries")
+        res = dse.run(budget=20)
+        n_launch = ppa_eval.launches
+        launches += n_launch
+        check(len(res.samples) == 20 and n_launch > 0,
+              f"20c {what}: {len(res.samples)} samples, {n_launch} "
+              f"launches")
+        runs[what] = {"ids": [s.idx.tolist() for s in res.samples],
+                      "superior_count": res.superior_count,
+                      "normalized_phv": oracle.normalized_phv(
+                          res.phv, dse.ref_point)}
+        log(f"[20c] LUMINA budget 20 on the {what} primaries: "
+            f"superior_count {res.superior_count} normalized_phv "
+            f"{runs[what]['normalized_phv']:.6f} ppa_eval launches "
+            f"{n_launch}")
+    for what in ("artifact", "phase 5"):
+        other = runs.get(what, phase5)
+        for key in ("ids", "superior_count", "normalized_phv"):
+            check(runs["extracted"][key] == other[key],
+                  f"20c: the run on the extracted primaries differs from "
+                  f"the {what} run in {key}")
+    log("[20c] the runs on the extracted and the artifact's primaries and "
+        "phase 5's run: the same sample ids, superior_count and "
+        "normalized_phv")
+    log(f"[20] phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "extract_s": extract_s}
+
+
 def main() -> int:
     # cuBLAS reads its workspace size once, at its first call: fix it here,
     # before any, so that 16d's deterministic algorithms hold for every GEMM
@@ -4409,6 +4532,8 @@ def main() -> int:
     nphv = oracle.normalized_phv(out.phv, dse.ref_point)
     check(np.isfinite(out.phv) and 0.0 <= nphv <= 1.0 + 1e-9,
           f"phv {out.phv} normalized {nphv}")
+    phase5 = {"ids": [smp.idx.tolist() for smp in out.samples],
+              "superior_count": out.superior_count, "normalized_phv": nphv}
     log(f"[5] LUMINA budget 20: superior_count {out.superior_count} "
         f"phv {out.phv:.6e} normalized_phv {nphv:.6f} dispatches "
         f"{ev_k.dispatches - d0} wall {loop_s:.3f} s ppa_eval launches "
@@ -4554,6 +4679,9 @@ def main() -> int:
     # ---- 19. the expert-parallel MoE block on the mesh of one card --------
     moe_shard = phase19_moe_shard(torch, dev, smi)
 
+    # ---- 20. the analysis tooling, and LUMINA on the extracted graph -------
+    analysis = phase20_analysis(torch, dev, res_k, phase5)
+
     kt = times["both"]                 # the main path's launch: a chunk
     kernels = [{
         "name": "ppa_eval", "route": "cuda",
@@ -4561,7 +4689,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/ppa_eval/kernel.py:42",
         "launches": (sweep_launches + loop_launches + zoo["launches"]
                      + methods["launches"] + faults["launches"]
-                     + serve["launches"] + mesh["sweep_launches"]),
+                     + serve["launches"] + mesh["sweep_launches"]
+                     + analysis["launches"]),
         "max_abs_err": max(max_abs_err, zoo["max_abs_err"]),
         "ms": kt["ms"], "plain_ms": kt["plain_ms"],
         "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],

@@ -18,7 +18,7 @@ Ported so far:
   Benchmark (numpy on the host; the evaluations are device work);
 * :mod:`repro_torch.obs` — the metrics registry and tracer;
 * :mod:`repro_torch.analysis` — the influence graph extracted from the
-  perfmodel source (a reader of the reference's artifact);
+  port's perfmodel source, and the invariant linter;
 * :mod:`repro_torch.configs`, :mod:`repro_torch.models`,
   :mod:`repro_torch.launch` — the LM serving path, with the
   ``flash_attention``, ``rwkv6_scan`` and ``ssm_scan`` CUDA kernels.

@@ -29,8 +29,8 @@ TASK_TUNING = "parameter_tuning"
 
 def _default_primary_map() -> Dict[str, str]:
     """AHK primary edges (stall class -> most-correlated parameter), from
-    the influence graph extracted from the perfmodel source (the port's
-    copy of the artifact, :mod:`repro_torch.analysis`)."""
+    the influence graph extracted from the port's perfmodel source
+    (:mod:`repro_torch.analysis`)."""
     from repro_torch.analysis import primary_resources
     return primary_resources()
 

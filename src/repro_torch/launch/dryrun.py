@@ -16,9 +16,13 @@ decode cache are fake tensors placed as ``steps.shardings_for`` says, and
 the step runs once on them: nothing is allocated on any device, no kernel
 runs and no collective moves data, so no card is touched, with a card or
 without.  The fake tensors are CPU-typed, so the kernels' wrappers trace
-their plain versions (``flash_attention``'s chunked attention, the scans'
+their plain versions (``flash_attention_plain``, the scans'
 recurrences): the counterpart of the reference counting
-``chunked_attention`` and ``lax.scan`` through XLA.
+``chunked_attention`` and ``lax.scan`` through XLA.  The attention takes
+the kernel's wrapper (``models.attention.kernel_route``), so a train
+step keeps for the backward what the card keeps (q, k, v, the output and
+lse), not the per-block scores that autograd through
+``chunked_attention`` would.
 
 The MoE fields are set as the reference's ``run_cell`` sets them: the
 dense dispatch's groups from the data axes and its buffer spec over
@@ -82,6 +86,7 @@ from repro_torch.configs import ARCHS, SHAPES
 from repro_torch.launch import steps as ST
 from repro_torch.launch.mesh import data_axes, make_production_mesh
 from repro_torch.models import build_model
+from repro_torch.models.attention import kernel_route
 from repro_torch.models.dtensor import P
 from repro_torch.optim import AdamWConfig, adamw_init
 
@@ -400,7 +405,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     params = dict(model.named_parameters())
     with counter.active():
         arg_bytes = local_bytes((args, params))
-        with counter.counting():
+        with counter.counting(), kernel_route():
             out = step(*args)
         out_bytes = local_bytes((out, in_place))
     rec["lower_s"] = round(time.time() - t0, 1)

@@ -8,10 +8,13 @@ The layer picks the implementation by sequence length, as the reference
 does: above :data:`CHUNKED_THRESHOLD` causal self-attention on a CUDA
 tensor launches the kernel and on a CPU tensor runs ``chunked_attention``
 (on DTensors, either on each rank's local shards); at or below it
-``full_attention`` (torch ops) runs on either device.
+``full_attention`` (torch ops) runs on either device.  Inside
+:func:`kernel_route` a CPU tensor takes the kernel's wrapper too (its
+plain version), as ``launch.dryrun`` traces the model.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional, Tuple
 
@@ -28,6 +31,24 @@ NEG_INF = -1e30
 
 # Above this seq len the memory-efficient chunked (flash) impl is used.
 CHUNKED_THRESHOLD = 2048
+
+# whether the long causal attention on a CPU tensor takes the kernel's
+# wrapper (set by kernel_route) instead of chunked_attention
+_cpu_kernel = [False]
+
+
+@contextlib.contextmanager
+def kernel_route():
+    """Within the block the long causal attention takes the kernel's
+    wrapper on CPU tensors too (``flash_attention_plain``; under grad,
+    ``FlashAttentionFn``, which keeps q, k, v, the output and lse for the
+    backward, as on the card), where it otherwise runs
+    ``chunked_attention``, whose autograd keeps every block's scores."""
+    prev, _cpu_kernel[0] = _cpu_kernel[0], True
+    try:
+        yield
+    finally:
+        _cpu_kernel[0] = prev
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -192,7 +213,7 @@ def attention_block(p: Attention, x: torch.Tensor, *, n_heads: int,
     use_chunked = impl == "chunked" or (impl == "auto"
                                         and s > CHUNKED_THRESHOLD)
     if use_chunked and causal and kv is None:
-        fn = _flash if x.is_cuda else _chunked
+        fn = _flash if x.is_cuda or _cpu_kernel[0] else _chunked
         o = attention_kernel(fn, q, k, v) if is_dtensor(q) else fn(q, k, v)
     else:
         n_rep = n_heads // n_kv_heads

@@ -32,6 +32,7 @@ import types
 from typing import Callable, Iterator, Optional, Sequence
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import (implicit_replication,
                                                    local_map)
@@ -282,6 +283,79 @@ def gather_rows(table, idx):
     return _call_local(lambda t, i: t[i], mesh, (table, idx),
                        (_pl(roles, Replicate(), None), rows),
                        (_pl(roles, Partial(), None), rows), (rows,))
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """The sum over the ranks of `groups` (one after another) of a value
+    each rank holds a part of.  Backward: the cotangent itself.  The sum
+    is replicated over the groups, so every rank holds the whole
+    cotangent, and it is each part's gradient; an all-reduce in the
+    backward would give the group's size times that."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        for g in groups:
+            x = funcol.wait_tensor(funcol.all_reduce(x, "sum", g))
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def vocab_split_dims(logits) -> tuple:
+    """The mesh dims (of size above 1) that split DTensor `logits`' last
+    (vocab) dim; () for a plain tensor or a vocab kept whole."""
+    if not is_dtensor(logits):
+        return ()
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    return tuple(i for i, p in enumerate(logits.placements)
+                 if p == Shard(last) and mesh.size(i) > 1)
+
+
+def vocab_parallel_nll(logits, labels):
+    """-log softmax(logits)[..., label] at each position, from each rank's
+    vocab shard of DTensor `logits` (B, S, V), which
+    :func:`vocab_split_dims` splits; `labels` (B, S) holds indices into
+    V.  No rank holds more than its shard: the max over V is the local
+    max all-reduced (MAX) over the vocab dims, the sum of exp(logit -
+    max) the local sum all-reduced (SUM), and the label's logit that of
+    the rank whose vocab range holds it (0 elsewhere) all-reduced (SUM).
+    Returns a (B, S) DTensor placed as the logits' batch and sequence
+    are, replicated over the vocab dims; its gradient is the unsharded
+    log-softmax's (the max takes none: it cancels)."""
+    mesh = logits.device_mesh
+    vdims = vocab_split_dims(logits)
+    last = logits.dim() - 1
+    lg_pl = tuple(Replicate() if isinstance(p, Partial) else p
+                  for p in logits.placements)
+    out_pl = tuple(p if isinstance(p, Shard) and p.dim < last
+                   else Replicate() for p in lg_pl)
+    # this rank's block of the vocab: split over the vocab dims in mesh
+    # order, as DTensor's Shard chunks it (ceil-sized chunks)
+    size, v0 = logits.shape[last], 0
+    for i in vdims:
+        chunk = -(-size // mesh.size(i))
+        start = min(mesh.get_local_rank(i) * chunk, size)
+        v0, size = v0 + start, max(min(chunk, size - start), 0)
+    groups = [mesh.get_group(i) for i in vdims]
+
+    def local(lg, lab):
+        lg = lg.float()
+        m = lg.detach().amax(dim=-1)
+        for g in groups:
+            m = funcol.wait_tensor(funcol.all_reduce(m, "max", g))
+        se = _SumOverRanks.apply(torch.exp(lg - m[..., None]).sum(dim=-1),
+                                 groups)
+        idx = lab.long() - v0
+        mine = (idx >= 0) & (idx < size)
+        picked = torch.gather(lg, -1, idx.clamp(0, size - 1)[..., None])
+        picked = _SumOverRanks.apply(
+            torch.where(mine, picked[..., 0], 0.0), groups)
+        return m + torch.log(se) - picked
+
+    return _call_local(local, mesh, (logits, labels), (lg_pl, out_pl),
+                       (lg_pl, out_pl), (out_pl,))
 
 
 def replicated_call(fn: Callable, mesh, tensors: Sequence, n_out: int):

@@ -32,8 +32,9 @@ reference's ``jax.grad`` through its ``shard_map`` (``check_vma=False``):
   loss (``out_specs=P()`` keeps device 0's copy), its gradient that of the
   mean over data shards (the cotangent of a replicated output is divided
   by the axis size, and ``psum``'s transpose sums it back over
-  ``model``).  Within a data shard the means over ``model`` are
-  :class:`_MeanOverRanks`.
+  ``model``).  Within a data shard the means over ``model`` are sums
+  over its ranks (``models.dtensor._SumOverRanks``, whose backward passes
+  the replicated cotangent) divided by their count.
 """
 from __future__ import annotations
 
@@ -47,8 +48,9 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.models import moe as M
-from repro_torch.models.dtensor import (P, _call_local, is_dtensor,
-                                        module_view, to_placements)
+from repro_torch.models.dtensor import (P, _call_local, _SumOverRanks,
+                                        is_dtensor, module_view,
+                                        to_placements)
 from repro_torch.models.layers import mlp, upcast
 
 
@@ -96,21 +98,6 @@ class _GatherSlices(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.narrow(0, ctx.rank * ctx.per, ctx.per), None, None
-
-
-class _MeanOverRanks(torch.autograd.Function):
-    """``pmean`` over a group: the sum over its ranks divided by their
-    count.  Backward: the cotangent, the same on every rank, divided by
-    the count (each rank's share of the mean)."""
-
-    @staticmethod
-    def forward(ctx, x, group, n):
-        ctx.n = n
-        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group)) / n
-
-    @staticmethod
-    def backward(ctx, g):
-        return g / ctx.n, None, None
 
 
 def _axis(mesh, name: str) -> int:
@@ -197,8 +184,11 @@ def moe_block_sharded(p: M.MoE, x: torch.Tensor, *, n_experts: int,
         out_flat = y_buf[e_idx, c_idx] * gates[:, None]          # (per k, d)
         out_slice = out_flat.reshape(per, top_k, d).sum(dim=1)
         out = _GatherSlices.apply(out_slice, group, rank)        # (t_loc, d)
-        aux = n_experts * torch.sum(_MeanOverRanks.apply(me, group, mp)
-                                    * _MeanOverRanks.apply(ce, group, mp))
+        # pmean over model: each rank's share of the mean gets the
+        # replicated cotangent divided by mp
+        aux = n_experts * torch.sum(
+            _SumOverRanks.apply(me, [group]) / mp
+            * (_SumOverRanks.apply(ce, [group]) / mp))
         return (out.reshape(xl.shape),
                 _shard0_aux(aux, mesh, dp_axes, dp_size))
 

@@ -45,7 +45,8 @@ from repro_torch.models import moe_shard as MS
 from repro_torch.models import ssm as S
 from repro_torch.models.dtensor import (gather_rows, is_dtensor, module_view,
                                         plain_as_replicated, replicated_call,
-                                        to_placements)
+                                        to_placements, vocab_parallel_nll,
+                                        vocab_split_dims)
 from repro_torch.models.layers import (MLP, Linear, empty_param, linear, mlp,
                                        rms_norm)
 
@@ -269,16 +270,22 @@ class Model(nn.Module):
         """Mean next-token NLL (fp32 log-softmax) over the positions with
         ``batch["labels"] >= 0``, plus 0.01 x the MoE aux loss.  Its
         gradients reach the parameters once ``requires_grad_()`` has
-        turned them on (they are built without)."""
+        turned them on (they are built without).  Logits whose vocab a
+        mesh dim splits go through :func:`vocab_parallel_nll` (each rank
+        on its own vocab shard); DTensor's log-softmax and gather would
+        all-gather them and build the global (B, S, V) gradient on every
+        rank."""
         logits, aux = self.forward(batch, collect_aux=True)
         labels = batch["labels"]
         with plain_as_replicated(self.embed):
-            logp = torch.log_softmax(logits.float(), dim=-1)
-            ll = torch.gather(logp, -1,
-                              labels.clamp(min=0)[..., None].long())
+            if vocab_split_dims(logits):
+                nll_tok = vocab_parallel_nll(logits, labels.clamp(min=0))
+            else:
+                logp = torch.log_softmax(logits.float(), dim=-1)
+                nll_tok = -torch.gather(
+                    logp, -1, labels.clamp(min=0)[..., None].long())[..., 0]
             mask = (labels >= 0).float()
-            nll = -(ll[..., 0] * mask).sum() / torch.clamp(mask.sum(),
-                                                           min=1.0)
+            nll = (nll_tok * mask).sum() / torch.clamp(mask.sum(), min=1.0)
             return nll + 0.01 * aux
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:

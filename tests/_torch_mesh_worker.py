@@ -131,12 +131,14 @@ def steps_job(job: dict) -> Dict:
     AdamW steps (N_STEPS unless it says) (the state after the first gathered whole), every tensor
     gathered whole.  Also the placements the residual stream left each
     block with, each moment's local and whole size, the CPU attention's
-    and Mamba scan's calls through ``local_map``, and whether one update from a gradient
+    and Mamba scan's calls through ``local_map``, the loss's calls of the
+    vocab-parallel NLL, and whether one update from a gradient
     whose norm is under the clip equals the unsharded update bit for
     bit."""
     from repro_torch.launch import steps as ST
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer as tf_mod
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
     t0 = time.perf_counter()
     model, mesh, sh, batches = _sharded(job)
@@ -160,6 +162,18 @@ def steps_job(job: dict) -> Dict:
         ssm_calls.append((type(u).__name__, tuple(u.shape)))
         return ssm_local(u, *rest)
     ssm_mod._ssm_local = counting_ssm
+    vocab_nll, nll_calls = tf_mod.vocab_parallel_nll, []
+    split_dims, losses_seen = tf_mod.vocab_split_dims, []
+
+    def counting_nll(logits, labels):
+        nll_calls.append([str(p) for p in logits.placements])
+        return vocab_nll(logits, labels)
+
+    def seeing(logits):
+        losses_seen.append([str(p) for p in logits.placements])
+        return split_dims(logits)
+    tf_mod.vocab_parallel_nll = counting_nll
+    tf_mod.vocab_split_dims = seeing
     opt = AdamWConfig(**OPT)
     opt_sh = sh["opt"]
     try:
@@ -181,6 +195,8 @@ def steps_job(job: dict) -> Dict:
     finally:
         attn_mod._chunked = chunked
         ssm_mod._ssm_local = ssm_local
+        tf_mod.vocab_parallel_nll = vocab_nll
+        tf_mod.vocab_split_dims = split_dims
         model._constrain = constrain
     # one update from the same gradient, scaled under the clip (scale 1
     # whatever order the norm's sum takes): sharded == unsharded
@@ -205,6 +221,7 @@ def steps_job(job: dict) -> Dict:
             "losses": losses, "gnorms": gnorms, "step1": first,
             "update_equal": same, "hidden": hidden, "zero1": zero1,
             "chunked_calls": calls, "ssm_calls": ssm_calls,
+            "nll_calls": nll_calls, "loss_logits": losses_seen,
             "seconds": (t1 - t0, t2 - t1, time.perf_counter() - t2),
             "param_placements": {n: [str(p) for p in t.placements]
                                  for n, t in params.items()}}
@@ -368,6 +385,37 @@ def moe_model_job(job: dict) -> Dict:
                              for n, t in params.items() if ".w_up" in n}}
 
 
+def vocab_nll_job(job: dict) -> Dict:
+    """``Model.loss`` from the logits of ``job["inputs"]`` placed as the
+    model's are (batch rows over data, vocab over model), on each of the
+    job's meshes with this world's size: the loss and the logits'
+    gradient gathered whole, the per-position NLL's placements and the
+    vocab dims the loss saw."""
+    import numpy as np
+    from types import SimpleNamespace
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.dtensor import P, vocab_split_dims
+    from repro_torch.models.transformer import Model
+    world = torch.distributed.get_world_size()
+    inp = {k: torch.from_numpy(v) for k, v in np.load(job["inputs"]).items()}
+    out = {}
+    for shape in job["meshes"]:
+        if int(np.prod(shape)) != world:
+            continue
+        mesh = make_mesh(tuple(shape), ("data", "model"), device="cpu")
+        lg = _placed(inp["logits"], mesh, P("data", None, "model"))
+        lab = _placed(inp["labels"], mesh, P("data"), False)
+        aux = torch.tensor(0.25)
+        model = SimpleNamespace(embed=lg,
+                                forward=lambda b, collect_aux: (lg, aux))
+        loss = Model.loss(model, {"labels": lab})
+        loss.backward()
+        out[tuple(shape)] = {"loss": _full(loss).detach(),
+                             "grad": _full(lg.grad),
+                             "vocab_dims": vocab_split_dims(lg)}
+    return out
+
+
 JOBS = {"steps": steps_job, "train": train_job, "save": save_job,
         "restore": restore_job, "moe_block": moe_block_job,
-        "moe_model": moe_model_job}
+        "moe_model": moe_model_job, "vocab_nll": vocab_nll_job}

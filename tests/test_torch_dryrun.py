@@ -14,7 +14,15 @@ repro_torch.launch.dryrun``, side by side:
   MoE blocks' all-to-all bytes are 2 x L x e_tot x cap x d x 2 B.  On a
   CPU mesh DTensor moves a shard to another dim by an all-gather (its
   all-to-all is for CUDA meshes), so every all-to-all of the cell is a
-  block's.
+  block's;
+* llama3.2-1b x train_4k x single at ``--layers 1``: the sharded train
+  step fits a card (its loss is vocab-parallel).
+
+The unit subprocess also runs ``Model.loss`` from logits split over the
+full 128,256-token vocab of llama3.2-1b on the (16, 16) world: the loss's
+collectives are three all-reduces of (B_local, S) values and no rank holds
+the global (B, S, V) logits, where DTensor's log-softmax and gather
+all-gather them and build their global gradient on every rank.
 """
 import json
 import math
@@ -71,11 +79,39 @@ with c.active():
     with FlopCounterMode(display=False) as fc:
         x @ w
     out["global_flops"] = fc.get_total_flops()
+
+# Model.loss from logits split over llama3.2-1b's vocab (B 16, S 64),
+# and DTensor's log-softmax + gather on the same logits for contrast
+from types import SimpleNamespace
+from repro_torch.models.transformer import Model
+B, S, V = 16, 64, 128256
+
+def loss_counts(route):
+    c = DR.Counter()
+    with c.active():
+        lg = DTensor.from_local(torch.empty(1, S, V // 16), mesh,
+                                [Shard(0), Shard(2)], run_check=False)
+        lg.requires_grad_(True)
+        lab = DTensor.from_local(torch.zeros(1, S, dtype=torch.int32), mesh,
+                                 [Shard(0), Replicate()], run_check=False)
+        with c.counting():
+            if route == "model":
+                m = SimpleNamespace(embed=lg, forward=lambda b, collect_aux:
+                                    (lg, torch.zeros(())))
+                Model.loss(m, {"labels": lab}).backward()
+            else:
+                ll = torch.gather(torch.log_softmax(lg, dim=-1), -1,
+                                  lab[..., None].long())
+                ll.sum().backward()
+    return {"peak": c.peak, "collectives": c.collectives}
+
+out["loss"] = {r: loss_counts(r) for r in ("model", "dtensor")}
 print(json.dumps(out))
 '''
 
 LLAMA = ("llama3.2-1b", "decode_32k", "multi", None)
 QWEN = ("qwen2-moe-a2.7b", "prefill_32k", "single", 2)
+TRAIN = ("llama3.2-1b", "train_4k", "single", 1)
 
 
 def _env():
@@ -103,7 +139,7 @@ def dry(tmp_path_factory):
     procs = {c: subprocess.Popen(_cell_cmd(c, out), env=_env(), cwd=REPO,
                                  stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
-             for c in (QWEN, LLAMA)}
+             for c in (QWEN, LLAMA, TRAIN)}
     try:
         unit = subprocess.run([sys.executable, "-c", UNIT], env=_env(),
                               cwd=REPO, capture_output=True, text=True,
@@ -189,6 +225,34 @@ def test_qwen_moe_prefill_all_to_all_is_the_sharded_blocks(dry):
     assert want == 358_612_992
     assert rec["collectives"]["all-to-all"] == want
     assert rec["layers_override"] == 2 and rec["flops"] > 0
+
+
+def test_loss_is_vocab_parallel_on_the_production_mesh(dry):
+    """Model.loss on llama3.2-1b's full vocab split over model 16 (B 16,
+    S 64): its collectives are the three all-reduces of (B_local, S) fp32
+    values (the max, the sum of exponentials, the label's logit) and the
+    mean's scalars; no all-gather, and no rank's temporaries reach the
+    global logits.  DTensor's log-softmax and gather on the same logits
+    all-gather them and hold their global gradient."""
+    b, s, v = 16, 64, 128256
+    global_fp32 = b * s * v * 4
+    got, old = dry["unit"]["loss"]["model"], dry["unit"]["loss"]["dtensor"]
+    coll = got["collectives"]
+    assert set(coll) == {"all-reduce"}, coll
+    assert 3 * s * 4 <= coll["all-reduce"] < 3 * s * 4 + 64
+    assert got["peak"] < global_fp32 // 16       # a few local shards
+    assert old["collectives"].get("all-gather", 0) >= global_fp32 // 16
+    assert old["peak"] >= global_fp32
+
+
+def test_llama_train_cell_fits_a_card(dry):
+    """llama3.2-1b train_4k at one layer on (16, 16): under 80 GiB of
+    temporaries a device (595.30 GiB while the loss ran DTensor's rules)."""
+    rec = dry["cells"][TRAIN]
+    assert rec["status"] == "OK", rec
+    assert rec["memory"]["temp_size_in_bytes"] < 80 * 2 ** 30
+    assert rec["collectives"]["all-gather"] < 33.6e9 / 4
+    assert rec["layers_override"] == 1 and rec["flops"] > 0
 
 
 def test_cached_cells_are_skipped(dry):

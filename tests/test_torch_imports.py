@@ -32,7 +32,9 @@ SUBPACKAGES = ("repro_torch", "repro_torch.perfmodel", "repro_torch.core",
                "repro_torch.serve", "repro_torch.serve.worker",
                "repro_torch.launch.mesh", "repro_torch.launch.shardings",
                "repro_torch.models.dtensor", "repro_torch.models.moe_shard",
-               "repro_torch.launch.dryrun")
+               "repro_torch.launch.dryrun", "repro_torch.analysis.dataflow",
+               "repro_torch.analysis.extract", "repro_torch.analysis.lint",
+               "repro_torch.core.quale_ast")
 
 
 def _forbidden(name: str) -> bool:

@@ -34,6 +34,12 @@ the same gradient, under the clip, equals the unsharded update bit for
 bit.  The residual stream leaves each block as ``Shard(1)`` over
 ``model`` where the reference's condition holds, and ZeRO-1 moments hold
 1/data of each moment on each rank.
+
+The loss: wherever ``model`` splits the vocab the sharded steps' loss is
+the vocab-parallel NLL (``models.dtensor.vocab_parallel_nll``, each rank
+on its own vocab shard), and ``Model.loss`` from seeded logits on (1, 2)
+and (2, 2) is held to the unsharded loss and its gradient at the same
+tolerances; on a mesh of one it is the plain loss bit for bit.
 """
 import os
 
@@ -73,6 +79,8 @@ GROUP2 = [("llama3.2-1b", (1, 2), S), ("llama3.2-1b", (2, 1), S),
 GROUP4 = [("llama3.2-1b", (2, 2), S), ("rwkv6-7b", (2, 2), S),
           ("llama3.2-1b", (1, 4), LONG_S)]
 TRAIN = dict(arch="llama3.2-1b", steps=4, batch=2, seq=S)
+NLL_MESHES = [(1, 2), (2, 2)]
+NLL_B, NLL_V = 4, 256
 
 
 def _tag(arch, mesh, seq):
@@ -158,8 +166,13 @@ def runs(tmp_path_factory):
                  "batch": _size(seq)[0], "steps": _size(seq)[1]}
                 for i, (a, mesh, seq) in enumerate(cases)]
 
+    nll_in = os.path.join(work, "nll_inputs.npz")
+    np.savez(nll_in, **_nll_inputs())
+    nll_jobs = {w: {"kind": "vocab_nll", "inputs": nll_in,
+                    "meshes": NLL_MESHES, "out": f"vocab_nll{w}.pt"}
+                for w in (2, 4)}
     group2 = W.start_group(2, steps_jobs(GROUP2) + [
-        dict(kind="train", out="train.pt", **TRAIN)], work)
+        dict(kind="train", out="train.pt", **TRAIN), nll_jobs[2]], work)
     try:
         for arch, (jm, params) in models.items():
             sd = params_from_jax(jm.cfg, params)
@@ -176,13 +189,39 @@ def runs(tmp_path_factory):
          "params": files["llama3.2-1b"], "dir": ckpt, "out": "saved.pt"},
         {"kind": "restore", "arch": "llama3.2-1b", "mesh": (1, 4), "seq": S,
          "params": files["llama3.2-1b"], "dir": ckpt,
-         "out": "restored.pt"}], work))
+         "out": "restored.pt"}, nll_jobs[4]], work))
     load = lambda name: torch.load(os.path.join(work, name))
     return {"sharded": {(a, m, s): load(_tag(a, m, s) + ".pt")
                         for a, m, s in GROUP2 + GROUP4},
             "unsharded": unsharded, "ref": ref, "files": files,
             "train": load("train.pt"), "saved": load("saved.pt"),
-            "restored": load("restored.pt"), "ckpt": ckpt}
+            "restored": load("restored.pt"), "ckpt": ckpt,
+            "nll": {**load("vocab_nll2.pt"), **load("vocab_nll4.pt")},
+            "nll_inputs": nll_in}
+
+
+def _nll_inputs():
+    """Seeded logits (B 4, S 8, V 256, fp32) and labels, some masked."""
+    rng = np.random.default_rng(7)
+    logits = (3.0 * rng.standard_normal((NLL_B, S // 2, NLL_V))) \
+        .astype(np.float32)
+    labels = rng.integers(0, NLL_V, (NLL_B, S // 2)).astype(np.int32)
+    labels[rng.random(labels.shape) < 0.2] = -1
+    return {"logits": logits, "labels": labels}
+
+
+def _plain_loss(inputs):
+    """The unsharded Model.loss route (log-softmax, gather, masked mean,
+    plus 0.01 x the jobs' aux 0.25) and the logits' gradient."""
+    lg = torch.from_numpy(inputs["logits"]).requires_grad_(True)
+    labels = torch.from_numpy(inputs["labels"])
+    logp = torch.log_softmax(lg.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None].long())
+    mask = (labels >= 0).float()
+    loss = -(ll[..., 0] * mask).sum() / torch.clamp(mask.sum(), min=1.0) \
+        + 0.01 * 0.25
+    loss.backward()
+    return loss.detach(), lg.grad
 
 
 def _to_np(t):
@@ -346,6 +385,76 @@ def test_moe_block_runs_replicated_in_the_jamba_mesh(runs):
         "param_placements"]
     moe = {n: p for n, p in pl.items() if ".moe." in n and "w_up" in n}
     assert moe and all(p[1] == "S(0)" for p in moe.values()), moe
+
+
+@pytest.mark.parametrize("mesh", NLL_MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_vocab_parallel_loss_matches_the_unsharded_loss(runs, mesh):
+    got = runs["nll"][mesh]
+    loss, grad = _plain_loss(dict(np.load(runs["nll_inputs"])))
+    assert got["vocab_dims"] == (1,)
+    np.testing.assert_allclose(float(got["loss"]), float(loss),
+                               rtol=LOSS_RTOL)
+    _check_grads({"logits": got["grad"]}, {"logits": grad}, f"{mesh}")
+
+
+@pytest.mark.parametrize("case", CASES, ids=[_tag(*c) for c in CASES])
+def test_sharded_loss_is_vocab_parallel_where_model_splits_the_vocab(
+        runs, case):
+    """Each loss of a sharded run (loss_and_grads, then every step) takes
+    the vocab-parallel route exactly where model splits the logits' vocab
+    (the smoke vocab, 256, divides it), and at S 16 on model 2 it does;
+    elsewhere its logits are whole over the vocab (model 1, or the
+    sequence split over model), so the log-softmax is local."""
+    arch, (data, model), seq = case
+    got = runs["sharded"][case]
+    seen, calls = got["loss_logits"], got["nll_calls"]
+    assert len(seen) == 1 + _size(seq)[1], seen
+    assert calls == [pl for pl in seen if pl[1] == "S(2)"], (seen, calls)
+    if model > 1 and seq == S:
+        assert calls == seen
+    if model == 1:
+        assert calls == []
+
+
+def test_mesh_of_one_loss_is_the_plain_loss_bit_for_bit(runs):
+    """On a (1, 1) mesh every placement is replicated, so Model.loss takes
+    the plain route: loss and every gradient bit for bit the plain
+    model's."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tf_mod
+    cfg = get_arch("llama3.2-1b").smoke()
+    params = torch.load(runs["files"]["llama3.2-1b"])
+    batch = next(iter(make_batch_iter(SyntheticLMDataset(cfg.vocab, S, W.B),
+                                      0, 1, device="cpu")))
+    out = []
+    for on_mesh in (False, True):
+        model = build_model(cfg, dtype=torch.float32, device="cpu",
+                            remat=False)
+        model.load_state_dict(params, strict=True)
+        b = batch
+        if on_mesh:
+            mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+            ST.shard_model(mesh, model, cfg, ShapeConfig("t", S, W.B,
+                                                         "train"))
+            b = next(iter(make_batch_iter(
+                SyntheticLMDataset(cfg.vocab, S, W.B), 0, 1, mesh=mesh,
+                dp_axes=("data",))))
+        model.requires_grad_(True)
+        calls = []
+        nll = tf_mod.vocab_parallel_nll
+        tf_mod.vocab_parallel_nll = lambda *a: calls.append(a) or nll(*a)
+        try:
+            loss, grads = loss_and_grads(model, b)
+        finally:
+            tf_mod.vocab_parallel_nll = nll
+        assert calls == []
+        out.append((W._full(loss).detach(),
+                    {n: W._full(g) for n, g in grads.items()}))
+    (plain_loss, plain_g), (mesh_loss, mesh_g) = out
+    assert torch.equal(mesh_loss, plain_loss)
+    _same(mesh_g, plain_g, "grads")
 
 
 def test_train_under_choose_mesh_gives_the_one_process_losses(runs):
