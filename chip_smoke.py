@@ -303,6 +303,14 @@ line is printed:
    primaries and against phase 5's run: the same sample ids,
    ``superior_count`` and ``normalized_phv`` (its ``ppa_eval`` launches
    count on the main path).
+21. the dry run on the card's host (``python -m repro_torch.launch.dryrun``,
+   two processes side by side, each on a fake process group of 256 ranks
+   with the (data 16, model 16) mesh, nothing allocated on the card):
+   jamba-1.5-large-398b ``train_4k`` and rwkv6-7b ``prefill_32k``, both
+   ``--mesh single --layers 1``; each record OK with FLOPs above 0 and
+   temporaries a device under the card's 80 GiB (jamba's Mamba blocks
+   keep their batch rows and channels, and each scan is one counted op),
+   each trace's wall time printed.  No kernel launches there.
 
 Kernel launch counters are zeroed just before each part of the main path
 and read just after; every kernel of that part must have launched there.
@@ -4336,6 +4344,61 @@ def phase20_analysis(torch, dev, res_k, phase5: dict) -> dict:
     return {"launches": launches, "extract_s": extract_s}
 
 
+# the dry-run cells of phase 21, and the temporaries a device each must
+# stay under: the card's 80 GiB (the dry run counts 61.12 GiB for jamba
+# and 12.25 for rwkv6 under torch 2.11 and 2.13 alike; PERF.md §6)
+DRYRUN_CELLS = (("jamba-1.5-large-398b", "train_4k"),
+                ("rwkv6-7b", "prefill_32k"))
+DRYRUN_TEMP_GIB = 80.0
+
+
+def phase21_dryrun() -> dict:
+    """21: two dry-run cells as processes on the card's host (see the
+    module docstring).  Returns each cell's record."""
+    import shutil
+    work = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+    shutil.rmtree(work, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    procs = {cell: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--mesh", "single", "--layers", "1",
+         "--out", work], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for cell in DRYRUN_CELLS}
+    recs = {}
+    try:
+        for (arch, shape), p in procs.items():
+            txt = p.communicate(timeout=600)[0]
+            wall = time.perf_counter() - t0
+            check(p.returncode == 0, f"21: the dry run of {arch} {shape} "
+                  f"exited {p.returncode}\n{txt[-3000:]}")
+            with open(os.path.join(
+                    work, f"{arch}__{shape}__single__L1.json")) as f:
+                rec = json.load(f)
+            temp = rec.get("memory", {}).get("temp_size_in_bytes", 0) / 2**30
+            check(rec["status"] == "OK" and rec["flops"] > 0,
+                  f"21: {arch} {shape}: {rec.get('status')} "
+                  f"{rec.get('error', '')} flops {rec.get('flops')}")
+            check(temp < DRYRUN_TEMP_GIB,
+                  f"21: {arch} {shape}: {temp:.2f} GiB of temporaries a "
+                  f"device, over {DRYRUN_TEMP_GIB} GiB")
+            r = rec["roofline"]
+            log(f"[21] {arch} {shape} --mesh single --layers 1: OK, trace "
+                f"{rec['lower_s']} s (process done at {wall:.1f} s), "
+                f"{rec['flops']:.4g} FLOP a device, temporaries "
+                f"{temp:.2f} GiB, compute {r['compute_s']:.4f} s memory "
+                f"{r['memory_s']:.4f} s collective {r['collective_s']:.4f} s"
+                f" (CPU trace counts at datasheet rates)")
+            recs[(arch, shape)] = rec
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return recs
+
+
 def main() -> int:
     # cuBLAS reads its workspace size once, at its first call: fix it here,
     # before any, so that 16d's deterministic algorithms hold for every GEMM
@@ -4681,6 +4744,9 @@ def main() -> int:
 
     # ---- 20. the analysis tooling, and LUMINA on the extracted graph -------
     analysis = phase20_analysis(torch, dev, res_k, phase5)
+
+    # ---- 21. the dry run's cells on the card's host ---------------------------
+    phase21_dryrun()
 
     kt = times["both"]                 # the main path's launch: a chunk
     kernels = [{

@@ -39,6 +39,7 @@ from pathlib import Path
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._build import TOLERANCE_FLAGS, load_library
 
@@ -105,6 +106,12 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 rwkv6_scan.launches = 0
 
 
+def _states_shape(r) -> tuple:
+    """The chunk states' shape: (B, H, ceil(T / CHUNK) - 1, hd, hd)."""
+    b, t, h, hd = r.shape
+    return (b, h, -(-t // CHUNK) - 1, hd, hd)
+
+
 def _forward(r, k, v, w, u):
     """(y, chunk states or None): the kernel on a CUDA tensor, with the
     fp32 workspace its state pass wrote ((B, H, ceil(T / CHUNK) - 1, hd,
@@ -136,7 +143,7 @@ def _forward(r, k, v, w, u):
         raise RuntimeError("rwkv6_scan launch failed: "
                            + lib.rwkv6_scan_error_string(err).decode())
     rwkv6_scan.launches += 1
-    return y, ws.view(b, h, -(-t // CHUNK) - 1, hd, hd)
+    return y, ws.view(_states_shape(r))
 
 
 class Rwkv6ScanFn(torch.autograd.Function):
@@ -182,7 +189,7 @@ def rwkv6_scan_bwd(r, k, v, w, u, dy, states):
     if r.dtype != torch.float32:
         raise TypeError(f"{BWD_DTYPE_MSG}; got {r.dtype}")
     b, t, h, hd = r.shape
-    n_states = (b, h, -(-t // CHUNK) - 1, hd, hd)
+    n_states = _states_shape(r)
     if (states is None or tuple(states.shape) != n_states
             or states.dtype != torch.float32 or not states.is_contiguous()
             or states.device != r.device):
@@ -249,22 +256,32 @@ def smem_bytes(hd: int) -> dict:
 
 
 def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+                     w: torch.Tensor, u: torch.Tensor, states: bool = False):
     """The kernel's recurrence in torch ops, on any device: fp32 state
     (B, H, hd, hd) from zero (fp64 for fp64 inputs), one step per time
-    index; y in r's dtype."""
+    index; y in r's dtype.  ``states=True`` returns (y, the chunk states):
+    the state entering every :data:`CHUNK`-step chunk but the first, (B,
+    H, ceil(T / CHUNK) - 1, hd, hd) in the state's dtype, laid out as the
+    kernel's workspace."""
     _check(r, k, v, w, u)
     b, t, h, hd = r.shape
     cdt = torch.promote_types(r.dtype, torch.float32)
     rf, kf, vf, wf = (x.to(cdt) for x in (r, k, v, w))
     s = torch.zeros((b, h, hd, hd), dtype=cdt, device=r.device)
     uu = u[None, :, :, None]
-    ys = []
+    ys, saved = [], []
     for i in range(t):
+        if states and i and i % CHUNK == 0:
+            saved.append(s)
         kv = kf[:, i, :, :, None] * vf[:, i, :, None, :]     # (B, H, hd, hd)
         ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, i], s + uu * kv))
         s = wf[:, i, :, :, None] * s + kv
-    return torch.stack(ys, dim=1).to(r.dtype)
+    y = torch.stack(ys, dim=1).to(r.dtype)
+    if not states:
+        return y
+    hs = (torch.stack(saved, dim=2) if saved else
+          torch.zeros((b, h, 0, hd, hd), dtype=cdt, device=r.device))
+    return y, hs
 
 
 def rwkv6_scan_cost(b: int, t: int, h: int, hd: int, itemsize: int):
@@ -344,3 +361,95 @@ def rwkv6_scan_bwd_cost(b: int, t: int, h: int, hd: int, itemsize: int):
     ops = b * t * h * (14 * hd * hd + 16 * hd)
     nbytes = 9 * b * t * h * hd * itemsize + 2 * h * hd * 4
     return ops, nbytes
+
+
+# ---------------------------------------------------------------------
+# The scan as one counted op (the dry run's trace)
+#
+# ``launch.dryrun`` traces the model on fake CPU tensors, where the
+# wrapper's plain versions would be traced one time step at a time.
+# Inside ``models.attention.kernel_route`` the RWKV time-mix calls
+# :func:`rwkv6_scan_counted` instead: the forward and the backward are
+# each one custom op, whose real implementation is the plain version (so
+# values and gradients are those of ``Rwkv6ScanFn``'s CPU route, bit for
+# bit) and whose fake implementation allocates what the card's launch
+# allocates: the outputs and, on every call, the chunk states' workspace.
+# Their FLOPs are the matmul-class FLOPs of the plain versions' products
+# (r . S a step forward; dr, dk and dv a step backward), which the
+# step-by-step trace counts; their bytes are their inputs' and outputs'.
+# ---------------------------------------------------------------------
+
+def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
+@torch.library.custom_op("repro_torch::rwkv6_scan_fwd", mutates_args=())
+def rwkv6_scan_fwd_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      w: torch.Tensor, u: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y, chunk states): :func:`rwkv6_scan_plain` with ``states=True``."""
+    return rwkv6_scan_plain(r, k, v, w, u, states=True)
+
+
+@rwkv6_scan_fwd_op.register_fake
+def _(r, k, v, w, u):
+    return (torch.empty_like(r),
+            r.new_empty(_states_shape(r), dtype=_compute_dtype(r.dtype)))
+
+
+@torch.library.custom_op("repro_torch::rwkv6_scan_bwd", mutates_args=())
+def rwkv6_scan_bwd_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      w: torch.Tensor, u: torch.Tensor, dy: torch.Tensor,
+                      states: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor, torch.Tensor]:
+    """(dr, dk, dv, dw, du): :func:`rwkv6_scan_bwd_plain`, which steps
+    the states again itself, as the CPU route's backward does."""
+    return rwkv6_scan_bwd_plain(r, k, v, w, u, dy)
+
+
+@rwkv6_scan_bwd_op.register_fake
+def _(r, k, v, w, u, dy, states):
+    return (*(torch.empty_like(r) for _ in range(4)),
+            u.new_empty(u.shape, dtype=_compute_dtype(r.dtype)))
+
+
+def _fwd_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs, output[1])
+    ctx.mark_non_differentiable(output[1])
+    ctx.set_materialize_grads(False)      # no zeros for the states' gradient
+
+
+def _fwd_backward(ctx, dy, _dstates):
+    r, k, v, w, u, states = ctx.saved_tensors
+    dr, dk, dv, dw, du = rwkv6_scan_bwd_op(r, k, v, w, u, dy.contiguous(),
+                                           states)
+    return dr, dk, dv, dw, du.to(u.dtype)
+
+
+rwkv6_scan_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
+
+
+@register_flop_formula(torch.ops.repro_torch.rwkv6_scan_fwd)
+def _fwd_flops(r_shape, *args, out_shape=None, **kwargs) -> int:
+    b, t, h, hd = r_shape
+    return 2 * b * t * h * hd * hd
+
+
+@register_flop_formula(torch.ops.repro_torch.rwkv6_scan_bwd)
+def _bwd_flops(r_shape, *args, out_shape=None, **kwargs) -> int:
+    b, t, h, hd = r_shape
+    return 6 * b * t * h * hd * hd
+
+
+def rwkv6_scan_counted(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """:func:`rwkv6_scan` on CPU tensors as one op forward and one op
+    backward (``repro_torch::rwkv6_scan_fwd`` / ``rwkv6_scan_bwd``), for
+    a trace that counts ops: the same values and gradients as the
+    wrapper's CPU route, bit for bit."""
+    _check(r, k, v, w, u)
+    if r.device.type != "cpu":
+        raise ValueError(f"rwkv6_scan_counted: CPU tensors only, got "
+                         f"{r.device}")
+    return rwkv6_scan_fwd_op(r, k, v, w, u)[0]

@@ -36,6 +36,7 @@ from pathlib import Path
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._build import TOLERANCE_FLAGS, load_library
 
@@ -420,3 +421,109 @@ def ssm_scan_bwd_cost(b: int, t: int, d: int, n: int, itemsize: int):
     nbytes = ((5 * b * t * d + 4 * b * t * n) * itemsize
               + 2 * d * n * 4)
     return ops, nbytes, b * t * d * n
+
+
+# ---------------------------------------------------------------------
+# The scan as one counted op (the dry run's trace)
+#
+# ``launch.dryrun`` traces the model on fake CPU tensors, where the
+# wrapper's plain versions would be traced one time step at a time (tens
+# of ms a step, hours for a cell).  Inside ``models.attention.
+# kernel_route`` the Mamba block calls :func:`ssm_scan_counted` instead:
+# the forward and the backward are each one custom op, whose real
+# implementation is the plain version (so values and gradients are those
+# of ``SsmScanFn``'s CPU route, bit for bit) and whose fake implementation
+# allocates what the card's launch allocates: the outputs and, when a
+# gradient is taken, the saving forward's checkpoints.  Their FLOPs are
+# the matmul-class FLOPs of the plain versions' products (C . h a step
+# forward; dC, dB and G.B a step backward), which the step-by-step trace
+# counts; their bytes are their inputs' and outputs'.
+# ---------------------------------------------------------------------
+
+def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
+@torch.library.custom_op("repro_torch::ssm_scan_fwd", mutates_args=())
+def ssm_scan_fwd_op(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor, c: torch.Tensor, save: bool
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y, checkpoints): :func:`ssm_scan_plain`; the checkpoints are
+    (B, ceil(T / BWD_CHUNK) - 1, D, N) with `save`, else (B, 0, D, N)."""
+    if save:
+        return ssm_scan_plain(u, dt, a, b, c, states=True)
+    y = ssm_scan_plain(u, dt, a, b, c)
+    return y, u.new_empty((u.shape[0], 0, u.shape[2], a.shape[1]),
+                          dtype=_compute_dtype(u.dtype))
+
+
+@ssm_scan_fwd_op.register_fake
+def _(u, dt, a, b, c, save):
+    bsz, n_ck, d, n = _states_shape(u, a)
+    return (torch.empty_like(u),
+            u.new_empty((bsz, n_ck if save else 0, d, n),
+                        dtype=_compute_dtype(u.dtype)))
+
+
+@torch.library.custom_op("repro_torch::ssm_scan_bwd", mutates_args=())
+def ssm_scan_bwd_op(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                    states: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor, torch.Tensor]:
+    """(du, ddt, da, db, dc): :func:`ssm_scan_bwd_plain` from the
+    forward's checkpoints."""
+    return ssm_scan_bwd_plain(u, dt, a, b, c, dy, states=states)
+
+
+@ssm_scan_bwd_op.register_fake
+def _(u, dt, a, b, c, dy, states):
+    return (torch.empty_like(u), torch.empty_like(u),
+            a.new_empty(a.shape, dtype=_compute_dtype(u.dtype)),
+            torch.empty_like(b), torch.empty_like(c))
+
+
+def _fwd_setup(ctx, inputs, output):
+    u, dt, a, b, c, _ = inputs
+    ctx.save_for_backward(u, dt, a, b, c, output[1])
+    ctx.mark_non_differentiable(output[1])
+    ctx.set_materialize_grads(False)      # no zeros for the states' gradient
+
+
+def _fwd_backward(ctx, dy, _dstates):
+    u, dt, a, b, c, states = ctx.saved_tensors
+    du, ddt, da, db, dc = ssm_scan_bwd_op(u, dt, a, b, c, dy.contiguous(),
+                                          states)
+    return du, ddt, da.to(a.dtype), db, dc, None
+
+
+ssm_scan_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssm_scan_fwd)
+def _fwd_flops(u_shape, dt_shape, a_shape, *args, out_shape=None,
+               **kwargs) -> int:
+    bsz, t, d = u_shape
+    return 2 * bsz * t * d * a_shape[1]
+
+
+@register_flop_formula(torch.ops.repro_torch.ssm_scan_bwd)
+def _bwd_flops(u_shape, dt_shape, a_shape, *args, out_shape=None,
+               **kwargs) -> int:
+    bsz, t, d = u_shape
+    return 6 * bsz * t * d * a_shape[1]
+
+
+def ssm_scan_counted(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                     b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """:func:`ssm_scan` on CPU tensors as one op forward and one op
+    backward (``repro_torch::ssm_scan_fwd`` / ``ssm_scan_bwd``), for a
+    trace that counts ops: the same values and gradients as the wrapper's
+    CPU route, bit for bit."""
+    _check(u, dt, a, b, c)
+    if u.device.type != "cpu":
+        raise ValueError(f"ssm_scan_counted: CPU tensors only, got "
+                         f"{u.device}")
+    save = torch.is_grad_enabled() and any(x.requires_grad
+                                           for x in (u, dt, a, b, c))
+    return ssm_scan_fwd_op(u, dt, a, b, c, save)[0]

@@ -15,14 +15,20 @@ builds the mesh on it.  The parameters, optimizer moments, batch and
 decode cache are fake tensors placed as ``steps.shardings_for`` says, and
 the step runs once on them: nothing is allocated on any device, no kernel
 runs and no collective moves data, so no card is touched, with a card or
-without.  The fake tensors are CPU-typed, so the kernels' wrappers trace
-their plain versions (``flash_attention_plain``, the scans'
-recurrences): the counterpart of the reference counting
-``chunked_attention`` and ``lax.scan`` through XLA.  The attention takes
-the kernel's wrapper (``models.attention.kernel_route``), so a train
-step keeps for the backward what the card keeps (q, k, v, the output and
-lse), not the per-block scores that autograd through
-``chunked_attention`` would.
+without.  The fake tensors are CPU-typed, so the step runs inside
+``models.attention.kernel_route``: the attention takes the kernel's
+wrapper, which traces its plain version (``flash_attention_plain``,
+counted unfused, block by block) and keeps for a train step's backward
+what the card keeps (q, k, v, the output and lse), not the per-block
+scores that autograd through ``chunked_attention`` would; each scan
+(``ssm_scan``, ``rwkv6_scan``) is one counted op forward and one
+backward (``ssm_scan_counted``, ``rwkv6_scan_counted``): its FLOPs the
+plain recurrence's products, its bytes its inputs' and outputs' (counted
+fused, as the kernel reads and writes them), and its temporaries the
+card's (the saving forward's checkpoints, the chunk states' workspace),
+where the recurrence traced one time step at a time took minutes a
+layer.  This is the counterpart of the reference counting
+``chunked_attention`` and ``lax.scan`` through XLA.
 
 The MoE fields are set as the reference's ``run_cell`` sets them: the
 dense dispatch's groups from the data axes and its buffer spec over
@@ -256,6 +262,7 @@ class Counter:
         ops is counted."""
         from torch._subclasses.fake_tensor import unset_fake_temporarily
         from torch.distributed.tensor import _redistribute
+        from torch.distributed.tensor._dispatch import OpDispatcher
         from torch.distributed.tensor._sharding_prop import ShardingPropagator
         from torch.distributed.tensor.placement_types import _StridedShard
 
@@ -269,6 +276,13 @@ class Counter:
                    (ShardingPropagator, "_propagate_tensor_meta_non_cached"),
                    (_redistribute, "_gen_transform_infos_non_cached"),
                    (_StridedShard, "local_shard_size_and_offset")]
+        # newer torch propagates from its C++ dispatch through this method;
+        # outside the fake mode its sharding and redistribution plans are
+        # cached (inside it DTensor takes itself to be tracing, and plans
+        # every op afresh: minutes a cell on a 3-D mesh)
+        if hasattr(OpDispatcher, "_propagate_op_sharding_dispatch_slow_path"):
+            patched.append((OpDispatcher,
+                            "_propagate_op_sharding_dispatch_slow_path"))
         saved = [getattr(o, n) for o, n in patched]
         for (o, n), fn in zip(patched, saved):
             setattr(o, n, outside(fn))

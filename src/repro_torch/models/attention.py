@@ -15,6 +15,7 @@ plain version), as ``launch.dryrun`` traces the model.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -23,8 +24,9 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.dtensor import (attention_kernel, gather_seq,
-                                        is_dtensor, replicated_like,
-                                        split_heads, write_position)
+                                        is_dtensor, local_einsum, pinned,
+                                        replicated_like, split_heads,
+                                        write_position)
 from repro_torch.models.layers import Linear, apply_rope, linear
 
 NEG_INF = -1e30
@@ -49,6 +51,12 @@ def kernel_route():
         yield
     finally:
         _cpu_kernel[0] = prev
+
+
+def in_kernel_route() -> bool:
+    """Whether a :func:`kernel_route` block is open (the scans read it
+    too: ``models.ssm``)."""
+    return _cpu_kernel[0]
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -144,11 +152,11 @@ def gqa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     qg = split_heads(q.reshape(b, 1, h * hd), kvh, (h // kvh) * hd) \
         .reshape(b, kvh, h // kvh, hd)
     scale = 1.0 / math.sqrt(hd)
-    logits = torch.einsum("bkgd,bskd->bkgs", qg, k_cache).float() * scale
+    logits = local_einsum("bkgd,bskd->bkgs", qg, k_cache).float() * scale
     mask = torch.arange(k_cache.shape[1], device=q.device) < kv_len
     logits = torch.where(mask, logits, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(v_cache.dtype)
-    out = torch.einsum("bkgs,bskd->bkgd", w, v_cache)
+    out = local_einsum("bkgs,bskd->bkgd", w, v_cache)
     return out.reshape(b, 1, h, hd)
 
 
@@ -218,8 +226,17 @@ def attention_block(p: Attention, x: torch.Tensor, *, n_heads: int,
     else:
         n_rep = n_heads // n_kv_heads
         k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
-        o = full_attention(q, k, v, causal=causal and kv is None)
-    o = o.reshape(b, s, n_heads * head_dim)
+        full = functools.partial(full_attention, causal=causal and kv is None)
+        if is_dtensor(q):
+            # on each rank's batch rows and heads, as the kernel's site: k
+            # and v placed as q is (a replicated head is sliced); DTensor's
+            # einsum rules refuse some head splits (torch 2.11)
+            k, v = (t.redistribute(q.device_mesh, q.placements)
+                    for t in (k, v))
+            o = attention_kernel(full, q, k, v)
+        else:
+            o = full(q, k, v)
+    o = pinned(o.reshape(b, s, n_heads * head_dim))
     return linear(p.o, o)
 
 

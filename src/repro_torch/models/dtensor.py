@@ -191,6 +191,169 @@ def gather_seq(x: torch.Tensor) -> torch.Tensor:
         Replicate() if p == Shard(1) else p for p in x.placements])
 
 
+def chunk_last(x: torch.Tensor, chunks: int) -> tuple:
+    """``x.chunk(chunks, dim=-1)``, each chunk split as x's last dim is.
+
+    A column-parallel product's output (Mamba's ``in_proj``: u and z side
+    by side) is split over one mesh dim of size m in m contiguous blocks,
+    so rank r holds whole pieces of one or two chunks.  DTensor's rule for
+    a chunk of a split dim replicates x; here each rank's piece of size
+    ``last / (chunks * m)`` goes by one all-to-all to the rank that holds
+    it in its chunk's split, and each chunk comes out ``Shard(last)`` on
+    that mesh dim, its other placements x's.  A plain tensor, or a last
+    dim split some other way, is chunked as ``x.chunk`` does."""
+    if not is_dtensor(x):
+        return x.chunk(chunks, dim=-1)
+    mesh, last = x.device_mesh, x.dim() - 1
+    dims = [i for i, p in enumerate(x.placements) if p == Shard(last)]
+    if len(dims) != 1 or x.shape[last] % (chunks * mesh.size(dims[0])):
+        return x.chunk(chunks, dim=-1)
+    i = dims[0]
+    m, j, group = mesh.size(i), mesh.get_local_rank(i), mesh.get_group(i)
+    # piece q (chunk q // m, block q % m of that chunk) lies on rank
+    # q // chunks and goes to rank q % m; a rank sends its pieces in the
+    # order of their destinations and receives its chunks' blocks in
+    # chunk order (their sources ascend with the chunk)
+    mine = [j * chunks + h for h in range(chunks)]
+    order = sorted(range(chunks), key=lambda h: (mine[h] % m, h))
+    send = [sum(q % m == d for q in mine) for d in range(m)]
+    recv = [sum((c * m + j) // chunks == s for c in range(chunks))
+            for s in range(m)]
+    pl = tuple(Replicate() if isinstance(p, Partial) else p
+               for p in x.placements)
+
+    def local(t):
+        pieces = t.unflatten(-1, (chunks, -1)).movedim(-2, 0)
+        out = funcol.wait_tensor(funcol.all_to_all_single_autograd(
+            pieces[order].contiguous(), recv, send, group))
+        return tuple(out.unbind(0))
+
+    return _call_local(local, mesh, (x,), (pl,), (pl,), (pl,) * chunks)
+
+
+def local_einsum(eq: str, *xs: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, *xs)`` on each rank's local shards, where every
+    mesh dim splits one index letter and each operand holding that letter
+    splits it there or is replicated (and sliced to that split), the
+    others replicated: the output is split on the letter where it keeps
+    it, else a partial sum; each gradient is split as its operand is, or
+    a partial sum on a replicated operand.  DTensor
+    folds batch and split head dims together into its bmm, which some of
+    its versions refuse (torch 2.11: "Attempted to flatten multiple
+    dimensions").  Plain tensors, or splits of any other kind, go to
+    ``torch.einsum`` itself."""
+    if not all(is_dtensor(x) for x in xs):
+        return torch.einsum(eq, *xs)
+    ins, out = eq.replace(" ", "").split("->")
+    ins = ins.split(",")
+    mesh = xs[0].device_mesh
+    in_pl = [[] for _ in xs]
+    grad_pl = [[] for _ in xs]
+    out_pl = []
+    for i in range(mesh.ndim):
+        letters = {sub[p.dim] for sub, x in zip(ins, xs)
+                   for p in [x.placements[i]] if isinstance(p, Shard)}
+        if any(isinstance(x.placements[i], Partial) for x in xs) \
+                or len(letters) > 1:
+            return torch.einsum(eq, *xs)
+        if not letters:
+            for j in range(len(xs)):
+                in_pl[j].append(Replicate())
+                grad_pl[j].append(Replicate())
+            out_pl.append(Replicate())
+            continue
+        (letter,) = letters
+        for j, (sub, x) in enumerate(zip(ins, xs)):
+            if letter in sub:
+                # a replicated operand is sliced to the same split
+                want = Shard(sub.index(letter))
+                if x.placements[i] not in (want, Replicate()):
+                    return torch.einsum(eq, *xs)
+                in_pl[j].append(want)
+                grad_pl[j].append(want)
+            else:
+                in_pl[j].append(Replicate())
+                grad_pl[j].append(Partial())
+        out_pl.append(Shard(out.index(letter)) if letter in out
+                      else Partial())
+    return _call_local(lambda *ts: torch.einsum(eq, *ts), mesh, xs,
+                       tuple(map(tuple, in_pl)), tuple(map(tuple, grad_pl)),
+                       (tuple(out_pl),))
+
+
+def add_bias(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """y + b, where y (a product) may hold a partial sum over a mesh dim
+    that splits the bias b (a column-parallel product of an input split
+    on its contracted dim: whisper's encoder takes its frames split over
+    d_model).  y's partial sums are reduced first there: a split bias
+    cannot be made a partial sum, which DTensor would need (torch 2.11
+    raises)."""
+    if is_dtensor(y) and is_dtensor(b) and any(
+            isinstance(p, Partial) and isinstance(q, Shard)
+            for p, q in zip(y.placements, b.placements)):
+        y = y.redistribute(y.device_mesh, [
+            Replicate() if isinstance(p, Partial) else p
+            for p in y.placements])
+    return y + b
+
+
+def pinned(x: torch.Tensor) -> torch.Tensor:
+    """x with each partial sum reduced (an all-reduce), its other
+    placements kept, and its cotangent brought to that same placement in
+    the backward; x itself on a plain tensor.  DTensor places a cotangent
+    as the op's backward rule leaves it, which can be a layout no later
+    backward can take:
+
+    * after a row-parallel product whose narrow output feeds ops that
+      need it whole (Mamba's ``x_proj``: the scan's B and C, dt's sum over
+      channels), a partial cotangent, for which DTensor would gather the
+      weight whole and reduce-scatter the full-width input gradient;
+    * after the attention's heads are merged where they do not split
+      over ``model`` (56 or 40 heads on 16 ranks), a cotangent split on
+      the merged dim, which the merge's backward cannot unflatten."""
+    if not is_dtensor(x):
+        return x
+    pl = tuple(Replicate() if isinstance(p, Partial) else p
+               for p in x.placements)
+    return _call_local(lambda t: t.view_as(t), x.device_mesh, (x,), (pl,),
+                       (pl,), (pl,))
+
+
+def local_nll(logits, labels):
+    """-log softmax(logits)[..., label] at each position of DTensor
+    `logits` (B, S, V) whose vocab no mesh dim splits (the vocab does not
+    divide ``model``: internvl2's 92,553, whisper's 51,865); `labels` (B,
+    S) holds indices into V.  Each rank takes its batch rows and, over
+    each mesh dim that splits neither batch nor sequence, a block of the
+    sequence where it divides (a partial sum is reduce-scattered into it,
+    a replicated copy sliced), and runs the plain route's log-softmax and
+    gather on that block.  DTensor's rules would build the gather's
+    backward (its zeros) at the global (B, S, V) shape on every rank, and
+    reduce a partial sum whole.  Returns a (B, S) DTensor placed as the
+    block is."""
+    mesh, s = logits.device_mesh, logits.shape[1]
+    pl, parts = [], 1
+    for i, p in enumerate(logits.placements):
+        if isinstance(p, Shard) and p.dim == 1:
+            parts *= mesh.size(i)
+    for i, p in enumerate(logits.placements):
+        if isinstance(p, Shard) and p.dim < 2:
+            pl.append(p)
+        elif mesh.size(i) > 1 and s % (parts * mesh.size(i)) == 0:
+            pl.append(Shard(1))
+            parts *= mesh.size(i)
+        else:
+            pl.append(Replicate())
+    pl = tuple(pl)
+
+    def local(lg, lab):
+        logp = torch.log_softmax(lg.float(), dim=-1)
+        return -torch.gather(logp, -1, lab[..., None].long())[..., 0]
+
+    return _call_local(local, mesh, (logits, labels), (pl, pl), (pl, pl),
+                       (pl,))
+
+
 def split_heads(t: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
     """(B, S, n_heads * head_dim) -> (B, S, n_heads, head_dim).  A DTensor
     whose flat dim is split over a mesh dim that does not divide the heads
@@ -269,6 +432,23 @@ def ssm_kernel(fn: Callable, u, dt, a, b, c):
     return _call_local(fn, u.device_mesh, (u, dt, a, b, c),
                        (x, x, a_in, bc_in, bc_in),
                        (x, x, a_grad, bc_grad, bc_grad), (x,))
+
+
+def channel_kernel(fn: Callable, like, rows, weight):
+    """fn(rows, weight) -> (B, T, D) on `like`'s local batch rows and
+    channels (like: a (B, T, D) DTensor split as ``ssm_kernel``'s u is);
+    rows (B, T, k) is read whole by every channel shard, weight (D,) by
+    every batch shard.  Mamba's dt = softplus(dt_raw + dt_bias): placing
+    it here keeps it on each rank's channels (DTensor may replicate the
+    broadcast add, and then the scan, whose roles follow dt), and runs
+    softplus's backward on local tensors (DTensor decomposes it on
+    replicated inputs: its global gradient on every rank)."""
+    roles = _roles(like, (like,), 2)
+    return _call_local(
+        fn, like.device_mesh, (rows, weight),
+        (_pl(roles, Shard(0), Replicate()), _pl(roles, Replicate(), Shard(0))),
+        (_pl(roles, Shard(0), Partial()), _pl(roles, Partial(), Shard(0))),
+        (_pl(roles, Shard(0), Shard(2)),))
 
 
 def gather_rows(table, idx):

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.dtensor import gather_seq, replicated_like
+from repro_torch.models.dtensor import add_bias, gather_seq, replicated_like
 
 
 def upcast(x: torch.Tensor) -> torch.Tensor:
@@ -95,7 +95,7 @@ class Linear(nn.Module):
 def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
     y = torch.matmul(x, p.w)
     if p.b is not None:
-        y = y + p.b
+        y = add_bias(y, p.b)
     return y
 
 

@@ -45,7 +45,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models import moe as M
 from repro_torch.models.dtensor import (P, _call_local, _SumOverRanks,
@@ -226,3 +226,84 @@ def moe_block_sharded(p: M.MoE, x: torch.Tensor, *, n_experts: int,
         out, aux = out.full_tensor(), aux.full_tensor()
     return out, aux
 
+
+
+def moe_block_grouped(p: M.MoE, x: torch.Tensor, *, n_experts: int,
+                      top_k: int, n_groups: int, buf_pspec,
+                      capacity_factor: float = 1.25):
+    """:func:`moe.moe_block`'s output for a DTensor x (B, S, d), laid out
+    as the reference lays out the dense dispatch's buffer with
+    ``buf_pspec`` (P(data axes, model axis, None, None)): each rank routes
+    its data shard's groups and runs the experts its model rank holds (the
+    stacks split on dim 0: expert parallel) or every expert's slice of the
+    FF dim (split there); its output is a partial sum over the model axis.
+    No collective runs inside: x's batch rows stay on their data shard and
+    the weights where they are.  The decode step's block (the reference's
+    ``moe_groups`` are the data shards; the aux loss, which decode drops,
+    is not computed).
+
+    None where the layout does not hold (no `buf_pspec`, a batch or group
+    count that the data shards do not split, or neither data nor model
+    splitting anything): the caller then runs the block whole."""
+    if buf_pspec is None or not is_dtensor(x):
+        return None
+    mesh = x.device_mesh
+    b, s, d = x.shape
+    dp = buf_pspec[0]
+    dp_axes = () if dp is None else (dp,) if isinstance(dp, str) else dp
+    model_axis = buf_pspec[1]
+    dp_size = math.prod(mesh.size(_axis(mesh, a)) for a in dp_axes)
+    g_n = max(1, math.gcd(n_groups, b * s))
+    if b % dp_size or g_n % dp_size:
+        return None
+    m = _axis(mesh, model_axis) if model_axis is not None else None
+    w_pl = p.w_up.placements if is_dtensor(p.w_up) else None
+    split = (None if m is None or w_pl is None or mesh.size(m) == 1
+             else w_pl[m])
+    if split not in (None, Shard(0), Shard(2)):
+        return None
+    if dp_size == 1 and split is None:
+        return None
+    e_tot = p.w_up.shape[0]
+    e_loc = e_tot // mesh.size(m) if split == Shard(0) else e_tot
+    e0 = mesh.get_local_rank(m) * e_loc if split == Shard(0) else 0
+    x_pl = to_placements(mesh, P(tuple(dp_axes), None, None), 3)
+    out_pl = tuple(Partial() if i == m and split is not None else pl
+                   for i, pl in enumerate(x_pl))
+    rep = (Replicate(),) * mesh.ndim
+    ws = (p.w_gate, p.w_up, p.w_down)
+    w_in = tuple(w.placements if is_dtensor(w) else rep for w in ws)
+
+    def local(xl, router, wg, wu, wd):
+        bl = xl.shape[0]
+        r = M.route(SimpleNamespace(router=router), xl, n_experts=n_experts,
+                    top_k=top_k, capacity_factor=capacity_factor,
+                    n_groups=g_n // dp_size, e_tot=e_tot)
+        flat_e, pos, cap = r["flat_expert"], r["pos"], r["cap"]
+        gl, tk = flat_e.shape
+        mine = r["keep"] & (flat_e >= e0) & (flat_e < e0 + e_loc)
+        e_idx = torch.where(mine, flat_e - e0, 0)
+        c_idx = torch.where(mine, pos, 0)
+        src = torch.where(mine[..., None], xl.reshape(gl, tk // top_k, d)
+                          .repeat_interleave(top_k, dim=1), 0)
+        g_idx = torch.arange(gl, device=xl.device)[:, None].expand_as(e_idx)
+        # accumulated, as moe_block's scatter (dropped and other ranks'
+        # assignments land on slot (g, 0, 0) with a zero source)
+        buf = torch.zeros((gl, e_loc, cap, d), dtype=xl.dtype,
+                          device=xl.device)
+        buf.index_put_((g_idx, e_idx, c_idx), src, accumulate=True)
+        g = torch.einsum("gecd,edf->gecf", buf, wg)
+        u = torch.einsum("gecd,edf->gecf", buf, wu)
+        h = F.silu(upcast(g)).to(xl.dtype) * u
+        y = torch.einsum("gecf,efd->gecd", h, wd)
+        w = (r["gate_vals"].reshape(gl, tk) * mine).to(xl.dtype)
+        return (y[g_idx, e_idx, c_idx] * w[..., None]) \
+            .reshape(gl, tk // top_k, top_k, d).sum(dim=2).reshape(bl, s, d)
+
+    router = (p.router if is_dtensor(p.router) else
+              DTensor.from_local(p.router, mesh, rep, run_check=False))
+    out = _call_local(local, mesh, (x, router, *ws),
+                      (x_pl, rep, *w_in), (x_pl, rep, *w_in), (out_pl,))
+    if p.shared is not None:
+        out = out + mlp(p.shared, x)
+    return out

@@ -5,7 +5,10 @@ The port's counterpart of ``repro.models.ssm``.  In a forward pass (no
 carried state) the Mamba scan goes through the ``ssm_scan`` kernel and the
 RWKV6 WKV recurrence through the ``rwkv6_scan`` kernel on a CUDA tensor,
 and through their plain versions on a CPU tensor (on DTensors, either
-on each rank's local shards: ``models.dtensor``); in decode (a carried
+on each rank's local shards: ``models.dtensor``), or, inside
+``models.attention.kernel_route`` (the dry run's trace), through each
+scan's counted op (``ssm_scan_counted``, ``rwkv6_scan_counted``: the
+plain version as one op forward and one backward); in decode (a carried
 state) :func:`_selective_scan` and :func:`wkv6_scan` run them in torch
 ops, since the kernels start from a zero state and return none.
 """
@@ -18,10 +21,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan
-from repro_torch.kernels.ssm_scan import ssm_scan
-from repro_torch.models.dtensor import (gather_seq, is_dtensor, rwkv_kernel,
-                                        split_heads, ssm_kernel)
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_counted
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_counted
+from repro_torch.models.attention import in_kernel_route
+from repro_torch.models.dtensor import (channel_kernel, chunk_last,
+                                        gather_seq, is_dtensor, local_einsum,
+                                        pinned, rwkv_kernel, split_heads,
+                                        ssm_kernel)
 from repro_torch.models.layers import Linear, empty_param, linear, upcast
 
 
@@ -101,22 +107,22 @@ def mamba_block(p: Mamba, x: torch.Tensor, state: Optional[Dict] = None
     n = p.A_log.shape[1]
 
     xz = linear(p.in_proj, x)                              # (B, L, 2*d_in)
-    u, z = xz.chunk(2, dim=-1)
+    u, z = chunk_last(xz, 2)
 
-    # causal depthwise conv1d
+    # causal depthwise conv1d (a zero history placed as u is)
     prev = (state["conv"] if state is not None
-            else torch.zeros((b, d_conv - 1, d_in), dtype=u.dtype,
-                             device=x.device))
+            else torch.zeros_like(u[:, :1]).expand(b, d_conv - 1, d_in))
     upad = torch.cat([prev, u], dim=1)                     # (B, L+dc-1, d_in)
     new_conv = upad[:, -(d_conv - 1):, :] if d_conv > 1 else prev
     conv = sum(upad[:, i:i + L, :] * p.conv_w[i][None, None]
                for i in range(d_conv)) + p.conv_b
     u = F.silu(upcast(conv)).to(x.dtype)
 
-    proj = linear(p.x_proj, u)                             # (B, L, 2N+1)
+    proj = pinned(linear(p.x_proj, u))                     # (B, L, 2N+1)
     Bm, Cm, dt_raw = proj[..., :n], proj[..., n:2 * n], proj[..., 2 * n:]
     # (B, L, 1) + (d_in,): dt is (B, L, d_in), contiguous
-    dt = F.softplus(upcast(dt_raw) + p.dt_bias[None, None])
+    dt = (channel_kernel(_dt, u, dt_raw, p.dt_bias) if is_dtensor(u)
+          else _dt(dt_raw, p.dt_bias))
     A = -torch.exp(p.A_log)
 
     if state is None:
@@ -134,9 +140,15 @@ def mamba_block(p: Mamba, x: torch.Tensor, state: Optional[Dict] = None
     return out, {"h": h, "conv": new_conv}
 
 
+def _dt(dt_raw, dt_bias):
+    return F.softplus(upcast(dt_raw) + dt_bias[None, None])
+
+
 def _ssm_local(u, dt, a, b, c):
-    return ssm_scan(u.contiguous(), dt.contiguous(), a, b.contiguous(),
-                    c.contiguous())
+    scan = (ssm_scan_counted if u.device.type == "cpu" and in_kernel_route()
+            else ssm_scan)
+    return scan(u.contiguous(), dt.contiguous(), a, b.contiguous(),
+                c.contiguous())
 
 
 def mamba_init_state(b: int, d_model: int, d_state: int, d_conv: int,
@@ -199,7 +211,7 @@ def wkv6_scan(r, k, v, w, u, s0=None):
     ys = []
     for t in range(L):
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]     # (B, H, hd, hd)
-        ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t],
+        ys.append(local_einsum("bhk,bhkv->bhv", rf[:, t],
                                s + u[None, :, :, None] * kv))
         s = wf[:, t, :, :, None] * s + kv
     return torch.stack(ys, dim=1), s
@@ -251,8 +263,10 @@ def rwkv_time_mix(p: RWKV, x: torch.Tensor, head_size: int,
 
 
 def _rwkv_local(r, k, v, w, u):
-    return rwkv6_scan(r.contiguous(), k.contiguous(), v.contiguous(),
-                      w.contiguous(), u)
+    scan = (rwkv6_scan_counted
+            if r.device.type == "cpu" and in_kernel_route() else rwkv6_scan)
+    return scan(r.contiguous(), k.contiguous(), v.contiguous(),
+                w.contiguous(), u)
 
 
 def rwkv_channel_mix(p: RWKV, x: torch.Tensor,

@@ -43,7 +43,8 @@ from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import moe_shard as MS
 from repro_torch.models import ssm as S
-from repro_torch.models.dtensor import (gather_rows, is_dtensor, module_view,
+from repro_torch.models.dtensor import (gather_rows, gather_seq, is_dtensor,
+                                        local_nll, module_view,
                                         plain_as_replicated, replicated_call,
                                         to_placements, vocab_parallel_nll,
                                         vocab_split_dims)
@@ -261,7 +262,10 @@ class Model(nn.Module):
                    else None)
             x, aux = self._decoder_stack(x, enc)
         x = rms_norm(self.final_norm, x, cfg.norm_eps)
-        logits = self._logits(x)
+        # the sequence gathered before the column-parallel head, as before
+        # every block's (a product on the sequence-split stream would fold
+        # the model split into its rows)
+        logits = self._logits(gather_seq(x))
         if collect_aux:
             return logits, aux
         return logits
@@ -272,7 +276,9 @@ class Model(nn.Module):
         gradients reach the parameters once ``requires_grad_()`` has
         turned them on (they are built without).  Logits whose vocab a
         mesh dim splits go through :func:`vocab_parallel_nll` (each rank
-        on its own vocab shard); DTensor's log-softmax and gather would
+        on its own vocab shard), other logits on a mesh of more than one
+        rank through :func:`local_nll` (each rank on its own rows and
+        block of the sequence); DTensor's log-softmax and gather would
         all-gather them and build the global (B, S, V) gradient on every
         rank."""
         logits, aux = self.forward(batch, collect_aux=True)
@@ -280,6 +286,8 @@ class Model(nn.Module):
         with plain_as_replicated(self.embed):
             if vocab_split_dims(logits):
                 nll_tok = vocab_parallel_nll(logits, labels.clamp(min=0))
+            elif is_dtensor(logits) and logits.device_mesh.size() > 1:
+                nll_tok = local_nll(logits, labels.clamp(min=0))
             else:
                 logp = torch.log_softmax(logits.float(), dim=-1)
                 nll_tok = -torch.gather(
@@ -308,6 +316,15 @@ class Model(nn.Module):
                                                       x.dim()))
         return x
 
+    def _add(self, h: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+        """The residual add h + f, f (a block's row-parallel output: a
+        partial sum over ``model`` on a mesh) first placed as
+        :meth:`_constrain` places the stream, by a reduce-scatter.  DTensor
+        would otherwise carry the partial sum on through the next norm,
+        and the column-parallel product after it would gather its weight
+        whole."""
+        return h + self._constrain(f)
+
     def _layer(self, body, *args):
         """body(*args), under activation checkpointing when ``remat`` and
         grad mode are on (the model draws no random numbers, so no RNG
@@ -324,8 +341,12 @@ class Model(nn.Module):
     def _moe(self, p: M.MoE, hin: torch.Tensor, decode: bool = False):
         """The MoE block: the expert-parallel one with ``moe_impl=
         "shard_map"`` and a ``moe_mesh`` (not at `decode`), else the dense
-        one, which on a DTensor runs whole on every rank, on replicated
-        inputs and weights."""
+        one.  On a DTensor at `decode` that is
+        :func:`moe_shard.moe_block_grouped` (each rank its data shard's
+        groups and its model rank's experts, as ``moe_buf_pspec`` lays
+        the buffer out; no aux loss, which decode drops) where its layout
+        holds; otherwise the dense block runs whole on every rank, on
+        replicated inputs and weights."""
         cfg = self.cfg
         kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k,
                   capacity_factor=self.moe_capacity)
@@ -336,6 +357,10 @@ class Model(nn.Module):
         kw.update(n_groups=self.moe_groups, buf_pspec=self.moe_buf_pspec)
         if not is_dtensor(hin):
             return M.moe_block(p, hin, **kw)
+        if decode:
+            out = MS.moe_block_grouped(p, hin, **kw)
+            if out is not None:
+                return out, None
         names = [n for n, _ in p.named_parameters()]
 
         def local(x, *ts):
@@ -359,10 +384,10 @@ class Model(nn.Module):
         if enc is None:
             return h
         cfg = self.cfg
-        return h + A.attention_block(
+        return self._add(h, A.attention_block(
             lp.xattn, rms_norm(lp.ln_x, h, cfg.norm_eps),
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-            head_dim=cfg.head_dim, rope_theta=None, kv=enc)
+            head_dim=cfg.head_dim, rope_theta=None, kv=enc))
 
     def _ffn(self, lp: DecoderLayer, h: torch.Tensor, decode: bool = False):
         """(FFN output, MoE aux loss) of the decoder layer on h."""
@@ -392,9 +417,9 @@ class Model(nn.Module):
             lp.attn, rms_norm(lp.ln1, h, cfg.norm_eps),
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.head_dim, rope_theta=self._rope_theta())
-        h = self._cross(lp, h + a, enc)
+        h = self._cross(lp, self._add(h, a), enc)
         f, al = self._ffn(lp, h)
-        return self._constrain(h + f), al
+        return self._constrain(self._add(h, f)), al
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """The audio encoder (``_encoder_stack``): frames (B, enc_ctx, d),
@@ -411,9 +436,9 @@ class Model(nn.Module):
             lp.attn, rms_norm(lp.ln1, h, cfg.norm_eps),
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.head_dim, rope_theta=None, causal=False)
-        h = h + a
+        h = self._add(h, a)
         return self._constrain(
-            h + mlp(lp.mlp, rms_norm(lp.ln2, h, cfg.norm_eps)))
+            self._add(h, mlp(lp.mlp, rms_norm(lp.ln2, h, cfg.norm_eps))))
 
     def _rwkv_stack(self, h: torch.Tensor) -> torch.Tensor:
         for i in range(len(self.layers)):
@@ -439,12 +464,12 @@ class Model(nn.Module):
                     bp.attn, rms_norm(bp.attn_ln, h, cfg.norm_eps),
                     n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                     head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
-                h = h + a
+                h = self._add(h, a)
             else:
                 m, _ = S.mamba_block(
                     bp.mamba[i - 1],
                     rms_norm(bp.mamba_ln[i - 1], h, cfg.norm_eps))
-                h = h + m
+                h = self._add(h, m)
             hin = rms_norm(bp.ffn_ln[i], h, cfg.norm_eps)
             if i % 2 == 0:
                 f, al = self._moe(bp.moe[mi], hin)
@@ -453,7 +478,7 @@ class Model(nn.Module):
             else:
                 f = mlp(bp.mlp[di], hin)
                 di += 1
-            h = h + f
+            h = self._add(h, f)
         return self._constrain(h), aux
 
     def rwkv_layer(self, i: int, h: torch.Tensor,

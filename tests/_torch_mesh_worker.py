@@ -353,6 +353,73 @@ def moe_block_job(job: dict) -> Dict:
     return out
 
 
+def moe_decode_job(job: dict) -> Dict:
+    """``moe_block_grouped`` (the decode step's block) on each of the
+    job's meshes with this world's size: x's batch rows split over data,
+    the expert stacks split over model on the experts (``split="expert"``)
+    or on the FF dim (``"ff"``), the router and shared expert replicated,
+    the dispatch groups the data shards; the output gathered whole, with
+    its placements and the local shape of x the block saw."""
+    import numpy as np
+    from types import SimpleNamespace
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.dtensor import P
+    from repro_torch.models.moe_shard import moe_block_grouped
+    world = torch.distributed.get_world_size()
+    inp = {k: torch.from_numpy(v) for k, v in np.load(job["inputs"]).items()}
+    out = {}
+    for case in job["cases"]:
+        if int(np.prod(case["mesh"])) != world:
+            continue
+        mesh = make_mesh(tuple(case["mesh"]), ("data", "model"), device="cpu")
+        specs = {"expert": {k: P("model") for k in ("w_gate", "w_up",
+                                                    "w_down")},
+                 "ff": {"w_gate": P(None, None, "model"),
+                        "w_up": P(None, None, "model"),
+                        "w_down": P(None, "model")}}[case["split"]]
+        w = {k: _placed(inp[k], mesh, specs[k], False) for k in specs}
+        p = SimpleNamespace(router=_placed(inp["router"], mesh, P(), False),
+                            shared=None, **w)
+        if case["shared"]:
+            p.shared = SimpleNamespace(gated=True, b_down=None, **{
+                k: _placed(inp["shared_" + k], mesh, P(), False)
+                for k in ("w_gate", "w_up", "w_down")})
+        x = _placed(inp["x"], mesh, P("data"), False)
+        with torch.no_grad():
+            y = moe_block_grouped(
+                p, x, n_experts=case["n_experts"], top_k=case["top_k"],
+                n_groups=case["mesh"][0], capacity_factor=case["capacity"],
+                buf_pspec=P("data", "model", None, None))
+        out[case["tag"]] = {"out": _full(y).detach(),
+                            "placements": [str(q) for q in y.placements]}
+    return out
+
+
+def einsum_job(job: dict) -> Dict:
+    """``local_einsum`` on each of the job's cases whose mesh has this
+    world's size: seeded fp32 operands (the same on every rank) placed by
+    the case's specs, the output gathered whole beside ``torch.einsum`` of
+    the whole operands, and the output's placements."""
+    import numpy as np
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.dtensor import P, local_einsum
+    world = torch.distributed.get_world_size()
+    out = {}
+    for case in job["cases"]:
+        if int(np.prod(case["mesh"])) != world:
+            continue
+        mesh = make_mesh(tuple(case["mesh"]), ("data", "model"), device="cpu")
+        rng = np.random.default_rng(case["seed"])
+        whole = [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)) for shape in case["shapes"]]
+        xs = [_placed(t, mesh, P(*spec), False)
+              for t, spec in zip(whole, case["specs"])]
+        y = local_einsum(case["eq"], *xs)
+        out[case["tag"]] = {"out": _full(y), "want": torch.einsum(
+            case["eq"], *whole), "placements": [str(q) for q in y.placements]}
+    return out
+
+
 def moe_model_job(job: dict) -> Dict:
     """The smoke model on the job's mesh with ``moe_impl="shard_map"``:
     loss and every gradient (gathered whole) on batch 0."""
@@ -418,4 +485,5 @@ def vocab_nll_job(job: dict) -> Dict:
 
 JOBS = {"steps": steps_job, "train": train_job, "save": save_job,
         "restore": restore_job, "moe_block": moe_block_job,
+        "moe_decode": moe_decode_job, "einsum": einsum_job,
         "moe_model": moe_model_job, "vocab_nll": vocab_nll_job}

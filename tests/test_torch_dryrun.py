@@ -16,13 +16,20 @@ repro_torch.launch.dryrun``, side by side:
   all-to-all is for CUDA meshes), so every all-to-all of the cell is a
   block's;
 * llama3.2-1b x train_4k x single at ``--layers 1``: the sharded train
-  step fits a card (its loss is vocab-parallel).
+  step fits a card (its loss is vocab-parallel);
+* jamba-1.5-large-398b x train_4k x single at ``--layers 1``: its Mamba
+  blocks and scans fit a card (569.40 GiB of temporaries a device while
+  the block's softplus backward ran on the global batch, on the parent's
+  tree with the scans counted as one op each).
 
 The unit subprocess also runs ``Model.loss`` from logits split over the
 full 128,256-token vocab of llama3.2-1b on the (16, 16) world: the loss's
 collectives are three all-reduces of (B_local, S) values and no rank holds
 the global (B, S, V) logits, where DTensor's log-softmax and gather
-all-gather them and build their global gradient on every rank.
+all-gather them and build their global gradient on every rank.  And it
+runs jamba's train_4k step at S 96 with a ``Counter`` that records the
+shapes of the local tensors the step makes: none has the global batch as
+its dim 0, or a Mamba block's whole width.
 """
 import json
 import math
@@ -106,12 +113,72 @@ def loss_counts(route):
     return {"peak": c.peak, "collectives": c.collectives}
 
 out["loss"] = {r: loss_counts(r) for r in ("model", "dtensor")}
+
+# Model.loss from logits whose vocab (whisper's 51,865) no mesh dim
+# splits: a partial sum over model (the head splits d_model), batch rows
+# over data (B 16, S 64)
+VW = 51865
+
+
+def local_counts(route):
+    c = DR.Counter()
+    with c.active():
+        lg = DTensor.from_local(torch.empty(1, S, VW), mesh,
+                                [Shard(0), Partial()], run_check=False)
+        lg.requires_grad_(True)
+        lab = DTensor.from_local(torch.zeros(1, S, dtype=torch.int32), mesh,
+                                 [Shard(0), Replicate()], run_check=False)
+        with c.counting():
+            if route == "model":
+                m = SimpleNamespace(embed=lg, forward=lambda b, collect_aux:
+                                    (lg, torch.zeros(())))
+                Model.loss(m, {"labels": lab}).backward()
+            else:
+                ll = torch.gather(torch.log_softmax(lg, dim=-1), -1,
+                                  lab[..., None].long())
+                ll.sum().backward()
+    return {"peak": c.peak, "collectives": c.collectives}
+
+
+out["local_loss"] = {r: local_counts(r) for r in ("model", "dtensor")}
+
+# the jamba train_4k step at S 96 (layers 1) on (16, 16): the local
+# tensors it makes whose dim 0 is the global batch 256 (a broadcast
+# scalar, which holds fewer elements, aside) or that hold a Mamba block's
+# whole d_in (16,384) or in_proj width (32,768); DTensor's redistribution
+# buffers, which stack the group's pieces on dim 0, aside
+import dataclasses, traceback
+from repro_torch.configs import SHAPES
+SHAPES["train_4k"] = dataclasses.replace(SHAPES["train_4k"], seq_len=96)
+wide = []
+
+
+class Shapes(DR.Counter):
+    def _record(self, func, args, kwargs, out):
+        super()._record(func, args, kwargs, out)
+        if func.namespace in DR._C10D:
+            return
+        for t in DR._tensors(out):
+            s = tuple(t.shape)
+            batch = s[:1] == (256,) and \
+                t.untyped_storage().nbytes() >= 256 * t.element_size()
+            if (batch or 16384 in s or 32768 in s) and not any(
+                    "tensor/_redistribute.py" in f.filename
+                    for f in traceback.extract_stack()):
+                wide.append([func._schema.name.split("::")[-1], list(s)])
+
+
+DR.Counter = Shapes
+rec = DR.run_cell("jamba-1.5-large-398b", "train_4k", False, layers=1)
+out["jamba"] = {"status": rec["status"], "wide": wide,
+                "temp": rec["memory"]["temp_size_in_bytes"]}
 print(json.dumps(out))
 '''
 
 LLAMA = ("llama3.2-1b", "decode_32k", "multi", None)
 QWEN = ("qwen2-moe-a2.7b", "prefill_32k", "single", 2)
 TRAIN = ("llama3.2-1b", "train_4k", "single", 1)
+JAMBA = ("jamba-1.5-large-398b", "train_4k", "single", 1)
 
 
 def _env():
@@ -134,12 +201,13 @@ def _tag(cell):
 
 @pytest.fixture(scope="module")
 def dry(tmp_path_factory):
-    """The unit checks and both cells, their processes started together."""
+    """The unit checks and the four cells, their processes started
+    together."""
     out = str(tmp_path_factory.mktemp("dryrun"))
     procs = {c: subprocess.Popen(_cell_cmd(c, out), env=_env(), cwd=REPO,
                                  stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
-             for c in (QWEN, LLAMA, TRAIN)}
+             for c in (QWEN, LLAMA, TRAIN, JAMBA)}
     try:
         unit = subprocess.run([sys.executable, "-c", UNIT], env=_env(),
                               cwd=REPO, capture_output=True, text=True,
@@ -245,6 +313,25 @@ def test_loss_is_vocab_parallel_on_the_production_mesh(dry):
     assert old["peak"] >= global_fp32
 
 
+def test_loss_without_a_vocab_split_stays_local(dry):
+    """Model.loss on (16, 64, 51865) fp32 logits that are a partial sum
+    over model (the head splits d_model where the vocab does not divide
+    16) and split over data by rows: each rank reduce-scatters its row
+    into 4 positions each and takes their log-softmax, and the backward
+    all-gathers the row's cotangent (the head's backward needs it whole);
+    its temporaries stay at a few of a rank's rows, where DTensor's
+    log-softmax and gather hold the global gradient (the gather's
+    backward zeros at (16, 64, 51865) on every rank)."""
+    b, s, v = 16, 64, 51865
+    row = s * v * 4                          # one rank's logits, fp32
+    got = dry["unit"]["local_loss"]["model"]
+    old = dry["unit"]["local_loss"]["dtensor"]
+    assert got["collectives"]["reduce-scatter"] == row // 16
+    assert got["collectives"]["all-gather"] == row
+    assert got["peak"] < 3 * row
+    assert old["peak"] >= b * row
+
+
 def test_llama_train_cell_fits_a_card(dry):
     """llama3.2-1b train_4k at one layer on (16, 16): under 80 GiB of
     temporaries a device (595.30 GiB while the loss ran DTensor's rules)."""
@@ -267,3 +354,27 @@ def test_skip_shapes_are_recorded_without_tracing():
     rec = DR.run_cell(arch, "long_500k", False)
     assert rec["status"] == "SKIP"
     assert "500k" in rec["reason"]
+
+
+def test_jamba_train_cell_fits_a_card(dry):
+    """jamba-1.5-large-398b train_4k at one layer (one Jamba period: 1
+    attention, 7 Mamba sub-layers) on (16, 16): under 80 GiB of
+    temporaries a device.  Before its Mamba blocks kept the batch and
+    widths their specs give, 569.40 GiB (the scans counted as one op)."""
+    rec = dry["cells"][JAMBA]
+    assert rec["status"] == "OK", rec
+    assert rec["memory"]["temp_size_in_bytes"] < 80 * 2 ** 30
+    assert rec["layers_override"] == 1 and rec["flops"] > 0
+
+
+def test_jamba_step_holds_no_global_batch_and_no_whole_mamba_width(dry):
+    """At S 96 (at S 128 a rank's MoE dispatch rows, 16 x 128 / 16 x top-2,
+    are 256 too) no local tensor of jamba's train step has dim 0 the global
+    batch 256 or a dim of the Mamba block's whole d_in or in_proj width:
+    each rank holds its 16 batch rows and its 1,024 channels (the parent
+    held, among others, softplus's backward at (256, S, 16384) fp32 and u
+    and z at (16, S, 16384))."""
+    jamba = dry["unit"]["jamba"]
+    assert jamba["status"] == "OK"
+    assert jamba["wide"] == []
+    assert 0 < jamba["temp"] < 80 * 2 ** 30

@@ -11,9 +11,11 @@ unsharded and reference runs:
   (1, 2) (the attention's ``local_map`` site: ``chunked_attention``, the
   kernel's CPU version, on local heads), and ``train()`` under
   ``choose_mesh()``;
-* 4 ranks: llama (with remat) and rwkv6 on (2, 2), llama at S 2560 on
-  (1, 4) (2 KV heads on 4 ranks: the heads are replicated before the
-  attention), and a checkpoint saved on (2, 2) and restored onto (1, 4).
+* 4 ranks: llama (with remat), rwkv6 and the smoke jamba (its Mamba
+  blocks on their data shard's rows and model rank's channels) on (2,
+  2), llama at S 2560 on (1, 4) (2 KV heads on 4 ranks: the heads are
+  replicated before the attention), and a checkpoint saved on (2, 2) and
+  restored onto (1, 4).
 
 Every sharded run starts from the reference's ``init`` weights
 (``params_from_jax``) and takes ``SyntheticLMDataset``'s batches (B 2;
@@ -77,6 +79,7 @@ GROUP2 = [("llama3.2-1b", (1, 2), S), ("llama3.2-1b", (2, 1), S),
           ("jamba-1.5-large-398b", (1, 2), S),
           ("llama3.2-1b", (1, 2), LONG_S)]
 GROUP4 = [("llama3.2-1b", (2, 2), S), ("rwkv6-7b", (2, 2), S),
+          ("jamba-1.5-large-398b", (2, 2), S),
           ("llama3.2-1b", (1, 4), LONG_S)]
 TRAIN = dict(arch="llama3.2-1b", steps=4, batch=2, seq=S)
 NLL_MESHES = [(1, 2), (2, 2)]
@@ -307,7 +310,16 @@ def test_sharded_steps_match_the_reference(runs, case):
                  want["gnorms"][0], what)
 
 
-@pytest.mark.parametrize("case", CASES, ids=[_tag(*c) for c in CASES])
+# the smoke jamba's Mamba moments (A_log (128, 8), x_proj (128, 17)) have
+# no free dim that the production data size divides: the reference puts
+# the data axes on its stacked layer dim, which the port's per-layer
+# parameters lack (ROADMAP.md §3), so (2, 2) jamba is held by the other
+# tests only
+ZERO1_CASES = [c for c in CASES if c != ("jamba-1.5-large-398b", (2, 2), S)]
+
+
+@pytest.mark.parametrize("case", ZERO1_CASES,
+                         ids=[_tag(*c) for c in ZERO1_CASES])
 def test_zero1_moments_hold_a_data_shard(runs, case):
     """Each moment whose spec puts the data axis on a dim holds 1/data of
     it (times 1/model where the model axis splits it too) on a rank."""

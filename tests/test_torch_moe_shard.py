@@ -82,6 +82,39 @@ REF_BLOCKS = [c for c in BLOCKS if c["ref"]]
 NO_DROP_BLOCKS = [c for c in BLOCKS if not c["ref"]]
 
 
+# the decode step's grouped block (moe_block_grouped): expert stacks split
+# over model on the experts or on the FF dim, the data shards the groups
+DECODES = [dict(tag=f"decode_{m[0]}x{m[1]}_{split}_"
+                    f"{'shared' if shared else 'routed'}",
+                mesh=list(m), split=split, shared=shared, capacity=CAP,
+                n_experts=N_EXPERTS, top_k=TOP_K)
+           for m in ((1, 2), (2, 1), (2, 2), (1, 4))
+           for split in ("expert", "ff") for shared in (False, True)
+           if not (m[1] == 1 and split == "ff")]
+
+
+# models.dtensor.local_einsum, the decode step's products: GQA decode
+# against a cache split on its KV heads or on its sequence (the
+# flash-decode layout: the contraction over it is then a partial sum), and
+# the RWKV state read with a replicated r sliced to the state's heads
+EINSUMS = [dict(tag=f"einsum_{tag}_{m[0]}x{m[1]}", mesh=list(m), seed=i,
+                eq=eq, shapes=shapes, specs=specs)
+           for i, (tag, eq, shapes, specs) in enumerate([
+               ("gqa_heads", "bkgd,bskd->bkgs",
+                [(4, 4, 2, 8), (4, 12, 4, 8)],
+                [("data", "model"), ("data", None, "model")]),
+               ("gqa_seq", "bkgd,bskd->bkgs",
+                [(4, 2, 3, 8), (4, 12, 2, 8)],
+                [("data",), ("data", "model")]),
+               ("gqa_seq_out", "bkgs,bskd->bkgd",
+                [(4, 2, 3, 12), (4, 12, 2, 8)],
+                [("data", None, None, "model"), ("data", "model")]),
+               ("wkv", "bhk,bhkv->bhv",
+                [(4, 4, 8), (4, 4, 8, 8)],
+                [("data",), ("data", "model")])])
+           for m in ((2, 2), (1, 4))]
+
+
 def _model_tag(arch, mesh, capacity=None):
     tag = f"{arch}_{mesh[0]}x{mesh[1]}"
     return tag if capacity is None else f"{tag}_cap{capacity:g}"
@@ -192,7 +225,14 @@ def runs(tmp_path_factory):
     def jobs(world):
         blocks = [c for c in BLOCKS if np.prod(c["mesh"]) == world]
         out = [{"kind": "moe_block", "inputs": inputs, "cases": blocks,
-                "out": f"blocks_{world}.pt"}]
+                "out": f"blocks_{world}.pt"},
+               {"kind": "moe_decode", "inputs": inputs,
+                "cases": [c for c in DECODES
+                          if np.prod(c["mesh"]) == world],
+                "out": f"decode_{world}.pt"},
+               {"kind": "einsum", "out": f"einsum_{world}.pt",
+                "cases": [c for c in EINSUMS
+                          if np.prod(c["mesh"]) == world]}]
         meshes = {2: [((1, 2), None), ((1, 2), NO_DROP)],
                   4: [((2, 2), None)]}[world]
         for arch in MODEL_ARCHS:
@@ -236,7 +276,9 @@ def runs(tmp_path_factory):
                 tag = _model_tag(arch, mesh, cap)
                 models[tag] = load(tag + ".pt")
     return {"inp": inp, "ref": dict(np.load(ref_out)), "sharded": sharded,
-            "dense": dense, "models": models, "unsharded": unsharded}
+            "dense": dense, "models": models, "unsharded": unsharded,
+            "decode": {**load("decode_2.pt"), **load("decode_4.pt")},
+            "einsum": {**load("einsum_2.pt"), **load("einsum_4.pt")}}
 
 
 def _hold_grads(got, want, dtype, what):
@@ -350,7 +392,9 @@ def test_moe_block_runs_expert_parallel_with_shard_map(runs):
     "shard_map" the jamba cut's expert stacks are split over model and
     each MoE sub-layer of the (1, 2) step sends its (e_tot, cap, d) buffer
     through the model group twice (out and back), cap from the rank's own
-    B S / 2 tokens."""
+    B S / 2 tokens.  Each Mamba sub-layer's one all-to-all, on the same
+    group, is its in_proj output's u and z halves going to the ranks that
+    hold them in their split (``models.dtensor.chunk_last``)."""
     cfg = get_arch("jamba-1.5-large-398b").smoke()
     got = runs["models"][_model_tag("jamba-1.5-large-398b", (1, 2))]
     moe = {n: p for n, p in got["param_placements"].items()
@@ -362,7 +406,11 @@ def test_moe_block_runs_expert_parallel_with_shard_map(runs):
     per = B * S // 2
     cap = -(-per * cfg.top_k * 5 // (cfg.n_experts * 4))   # ceil(., x 1.25)
     n_moe = cfg.n_layers // cfg.attn_every * (cfg.attn_every // 2)
-    assert got["all_to_all"] == [(e_tot * cap, cfg.d_model)] * (2 * n_moe)
+    moe_sends = [s for s in got["all_to_all"] if len(s) == 2]
+    assert moe_sends == [(e_tot * cap, cfg.d_model)] * (2 * n_moe)
+    n_mamba = cfg.n_layers // cfg.attn_every * (cfg.attn_every - 1)
+    assert [s for s in got["all_to_all"] if len(s) != 2] == \
+        [(2, B, S, cfg.d_model)] * n_mamba      # d_in / 2 = d_model
 
 
 @pytest.mark.parametrize("arch", MODEL_ARCHS)
@@ -408,3 +456,47 @@ def test_mesh_of_one_is_the_dense_block_bit_for_bit(arch):
     assert [n for n in ga if not torch.equal(ga[n], gb[n])] == []
     assert all(float(gb[n].abs().max()) > 0 for n in gb
                if n.endswith((".router", ".w_up")))
+
+
+@pytest.mark.parametrize("case", DECODES, ids=[c["tag"] for c in DECODES])
+def test_grouped_decode_block_equals_moe_block(runs, case):
+    """The decode step's block on a mesh (``moe_block_grouped``: each rank
+    routes its data shard's rows and runs its model rank's experts or FF
+    slice, its output a partial sum over model) against the unsharded
+    ``moe_block`` whose groups are the data shards, at capacity 1.25
+    (drops included).  With the experts split and no shared expert, bit
+    for bit: a token's output is its gated expert outputs added, the
+    other ranks adding zeros.  Otherwise (a sum split over the FF dim, or
+    the shared expert added beside a partial sum) at the fp32 output
+    tolerance.  x's batch rows stay split over data."""
+    inp = runs["inp"]
+    p = _port_moe(inp, "float32", case["shared"])
+    with torch.no_grad():
+        want, _ = moe_mod.moe_block(
+            p, torch.from_numpy(inp["x"]), n_experts=N_EXPERTS, top_k=TOP_K,
+            capacity_factor=CAP, n_groups=case["mesh"][0])
+    got = runs["decode"][case["tag"]]
+    if case["split"] == "expert" and not case["shared"]:
+        assert torch.equal(got["out"], want)
+    else:
+        np.testing.assert_allclose(got["out"].numpy(), want.numpy(),
+                                   rtol=OUT_RTOL["float32"], atol=1e-6)
+    if case["mesh"][0] > 1:
+        assert got["placements"][0] == "S(0)"
+
+
+@pytest.mark.parametrize("case", EINSUMS, ids=[c["tag"] for c in EINSUMS])
+def test_local_einsum_equals_the_whole_einsum(runs, case):
+    """``local_einsum`` on each rank's shards, gathered, against
+    ``torch.einsum`` of the whole operands: bit for bit where each output
+    element's sum is one rank's (batch and heads split), at 1e-6 where a
+    split dim is summed over (the flash-decode cache's sequence: a
+    partial sum over model)."""
+    got = runs["einsum"][case["tag"]]
+    summed = case["tag"].startswith("einsum_gqa_seq_out")
+    if summed:
+        np.testing.assert_allclose(got["out"].numpy(), got["want"].numpy(),
+                                   rtol=1e-6, atol=1e-6)
+        assert "P(sum)" in got["placements"] or case["mesh"][1] == 1
+    else:
+        assert torch.equal(got["out"], got["want"])
