@@ -11,6 +11,11 @@ a plain batched product (``torch.einsum``), as the reference leaves it to
 XLA.  The ``moe`` family's shared expert is one always-on gated MLP added
 to the routed output, as in the reference (no sigmoid gate on it).  The
 expert-parallel block on a mesh is :mod:`repro_torch.models.moe_shard`.
+
+While the process tracer records (:data:`repro_torch.obs.PROCESS_TRACER`),
+:func:`moe_block` is the device span ``moe.block`` and its routing and
+scatter the device span ``moe.dispatch``, which counts the assignments
+kept, assigned and the dispatch buffer's slots.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from torch import nn
 
 from repro_torch.models.dtensor import is_dtensor, to_placements
 from repro_torch.models.layers import MLP, empty_param, mlp, upcast
+from repro_torch.obs.trace import PROCESS_TRACER as _TRACER
 
 
 class MoE(nn.Module):
@@ -119,27 +125,43 @@ def moe_block(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
     reference's ``with_sharding_constraint`` does (:func:`constrain`); a
     plain buffer stays as it is.
     """
+    with _TRACER.span("moe.block", device=x.device):
+        return _moe_block(p, x, n_experts=n_experts, top_k=top_k,
+                          capacity_factor=capacity_factor, n_groups=n_groups,
+                          buf_pspec=buf_pspec)
+
+
+def _moe_block(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
+               capacity_factor: float, n_groups: int,
+               buf_pspec: Optional[Sequence]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, s, d = x.shape
     t = b * s
     e_tot = p.w_up.shape[0]
-    r = route(p, x, n_experts=n_experts, top_k=top_k,
-              capacity_factor=capacity_factor, n_groups=n_groups)
-    flat_expert, pos, keep, cap = (r["flat_expert"], r["pos"], r["keep"],
-                                   r["cap"])
-    g_n, tk = flat_expert.shape
-    xg = x.reshape(g_n, tk // top_k, d)
+    with _TRACER.span("moe.dispatch", device=x.device) as sp:
+        r = route(p, x, n_experts=n_experts, top_k=top_k,
+                  capacity_factor=capacity_factor, n_groups=n_groups)
+        flat_expert, pos, keep, cap = (r["flat_expert"], r["pos"], r["keep"],
+                                       r["cap"])
+        g_n, tk = flat_expert.shape
+        xg = x.reshape(g_n, tk // top_k, d)
 
-    # scatter tokens into the (G, E, C, d) dispatch buffer (group-local).
-    # Dropped assignments go to slot (g, 0, 0) with a zeroed source and are
-    # accumulated, as the reference's `.at[].add`: a plain indexed write
-    # would let those zero rows overwrite the real occupant of that slot.
-    buf = torch.zeros((g_n, e_tot, cap, d), dtype=x.dtype, device=x.device)
-    src = xg.repeat_interleave(top_k, dim=1)                   # (G, Tg*k, d)
-    e_idx = torch.where(keep, flat_expert, 0)
-    c_idx = torch.where(keep, pos, 0)
-    src = torch.where(keep[..., None], src, 0)
-    g_idx = torch.arange(g_n, device=x.device)[:, None].expand_as(e_idx)
-    buf.index_put_((g_idx, e_idx, c_idx), src, accumulate=True)
+        # scatter tokens into the (G, E, C, d) dispatch buffer (group-local).
+        # Dropped assignments go to slot (g, 0, 0) with a zeroed source and
+        # are accumulated, as the reference's `.at[].add`: a plain indexed
+        # write would let those zero rows overwrite the real occupant of
+        # that slot.
+        buf = torch.zeros((g_n, e_tot, cap, d), dtype=x.dtype,
+                          device=x.device)
+        src = xg.repeat_interleave(top_k, dim=1)               # (G, Tg*k, d)
+        e_idx = torch.where(keep, flat_expert, 0)
+        c_idx = torch.where(keep, pos, 0)
+        src = torch.where(keep[..., None], src, 0)
+        g_idx = torch.arange(g_n, device=x.device)[:, None].expand_as(e_idx)
+        buf.index_put_((g_idx, e_idx, c_idx), src, accumulate=True)
+        if sp.recording:     # assignments kept, made, and the GEMMs' rows
+            sp.attrs.update(kept=keep.sum(), assigned=keep.numel(),
+                            slots=g_n * e_tot * cap)
     buf = constrain(buf, buf_pspec)
 
     # expert FFN: one batched product over the (group, expert) dims

@@ -4,7 +4,10 @@
   instruments behind a :class:`MetricsRegistry`; writes take a lock per
   instrument.  :class:`ManualClock` makes timing deterministic in tests.
 - :mod:`repro_torch.obs.trace` — ``Span``/``Tracer`` with per-thread
-  buffers and explicit cross-thread parenting.  ``NOOP`` is the default.
+  buffers and explicit cross-thread parenting.  ``NOOP`` is the default;
+  ``PROCESS_TRACER`` is the process's own, on while ``torch.profiler``
+  records (or :meth:`~repro_torch.obs.trace.ProcessTracer.force` says so),
+  its spans mirrored onto the profiler's timeline.
 
 - :mod:`repro_torch.obs.export` — Perfetto/Chrome ``trace_event`` JSON,
   flat metrics JSON/CSV snapshots, span-tree validation and ASCII
@@ -25,7 +28,8 @@ from repro_torch.obs.metrics import (
     ManualClock,
     MetricsRegistry,
 )
-from repro_torch.obs.trace import NOOP, NoopTracer, Span, Tracer
+from repro_torch.obs.trace import (NOOP, PROCESS_TRACER, NoopTracer,
+                                   ProcessTracer, Span, Tracer)
 
 from repro_torch.obs.export import (
     build_tree,
@@ -48,6 +52,8 @@ __all__ = [
     "MetricsRegistry",
     "NOOP",
     "NoopTracer",
+    "PROCESS_TRACER",
+    "ProcessTracer",
     "Span",
     "Tracer",
     "build_tree",

@@ -14,18 +14,31 @@ Model (deliberately small — it rides the dispatch hot path):
   and was observed failing), or ``"lost"`` (orphaned — shard timeout,
   abandoned straggler twin, worker SIGKILL / connection death).
 
-``NOOP`` (a :class:`NoopTracer`) is the default everywhere; every
-method is a constant-time no-op so instrumentation left in place costs
-effectively nothing when tracing is off.
+``NOOP`` (a :class:`NoopTracer`) is the default for components that take
+a tracer; every method is a constant-time no-op so instrumentation left in
+place costs effectively nothing when tracing is off.
+
+``PROCESS_TRACER`` (a :class:`ProcessTracer`) is the one tracer of the
+process, used by the sweep engine, ``moe_block`` and ``adamw_update`` when
+no tracer is passed.  It records only while ``torch.profiler`` records or
+while :meth:`ProcessTracer.force` has turned it on; each span it records
+is also a host range of the same name on the profiler's timeline, and a
+device span carries a pair of CUDA events, resolved to stream seconds
+(``attrs["device_s"]``) only when the spans are read.
 """
 
 from __future__ import annotations
 
 import itertools
 import threading
+import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, Dict, Iterable, List, Optional, Tuple, Union
+from typing import (Callable, ClassVar, Deque, Dict, Iterable, List,
+                    Optional, Tuple, Union)
+
+import torch
+import torch.autograd.profiler as _profiler
 
 from repro_torch.obs.metrics import Clock, MONOTONIC
 
@@ -49,6 +62,8 @@ class Span:
     t_end: Optional[float] = None
     status: str = "ok"
     attrs: Dict[str, object] = field(default_factory=dict)
+    #: False on the no-op stand-in: attrs worth computing only when kept
+    recording: ClassVar[bool] = True
 
     @property
     def duration_s(self) -> Optional[float]:
@@ -287,6 +302,7 @@ class _NoopSpan:
     t_start = 0.0
     t_end: Optional[float] = None
     status = "ok"
+    recording = False
 
     def __init__(self) -> None:
         self.attrs: Dict[str, object] = {}
@@ -341,3 +357,126 @@ class NoopTracer:
 
 
 NOOP = NoopTracer()
+
+
+def _cuda_event(device: torch.device):
+    """A timing event recorded on `device`'s current stream."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def _number(v: torch.Tensor):
+    """A tensor attr as a Python number (a list if it holds several); a
+    DTensor reads its local shard, so reading takes no collective."""
+    if hasattr(v, "to_local"):
+        v = v.to_local()
+    return v.item() if v.numel() == 1 else v.tolist()
+
+
+class ProcessTracer(Tracer):
+    """The process's tracer, gated on the profiler.
+
+    ``enabled`` is true while ``torch.profiler`` records (the module flag
+    ``torch.autograd.profiler._is_profiler_enabled``) or while
+    :meth:`force` has turned it on.  Off, :meth:`span` and :meth:`start`
+    read that flag and return the no-op span: no clock read, no CUDA
+    event, no tensor, no launch, no sync.  On, a span is kept in the
+    bounded buffer as :class:`Tracer` keeps it and, while the profiler
+    records, is also a host range of the same name on the profiler's
+    timeline (``_RecordFunctionFast``: kineto lists ``record_function``
+    ranges on the device timeline as well, this form only on the host).
+
+    ``device=`` opens a device span: on a CUDA device a timing event is
+    recorded on the current stream when the span opens and another when
+    it closes.  Events, and attrs that hold tensors (0-d counts computed
+    on the device), are turned into numbers only when the spans are read
+    (:meth:`spans`, :meth:`drain`), after the caller's sync: the stream
+    seconds land in ``attrs["device_s"]``.  `event` (a factory taking the
+    device and returning a recorded event) is the tests'.
+    """
+
+    def __init__(self, *, max_spans: int = DEFAULT_MAX_SPANS,
+                 event: Callable[[torch.device], object] = _cuda_event
+                 ) -> None:
+        super().__init__(clock=time.perf_counter, proc="process",
+                         max_spans=max_spans)
+        self._forced = False
+        self._event = event
+        self._open: Dict[str, tuple] = {}   # span_id -> (range, event, device)
+        self._pending: Deque[tuple] = deque(maxlen=int(max_spans))
+
+    @property
+    def enabled(self) -> bool:
+        return self._forced or _profiler._is_profiler_enabled
+
+    def force(self, on: bool = True) -> None:
+        """Record with the profiler off too (the operator's switch)."""
+        self._forced = bool(on)
+
+    def start(self, name: str, *, parent=_PARENT_INHERIT,
+              detached: bool = False, device=None, **attrs: object):
+        if not (self._forced or _profiler._is_profiler_enabled):
+            return _NOOP_SPAN
+        span = super().start(name, parent=parent, detached=detached,
+                             **attrs)
+        rng = ev = None
+        if _profiler._is_profiler_enabled:
+            rng = torch._C._profiler._RecordFunctionFast(name)
+            rng.__enter__()
+        if device is not None and torch.device(device).type == "cuda":
+            device = torch.device(device)
+            ev = self._event(device)
+        if rng is not None or ev is not None:
+            self._open[span.span_id] = (rng, ev, device)
+        return span
+
+    def finish(self, span, status: Optional[str] = None) -> None:
+        if not span.recording or span.t_end is not None:
+            return
+        rng, ev0, device = self._open.pop(span.span_id, (None, None, None))
+        events = None if ev0 is None else (ev0, self._event(device))
+        if rng is not None:
+            rng.__exit__(None, None, None)
+        super().finish(span, status)
+        if events is not None or any(isinstance(v, torch.Tensor)
+                                     for v in span.attrs.values()):
+            with self._lock:
+                self._pending.append((span, events))
+
+    def span(self, name: str, *, parent=_PARENT_INHERIT, device=None,
+             **attrs: object):
+        if not (self._forced or _profiler._is_profiler_enabled):
+            return _NOOP_HANDLE
+        return _SpanHandle(self, self.start(name, parent=parent,
+                                            device=device, **attrs))
+
+    def activate(self, span):
+        if not span.recording:
+            return _NOOP_HANDLE
+        return super().activate(span)
+
+    def _resolve(self) -> None:
+        with self._lock:
+            pending = list(self._pending)
+            self._pending.clear()
+        for span, events in pending:
+            if events is not None:
+                events[1].synchronize()
+                span.attrs["device_s"] = events[0].elapsed_time(
+                    events[1]) / 1e3
+            for k, v in span.attrs.items():
+                if isinstance(v, torch.Tensor):
+                    span.attrs[k] = _number(v)
+
+    def spans(self) -> List[Span]:
+        self._resolve()
+        return super().spans()
+
+    def drain(self) -> List[Span]:
+        self._resolve()
+        return super().drain()
+
+
+#: The process's tracer (see :class:`ProcessTracer`).
+PROCESS_TRACER = ProcessTracer()

@@ -18,6 +18,9 @@ dim that divides), each gradient redistributed to its moment's placements
 the parameter written back in its own placements.  The global norm sums
 each gradient's sum of squares over its shards first; on a mesh of one
 every step is the plain one's, bit for bit.
+
+While the process tracer records (:data:`repro_torch.obs.PROCESS_TRACER`),
+:func:`adamw_update` is the device span ``optim.adamw``.
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
+
+from repro_torch.obs.trace import PROCESS_TRACER as _TRACER
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -99,6 +104,12 @@ def adamw_update(cfg: AdamWConfig, grads: Tensors, opt_state: dict,
                  params: Tensors) -> Tuple[dict, dict]:
     """One AdamW step: writes `params` and the moments in place; returns
     the new state and ``{"grad_norm", "lr"}`` (0-d fp32 tensors)."""
+    with _TRACER.span("optim.adamw", device=opt_state["step"].device):
+        return _update(cfg, grads, opt_state, params)
+
+
+def _update(cfg: AdamWConfig, grads: Tensors, opt_state: dict,
+            params: Tensors) -> Tuple[dict, dict]:
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)

@@ -53,6 +53,7 @@ Objectives follow the repo convention: ``[ttft, tpot, area]`` per scenario
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import math
@@ -69,7 +70,7 @@ import torch
 from repro_torch.core.pareto import ParetoArchive
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs.metrics import MetricsRegistry
-from repro_torch.obs.trace import NOOP
+from repro_torch.obs.trace import PROCESS_TRACER
 from repro_torch.runtime.fault import RetryPolicy, run_with_retries
 from repro_torch.perfmodel.designspace import DesignSpace, SPACE, A100_REFERENCE
 from repro_torch.perfmodel.hardware import derive_hardware
@@ -85,6 +86,7 @@ ROBUST = ("worst", "geomean")
 
 # chunk_size="auto" probe results, memoized per (device type, backend, config)
 _CHUNK_AUTO_CACHE: Dict[tuple, int] = {}
+_NO_SPAN = contextlib.nullcontext()      # a worker span the tracer skipped
 
 
 def _device_count(device: torch.device) -> int:
@@ -269,7 +271,12 @@ class SweepEngine:
         Optional :class:`~repro_torch.obs.metrics.MetricsRegistry` and
         tracer; the engine registers run/chunk/id counters and a per-chunk
         wall time histogram, and wraps ``run`` / worker spans in trace
-        spans.  Defaults: a private registry, and the no-op tracer.
+        spans, each chunk in ``sweep.chunk`` tiled by its phases
+        (``sweep.filter``, ``sweep.step``, ``sweep.sync``,
+        ``sweep.insert``) and the final merge in ``sweep.reduce``.
+        Defaults: a private registry, and the process's tracer
+        (:data:`~repro_torch.obs.trace.PROCESS_TRACER`, on while
+        ``torch.profiler`` records).
     """
 
     def __init__(self, ttft_model, tpot_model=None,
@@ -393,7 +400,7 @@ class SweepEngine:
         self._iota = torch.arange(self.chunk_size, dtype=torch.int32,
                                   device=self.device)
 
-        self.tracer = tracer if tracer is not None else NOOP
+        self.tracer = tracer if tracer is not None else PROCESS_TRACER
         self.metrics = registry if registry is not None else MetricsRegistry()
         self._c_runs = self.metrics.counter(
             "sweep_runs", "completed run() calls")
@@ -865,7 +872,8 @@ class SweepEngine:
                             trace_parent=parent))
                     states = [f.result() for f in futs]
             self._c_runs.inc()
-        return self._reduce_states(states, time.perf_counter() - t0)
+        with tr.span("sweep.reduce", parent=parent):
+            return self._reduce_states(states, time.perf_counter() - t0)
 
     def _run_span(self, worker: int, start: int, stop: int, *,
                   checkpoint_path: Optional[str],
@@ -895,7 +903,8 @@ class SweepEngine:
 
         try:
             if fault_plan is None and span_retry is None:
-                return attempt(resume_from)
+                with tr.activate(sp) if sp is not None else _NO_SPAN:
+                    return attempt(resume_from)
             policy = (span_retry if span_retry is not None
                       else RetryPolicy(max_retries=2,
                                        retryable=(RuntimeError,)))
@@ -911,8 +920,9 @@ class SweepEngine:
                     if os.path.exists(f):
                         resume["from"] = checkpoint_path
 
-            return run_with_retries(lambda: attempt(resume["from"]), restore,
-                                    policy)
+            with tr.activate(sp) if sp is not None else _NO_SPAN:
+                return run_with_retries(lambda: attempt(resume["from"]),
+                                        restore, policy)
         except Exception as exc:
             if sp is not None:
                 sp.attrs["error"] = str(exc)
@@ -940,22 +950,30 @@ class SweepEngine:
     def _absorb(self, archives: List[ParetoArchive], survivor: torch.Tensor,
                 ys: torch.Tensor, ids: torch.Tensor) -> None:
         """Insert a chunk's filter survivors into the host archives; only
-        rows that survive in some group leave the device."""
-        if not self._portfolio:
-            keep = torch.nonzero(survivor).squeeze(1)
-            if keep.numel():
-                archives[0].insert(ys[keep].cpu().numpy(),
-                                   ids=ids[keep].cpu().numpy())
-            return
-        keep = torch.nonzero(survivor.any(dim=1)).squeeze(1)
-        if not keep.numel():
-            return
-        mask = survivor[keep].cpu().numpy()                  # (r, S1)
-        ys_np, ids_np = ys[keep].cpu().numpy(), ids[keep].cpu().numpy()
-        for g, a in enumerate(archives):
-            mg = mask[:, g]
-            if mg.any():
-                a.insert(ys_np[mg, g, :], ids=ids_np[mg])
+        rows that survive in some group leave the device.  The copy, where
+        the host waits for the chunk's kernels, is the span ``sweep.sync``
+        (attr ``survivors``: the rows copied); the insert ``sweep.insert``."""
+        tr = self.tracer
+        with tr.span("sweep.sync") as sp:
+            keep = torch.nonzero(survivor if not self._portfolio
+                                 else survivor.any(dim=1)).squeeze(1)
+            n = keep.numel()
+            if n:
+                mask = (survivor[keep].cpu().numpy()          # (r, S1)
+                        if self._portfolio else None)
+                ys_np, ids_np = ys[keep].cpu().numpy(), ids[keep].cpu().numpy()
+            if sp.recording:
+                sp.attrs["survivors"] = n
+        with tr.span("sweep.insert"):
+            if not n:
+                return
+            if not self._portfolio:
+                archives[0].insert(ys_np, ids=ids_np)
+                return
+            for g, a in enumerate(archives):
+                mg = mask[:, g]
+                if mg.any():
+                    a.insert(ys_np[mg, g, :], ids=ids_np[mg])
 
     def _run_range(self, start: int, stop: int, *,
                    checkpoint_path: Optional[str] = None,
@@ -973,6 +991,7 @@ class SweepEngine:
         archives = state["archives"]
         n_eval_resumed = int(state["carry"]["n_eval"])
         rows = self._pf_rows if self._portfolio else None
+        tr = self.tracer
         t0 = time.perf_counter()
         chunk_i = 0
         while state["next"] < stop:
@@ -985,24 +1004,27 @@ class SweepEngine:
                 if ev is not None and ev.kind == "slow":
                     time.sleep(ev.delay_s)
             t_chunk = time.perf_counter()
-            s = state["next"]
-            filt = np.stack([self._filter_from_archive(a, rows)
-                             for a in archives])
-            filt = torch.as_tensor(filt if self._portfolio else filt[0],
-                                   device=self.device)
-            # ids >= stop are masked invalid on device, so a partial final
-            # chunk (or a truncated-range sweep) stays exact for free
-            carry, survivor, ys, ids = self._step(state["carry"], s, stop,
-                                                  filt)
-            self._absorb(archives, survivor, ys, ids)
-            # clamp to `stop`: a later resume with a larger stop must
-            # re-visit the ids beyond it
-            state["next"] = min(s + self.chunk_size, stop)
-            state["carry"] = carry
-            chunk_i += 1
-            self._c_chunks.inc()
-            self._c_ids.inc(state["next"] - s)
-            self._h_chunk.observe(time.perf_counter() - t_chunk)
+            with tr.span("sweep.chunk"):
+                s = state["next"]
+                with tr.span("sweep.filter"):
+                    filt = np.stack([self._filter_from_archive(a, rows)
+                                     for a in archives])
+                    filt = torch.as_tensor(filt if self._portfolio
+                                           else filt[0], device=self.device)
+                # ids >= stop are masked invalid on device, so a partial
+                # final chunk (or a truncated-range sweep) stays exact
+                with tr.span("sweep.step"):            # enqueues only
+                    carry, survivor, ys, ids = self._step(state["carry"], s,
+                                                          stop, filt)
+                self._absorb(archives, survivor, ys, ids)
+                # clamp to `stop`: a later resume with a larger stop must
+                # re-visit the ids beyond it
+                state["next"] = min(s + self.chunk_size, stop)
+                state["carry"] = carry
+                chunk_i += 1
+                self._c_chunks.inc()
+                self._c_ids.inc(state["next"] - s)
+                self._h_chunk.observe(time.perf_counter() - t_chunk)
             if progress:
                 here = int(carry["n_eval"]) - n_eval_resumed
                 print(f"{label}sweep: {state['next']:,}/{stop:,} ids  "

@@ -145,3 +145,74 @@ def test_dropped_assignments_leave_the_kept_occupant_of_slot_zero():
         mine = mine + gate[other] * (h2 @ p.w_down[e2])
     np.testing.assert_allclose(out[0, tok].numpy(), mine.numpy(), rtol=1e-5,
                                atol=1e-6)
+
+
+# ------------------------------------------------------------ the block's spans
+class _CountOps:
+    """The aten ops a block dispatches, by name."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counts = self.counts = {}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = str(func.overloadpacket)
+                counts[name] = counts.get(name, 0) + 1
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode()
+
+
+def _small_block(pad, shared_ff):
+    p = TM.MoE(D, FF, E, n_shared=int(shared_ff > 0), shared_ff=shared_ff,
+               expert_pad=pad, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    p.init_weights(gen)
+    return p, torch.randn(2, 16, D, generator=gen)
+
+
+# what the block dispatched before it was instrumented (same torch build)
+_PARENT_OPS = {(0, 0): 104, (2, 32): 116}
+
+
+@pytest.mark.parametrize("pad,shared_ff", sorted(_PARENT_OPS))
+def test_untraced_block_dispatches_the_ops_it_did(pad, shared_ff):
+    from repro_torch.obs import PROCESS_TRACER
+    p, x = _small_block(pad, shared_ff)
+    assert not PROCESS_TRACER.enabled
+    c = _CountOps()
+    with c.mode:
+        TM.moe_block(p, x, n_experts=E, top_k=K, capacity_factor=1.0,
+                     n_groups=2)
+    assert sum(c.counts.values()) == _PARENT_OPS[(pad, shared_ff)]
+    assert "aten.sum" in c.counts and c.counts["aten.sum"] == 3
+
+
+@pytest.mark.parametrize("capacity_factor,n_groups", [(1.25, 1), (0.5, 2)])
+def test_traced_block_counts_its_dispatch(capacity_factor, n_groups):
+    """Under torch.profiler: the same output, moe.dispatch inside
+    moe.block, and its counts route's keep and cap."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import PROCESS_TRACER
+    p, x = _small_block(2, 32)
+    kw = dict(n_experts=E, top_k=K, capacity_factor=capacity_factor,
+              n_groups=n_groups)
+    plain = TM.moe_block(p, x, **kw)
+    PROCESS_TRACER.drain()
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced = TM.moe_block(p, x, **kw)
+    spans = {s.name: s for s in PROCESS_TRACER.drain()}
+    assert torch.equal(traced[0], plain[0]) and torch.equal(traced[1],
+                                                            plain[1])
+    assert set(spans) == {"moe.block", "moe.dispatch"}
+    assert spans["moe.dispatch"].parent_id == spans["moe.block"].span_id
+    r = TM.route(p, x, **kw)
+    g_n = r["keep"].shape[0]
+    assert spans["moe.dispatch"].attrs == {
+        "kept": int(r["keep"].sum()), "assigned": r["keep"].numel(),
+        "slots": g_n * (E + 2) * r["cap"]}
+    if capacity_factor < 1:
+        assert spans["moe.dispatch"].attrs["kept"] < r["keep"].numel()

@@ -10,6 +10,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from repro.obs import export as j_export
 from repro.obs import metrics as j_metrics
@@ -21,8 +22,9 @@ from repro.distributed import FaultEvent as JFaultEvent
 from repro.distributed import FaultPlan as JFaultPlan
 from repro_torch.distributed import (DEGRADE_RUNGS, QOS_TIERS, EvalService,
                                      FaultEvent, FaultPlan, ShardedEvaluator)
-from repro_torch.obs import (NOOP, Counter, CounterView, ManualClock,
-                             MetricsRegistry, Span, Tracer, build_tree,
+from repro_torch.obs import (NOOP, PROCESS_TRACER, Counter, CounterView,
+                             ManualClock, MetricsRegistry, ProcessTracer,
+                             Span, Tracer, build_tree,
                              completeness_errors, metrics_csv_lines,
                              render_tree, trace_events, validate_trace_events,
                              write_metrics_json, write_trace)
@@ -318,7 +320,9 @@ def _tree(spans) -> list:
 def test_sweep_spans_form_the_reference_tree():
     """sweep.run roots one tree; each worker span is parented explicitly
     under it (threads do not inherit), a replayed span carries its
-    replays; the reference's engine draws the same tree."""
+    replays; the reference's engine draws the same tree of run and worker
+    spans.  The port adds each chunk under its worker span, with its four
+    phases as children, and the final merge under sweep.run."""
     ch = 8_192
     tr, j_tr = Tracer(clock=ManualClock()), j_trace.Tracer(
         clock=j_metrics.ManualClock())
@@ -331,10 +335,150 @@ def test_sweep_spans_form_the_reference_tree():
     j_eng.run(0, 3 * ch, workers=2,
               fault_plan=JFaultPlan([JFaultEvent(0, 1, "crash")]))
     spans = [s.as_dict() for s in tr.spans()]
-    assert _tree(spans) == _tree([s.as_dict() for s in j_tr.spans()])
+    ref = [s.as_dict() for s in j_tr.spans()]
+    ref_names = {s["name"] for s in ref}
+    assert ref_names == {"sweep.run", "sweep.span"}
+    assert _tree([s for s in spans if s["name"] in ref_names]) == _tree(ref)
+    by_id = {s["span_id"]: s for s in spans}
+    kids: dict = {}
+    for s in spans:
+        kids.setdefault(s["parent_id"], []).append(s["name"])
+    chunks = [s for s in spans if s["name"] == "sweep.chunk"]
+    assert len(chunks) == eng.telemetry()["chunks"] == 4    # 3 + 1 replayed
+    for c in chunks:
+        assert by_id[c["parent_id"]]["name"] == "sweep.span"
+        assert kids[c["span_id"]] == ["sweep.filter", "sweep.step",
+                                      "sweep.sync", "sweep.insert"]
+    (red,) = [s for s in spans if s["name"] == "sweep.reduce"]
+    assert by_id[red["parent_id"]]["name"] == "sweep.run"
     assert completeness_errors(spans) == []
     assert validate_trace_events(trace_events(spans)) == []
     names = [s["name"] for s in spans]
     assert names.count("sweep.span") == 2 and names.count("sweep.run") == 1
     replayed = [s for s in spans if "replays" in s["attrs"]]
     assert len(replayed) == 1 and replayed[0]["attrs"]["worker"] == 0
+
+
+# ---------------------------------------------------------- process tracer
+def _profiled():
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def test_process_tracer_records_nothing_with_the_profiler_off():
+    tr = ProcessTracer()
+    assert tr.enabled is False and PROCESS_TRACER.enabled is False
+    with tr.span("a", device="cpu", n=torch.ones(())) as sp:
+        assert sp.recording is False
+        with tr.span("b"):
+            pass
+    sp = tr.start("c")
+    tr.finish(sp)
+    with tr.activate(sp):
+        assert tr.current() is None
+    assert tr.spans() == [] and tr._open == {} and not tr._pending
+
+
+def test_process_tracer_nests_spans_under_the_profiler():
+    """Under torch.profiler the spans nest with parents and one trace id,
+    and each is a host range of its name on the profiler's timeline (not
+    a user annotation, which kineto also lists on the device)."""
+    from torch.autograd import DeviceType
+    tr = ProcessTracer()
+    with _profiled() as prof:
+        assert tr.enabled
+        with tr.span("outer", k=1):
+            with tr.span("inner.a"):
+                torch.ones(4).sum()
+            with tr.span("inner.b"):
+                with tr.span("leaf"):
+                    torch.ones(4).mul(2)
+    assert tr.enabled is False
+    got = {s.name: s for s in tr.spans()}
+    assert [s.name for s in tr.spans()] == ["inner.a", "leaf", "inner.b",
+                                            "outer"]
+    outer = got["outer"]
+    assert outer.parent_id is None and outer.attrs == {"k": 1}
+    assert got["inner.a"].parent_id == got["inner.b"].parent_id \
+        == outer.span_id
+    assert got["leaf"].parent_id == got["inner.b"].span_id
+    assert {s.trace_id for s in got.values()} == {outer.span_id}
+    assert completeness_errors([s.as_dict() for s in got.values()]) == []
+    assert all(s.t_start <= s.t_end for s in got.values())
+    events = {e.name: e for e in prof.events() if e.name in got}
+    assert set(events) == set(got)
+    for e in events.values():
+        assert e.device_type == DeviceType.CPU
+        assert not getattr(e, "is_user_annotation", False)
+    assert events["leaf"].cpu_parent.name == "inner.b"
+
+
+def test_process_tracer_operator_switch():
+    tr = ProcessTracer()
+    tr.force(True)
+    try:
+        assert tr.enabled
+        with tr.span("forced", device="cpu") as sp:
+            assert sp.recording
+        assert tr._open == {}          # no profiler, so no host range
+    finally:
+        tr.force(False)
+    with tr.span("off"):
+        pass
+    assert [s.name for s in tr.drain()] == ["forced"]
+    assert "device_s" not in sp.attrs  # a CPU device span takes no events
+    assert tr.spans() == []
+
+
+class _Event:
+    """A CUDA event stand-in that logs what is asked of it."""
+
+    def __init__(self, log, device):
+        self.log, self.t = log, len(log)
+        log.append(("record", str(device)))
+
+    def synchronize(self):
+        self.log.append(("synchronize", self.t))
+
+    def elapsed_time(self, end):
+        self.log.append(("elapsed", self.t, end.t))
+        return 250.0                   # ms
+
+
+def test_process_tracer_resolves_counts_and_device_spans_when_read():
+    log = []
+    tr = ProcessTracer(event=lambda d: _Event(log, d))
+    tr.force(True)
+    try:
+        with tr.span("dev", device=torch.device("cuda", 0)) as sp:
+            sp.attrs["kept"] = torch.tensor(7)
+            sp.attrs["per"] = torch.tensor([1, 2])
+            sp.attrs["made"] = 9
+        with tr.span("host") as host:
+            pass
+    finally:
+        tr.force(False)
+    assert log == [("record", "cuda:0"), ("record", "cuda:0")]
+    assert isinstance(sp.attrs["kept"], torch.Tensor)
+    (dev, h) = tr.spans()
+    assert dev is sp and h is host
+    assert log[2:] == [("synchronize", 1), ("elapsed", 0, 1)]
+    assert sp.attrs == {"kept": 7, "per": [1, 2], "made": 9,
+                        "device_s": 0.25}
+    assert host.attrs == {}
+    tr.spans()                        # each is resolved once
+    assert len(log) == 4
+
+
+def test_adamw_update_is_a_span_of_the_process_tracer():
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+    gen = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn(4, 3, generator=gen)}
+    grads = {"w": torch.randn(4, 3, generator=gen)}
+    plain = {k: v.clone() for k, v in params.items()}
+    PROCESS_TRACER.drain()
+    with _profiled():
+        adamw_update(AdamWConfig(), grads, adamw_init(params), params)
+    adamw_update(AdamWConfig(), grads, adamw_init(plain), plain)
+    assert [s.name for s in PROCESS_TRACER.drain()] == ["optim.adamw"]
+    assert torch.equal(params["w"], plain["w"])

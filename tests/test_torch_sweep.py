@@ -92,3 +92,56 @@ def test_engine_identity_and_guards():
         SweepEngine(ev, stall_rank="area")
     with pytest.raises(ValueError, match="stall_topk"):
         eng.run(0, 2_000).stall_seeds()
+
+
+def _same_result(a, b) -> bool:
+    return all(
+        (np.array_equal(getattr(a, f), getattr(b, f))
+         if isinstance(getattr(a, f), np.ndarray)
+         else getattr(a, f) == getattr(b, f))
+        for f in ("n_evaluated", "n_superior", "pareto_y", "pareto_ids",
+                  "topk_val", "topk_ids", "ref_point", "archive_truncated",
+                  "stall_topk_val", "stall_topk_ids", "archive_capacity"))
+
+
+def test_traced_chunks_are_tiled_by_their_phases(monkeypatch):
+    """Under torch.profiler each chunk span holds the four phase spans in
+    order, without overlap; the survivors they count are the rows the
+    archive received; the result is the untraced run's bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.pareto import ParetoArchive
+    from repro_torch.obs import PROCESS_TRACER
+    ch = 8_192
+    eng = SweepEngine(get_evaluator("proxy", device="cpu"), chunk_size=ch,
+                      stall_topk=8)
+    plain = eng.run(0, 3 * ch)
+    received = []
+    insert = ParetoArchive.insert
+
+    def counted(self, y, *a, **kw):
+        received.append(len(y))
+        return insert(self, y, *a, **kw)
+
+    monkeypatch.setattr(ParetoArchive, "insert", counted)
+    PROCESS_TRACER.drain()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = eng.run(0, 3 * ch)
+    spans = PROCESS_TRACER.drain()
+    assert _same_result(traced, plain)
+    names = [s.name for s in spans]
+    assert names.count("sweep.chunk") == 3
+    assert {"sweep.run", "sweep.span", "sweep.reduce"} <= set(names)
+    leaves = ["sweep.filter", "sweep.step", "sweep.sync", "sweep.insert"]
+    for c in (s for s in spans if s.name == "sweep.chunk"):
+        kids = sorted((s for s in spans if s.parent_id == c.span_id),
+                      key=lambda s: s.t_start)
+        assert [s.name for s in kids] == leaves
+        assert c.t_start <= kids[0].t_start and kids[-1].t_end <= c.t_end
+        assert all(a.t_end <= b.t_start for a, b in zip(kids, kids[1:]))
+    survivors = [s.attrs["survivors"] for s in spans
+                 if s.name == "sweep.sync"]
+    assert sum(survivors) == sum(received) > 0
+    assert names.count("sweep.reduce") == 1
+    profiled = {e.name for e in prof.events()}
+    assert set(leaves) | {"sweep.chunk", "sweep.reduce"} <= profiled
