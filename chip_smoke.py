@@ -36,6 +36,11 @@ line is printed:
 4. the main path, part 1: the full 4,741,632-design sweep through the
    kernel (one launch a chunk), then the same sweep on the torch roofline
    backend, which must find the same superior count, top-k ids and front;
+   4b. the sweep's on-device Pareto reduction (``pareto_reduce``, one call
+   a chunk on phase 4's sweep): each chunk's kernel result held to the
+   plain version's and to the host insert's, timed beside both and its
+   least work, and the sweep with every survivor inserted on the host
+   instead equal to phase 4's;
 5. the main path, part 2: a budget-20 LUMINA run on the GPT-3 pair, scored
    against the phase-4 front;
 6. kernel timings at the sweep's chunk shape against their bounds (the
@@ -1665,6 +1670,31 @@ def same_sweep(a, b, what: str, fields=SWEEP_FIELDS) -> None:
         for nm in b.scenario_names:
             same_sweep(a.scenario(nm), b.scenario(nm), f"{what} [{nm}]",
                        fields)
+
+
+def phase4b_pareto_reduce(torch, dev, eng_k, res_k) -> dict:
+    """The sweep's on-device Pareto reduction on phase 4's engine: each
+    chunk's call held to the plain version and the host insert, timed;
+    the sweep with the old host path equal to phase 4's."""
+    from repro_torch.kernels.pareto_reduce import bench as pr_bench
+    t_phase = time.perf_counter()
+    rows = []
+    for i, call in enumerate(pr_bench.record(eng_k)):
+        row = pr_bench.chunk_row(i, call)
+        check(row["same"], f"[4b] chunk {i}: pareto_reduce differs from its "
+              f"plain version or from ParetoArchive.insert")
+        rows.append(row)
+        log(f"[4b] chunk {i}: n {row['n']} f {row['f']} m {row['m']} dead "
+            f"{row['dead']}: kernel {row['kernel_ms']:.4f} ms, as swept "
+            f"{row['as_swept_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+            f"old host path {row['old_host_ms']:.3f} ms, bound "
+            f"{row['bound_ms']:.6f} ms ({row['bound_by']}, {row['tests']} "
+            f"pair tests)")
+    _, old = pr_bench.sweeps_per_s(eng_k, True, 1)
+    same_sweep(old, res_k, "[4b] the sweep with the host insert")
+    log(f"[4b] the sweep with every survivor inserted on the host equals "
+        f"phase 4's; phase 4b took {time.perf_counter() - t_phase:.1f} s")
+    return max(rows, key=lambda r: r["n"])
 
 
 def phase12_zoo(torch, dev, work_dir: str) -> dict:
@@ -4413,6 +4443,7 @@ def main() -> int:
     from repro_torch.core.loop import LuminaDSE
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.pareto_reduce import ops as pr_ops
     from repro_torch.kernels.ppa_eval import ops as ppa_ops
     from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
     from repro_torch.kernels.ssm_scan import ops as ssm_ops
@@ -4441,13 +4472,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     t0 = time.perf_counter()
-    kernel_mods = (ppa_ops, fa_ops, rwkv_ops, ssm_ops)
+    kernel_mods = (ppa_ops, fa_ops, rwkv_ops, ssm_ops, pr_ops)
     _build.build([(m.SOURCE, m.FLAGS) for m in kernel_mods]
                  + [(ppa_ops.FLOOR_SOURCE, ppa_ops.FLAGS)])
     for m in kernel_mods:
         m._library()                      # loads what build() compiled
-    log(f"[1] build ppa_eval, flash_attention, rwkv6_scan, ssm_scan (nvcc "
-        f"in parallel): {time.perf_counter() - t0:.2f} s")
+    log(f"[1] build ppa_eval, flash_attention, rwkv6_scan, ssm_scan, "
+        f"pareto_reduce (nvcc in parallel): {time.perf_counter() - t0:.2f} s")
+    for line in _build.BUILD_LOGS.get("pareto_reduce", "").splitlines():
+        if "Compiling entry" in line or "registers" in line \
+                or "spill" in line:
+            log(f"[1]   pareto_reduce: {line.strip()}")
     for line in _build.BUILD_LOGS.get("ppa_eval", "").splitlines():
         if "Compiling entry" in line or "registers" in line \
                 or "spill" in line:
@@ -4545,14 +4580,18 @@ def main() -> int:
     eng_k.run(0, 2 * eng_k.chunk_size)                    # warm-up
     torch.cuda.synchronize()
     ppa_eval.launches = 0
+    pr_before = pr_ops.pareto_reduce.launches
     res_k = eng_k.run()
     sweep_launches = ppa_eval.launches
+    pr_launches = pr_ops.pareto_reduce.launches - pr_before
     n_chunks = -(-SPACE.size // eng_k.chunk_size)
     check(res_k.n_evaluated == SPACE.size,
           f"n_eval {res_k.n_evaluated} != {SPACE.size}")
     check(sweep_launches > 0, "the sweep never launched ppa_eval")
     check(sweep_launches == n_chunks,
           f"{sweep_launches} launches for {n_chunks} chunks (one a chunk)")
+    check(pr_launches == n_chunks,
+          f"{pr_launches} pareto_reduce calls for {n_chunks} chunks")
     check(np.isfinite(res_k.pareto_y).all() and len(res_k.pareto_ids) > 0,
           "empty or non-finite front")
     seeds = {k: len(v) for k, v in res_k.stall_seeds().items()}
@@ -4560,7 +4599,8 @@ def main() -> int:
         f"{res_k.n_superior} front {len(res_k.pareto_ids)} stall seeds "
         f"{seeds} wall {res_k.seconds:.3f} s "
         f"{res_k.points_per_sec:,.0f} designs/s; chunk {eng_k.chunk_size} "
-        f"x {n_chunks} chunks; ppa_eval launches {sweep_launches}")
+        f"x {n_chunks} chunks; ppa_eval launches {sweep_launches}, "
+        f"pareto_reduce calls {pr_launches}")
 
     eng_r = SweepEngine(ev_r, stall_topk=8, backend="roofline")
     eng_r.run(0, 2 * eng_r.chunk_size)                    # warm-up
@@ -4580,6 +4620,9 @@ def main() -> int:
         f"front {len(res_r.pareto_ids)} wall {res_r.seconds:.3f} s "
         f"{res_r.points_per_sec:,.0f} designs/s; equal to the cuda sweep "
         f"(n_superior, top-k ids, stall seeds, front ids and values)")
+
+    # ---- 4b. the sweep's on-device Pareto reduction --------------------------
+    pr_row = phase4b_pareto_reduce(torch, dev, eng_k, res_k)
 
     # ---- 5. main path part 2: budget-20 LUMINA run --------------------------
     ppa_eval.launches = 0
@@ -4762,6 +4805,13 @@ def main() -> int:
         "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],
         "library_ms": None,
     }]
+    kernels.append({
+        "name": "pareto_reduce", "route": "cuda",
+        "source": "src/repro_torch/kernels/pareto_reduce/pareto_reduce.cu",
+        "replaces": None, "launches": pr_launches, "max_abs_err": 0.0,
+        "ms": pr_row["kernel_ms"], "plain_ms": pr_row["plain_ms"],
+        "bound_ms": pr_row["bound_ms"], "bound_by": pr_row["bound_by"],
+        "library_ms": None})
     lm_times.update({k: v for k, v in jamba.items() if isinstance(k, tuple)})
     jc = jamba["prefill"]["counts"]
     jg = training["jamba_grads"]["counts"]

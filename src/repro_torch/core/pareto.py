@@ -131,11 +131,12 @@ class ParetoArchive:
             raise ValueError(f"expected {self.n_obj} objectives, got {y.shape[1]}")
         ids = (np.full(y.shape[0], -1, dtype=np.int64) if ids is None
                else np.asarray(ids, dtype=np.int64).reshape(-1))
-        self.n_seen += y.shape[0]
+        seen = y.shape[0]
 
         # newcomers must be mutually nondominated first
         keep_new = pareto_mask(y)
         y, ids = y[keep_new], ids[keep_new]
+        dead = None
         if self.y.shape[0]:
             # drop newcomers dominated by the current front (duplicates of
             # incumbents are NOT dominated and accumulate, matching
@@ -143,12 +144,25 @@ class ParetoArchive:
             dominated = _dominated_by(self.y, y)
             y, ids = y[~dominated], ids[~dominated]
             if y.shape[0]:
-                # prune incumbents dominated by surviving newcomers
+                # incumbents dominated by surviving newcomers
                 dead = _dominated_by(y, self.y)
-                if dead.any():
-                    self.y, self.ids = self.y[~dead], self.ids[~dead]
+        return self.apply(y, ids, dead, seen)
+
+    def apply(self, y: np.ndarray, ids: np.ndarray,
+              dead: Optional[np.ndarray], seen: int) -> int:
+        """Apply a screened batch: drop the incumbents `dead` marks, append
+        the entering rows `y` (with `ids`) in their batch order, count the
+        `seen` rows the whole batch held, and size or prune to capacity;
+        returns how many entered.  ``insert`` screens a batch and ends
+        here; a caller that screened it elsewhere (the sweep's on-device
+        reduction) gets the same archive, bit for bit."""
+        y = np.asarray(y, dtype=np.float64).reshape(-1, self.n_obj)
+        ids = np.asarray(ids, dtype=np.int64).reshape(-1)
+        self.n_seen += int(seen)
         if y.shape[0] == 0:
             return 0
+        if dead is not None and dead.any():
+            self.y, self.ids = self.y[~dead], self.ids[~dead]
         self.y = np.concatenate([self.y, y], axis=0)
         self.ids = np.concatenate([self.ids, ids], axis=0)
         if self.auto:

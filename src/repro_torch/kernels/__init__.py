@@ -20,6 +20,9 @@ Kernels:
   rwkv6_scan      — the RWKV6 WKV recurrence from a zero state, forward
                     and backward (the RWKV time-mix; replaces the Pallas
                     ``rwkv6_scan`` TPU kernel)
+  pareto_reduce   — the exact Pareto entrants of a sweep chunk's filter
+                    survivors against the host archive (replaces no TPU
+                    kernel: the JAX package screens them on the host)
 
 As in the reference's ``repro.kernels``, the package re-exports the four
 wrappers, so ``repro_torch.kernels.flash_attention`` is the function; the

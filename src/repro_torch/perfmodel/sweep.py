@@ -12,7 +12,12 @@ model (or the CUDA ``ppa_eval`` kernel) in fixed-size chunks, with
 * an exact host-side :class:`~repro_torch.core.pareto.ParetoArchive`
   absorbing the few filter survivors per chunk, so the final front equals
   the brute-force ``pareto_front`` of all evaluated points (while under
-  archive capacity);
+  archive capacity).  A single-scenario chunk's survivors are screened on
+  the device against each other and a mirror of the archive
+  (:func:`~repro_torch.kernels.pareto_reduce.pareto_reduce`), and only the
+  entering rows and the dead incumbents' flags reach the host, which
+  applies them (``ParetoArchive.apply``: the archive ``insert`` of the
+  survivors would give, bit for bit);
 * ``run(workers=N)``: the range splits into N contiguous chunk-aligned
   spans streamed on a thread pool (one device, each span with its own
   carry, archive and checkpoint file), and the host merge reproduces the
@@ -69,6 +74,7 @@ import torch
 
 from repro_torch.core.pareto import ParetoArchive
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.pareto_reduce import entrants, pareto_reduce
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import PROCESS_TRACER
 from repro_torch.runtime.fault import RetryPolicy, run_with_retries
@@ -377,6 +383,11 @@ class SweepEngine:
             self.ref_point = np.asarray(ref_point, dtype=np.float64)
             self._ref = torch.as_tensor(self.ref_point, dtype=torch.float32,
                                         device=self.device)
+            # the on-device reduction's sort key: objectives in units of
+            # the reference's (ones where a reference entry is not usable)
+            w = 1.0 / np.abs(self.ref_point)
+            self._key_weights = tuple(float(x) if 0.0 < x < np.inf else 1.0
+                                      for x in w)
 
         if chunk_size is None:
             # portfolio chunks stream ~10x the op rows per id
@@ -778,6 +789,23 @@ class SweepEngine:
             filt[: take.size] = archive.y[take]
         return filt
 
+    def _filter_and_front(self, archives: List[ParetoArchive],
+                          rows: Optional[int]
+                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The chunk's dominance filter on the device and, for one scenario,
+        the archive's rows after it in the same copy (float32: the archive
+        holds float32 objectives, so the copy is exact); a portfolio's
+        (S+1, rows, 3) filters and no front."""
+        if self._portfolio:
+            filt = np.stack([self._filter_from_archive(a, rows)
+                             for a in archives])
+            return torch.as_tensor(filt, device=self.device), None
+        a = archives[0]
+        both = np.concatenate([self._filter_from_archive(a, rows),
+                               a.y.astype(np.float32)])
+        both = torch.as_tensor(both, device=self.device)
+        return both[:self.filter_size], both[self.filter_size:]
+
     def fingerprint(self) -> str:
         """Identity of (space, workloads, knobs) — the reference's format."""
         if self._portfolio:
@@ -948,27 +976,42 @@ class SweepEngine:
         return spans
 
     def _absorb(self, archives: List[ParetoArchive], survivor: torch.Tensor,
-                ys: torch.Tensor, ids: torch.Tensor) -> None:
-        """Insert a chunk's filter survivors into the host archives; only
-        rows that survive in some group leave the device.  The copy, where
-        the host waits for the chunk's kernels, is the span ``sweep.sync``
-        (attr ``survivors``: the rows copied); the insert ``sweep.insert``."""
+                ys: torch.Tensor, ids: torch.Tensor,
+                front: Optional[torch.Tensor]) -> None:
+        """Bring a chunk's filter survivors into the host archives.  The
+        span ``sweep.sync`` is where the host waits for the chunk's kernels
+        (attr ``survivors``: the rows the exact pass screens; for one
+        scenario also ``entered``: the rows the archive receives), ``sweep.
+        insert`` the archive's update.
+
+        One scenario: the survivors are screened on the device against
+        each other and `front`, the archive's rows as the filter's copy
+        carried them (:func:`pareto_reduce`), and only the entering rows
+        and the dead incumbents' flags are copied over and applied.  A
+        portfolio copies every row that survives in some group and inserts
+        it into each group's archive."""
         tr = self.tracer
+        if not self._portfolio:
+            with tr.span("sweep.sync") as sp:
+                head, rows = pareto_reduce(ys, front, keep=survivor, ids=ids,
+                                           weights=self._key_weights)
+                n, y_in, ids_in, dead = entrants(head, rows)
+                if sp.recording:
+                    sp.attrs["survivors"] = n
+                    sp.attrs["entered"] = len(ids_in)
+            with tr.span("sweep.insert"):
+                archives[0].apply(y_in, ids_in, dead, n)
+            return
         with tr.span("sweep.sync") as sp:
-            keep = torch.nonzero(survivor if not self._portfolio
-                                 else survivor.any(dim=1)).squeeze(1)
+            keep = torch.nonzero(survivor.any(dim=1)).squeeze(1)
             n = keep.numel()
             if n:
-                mask = (survivor[keep].cpu().numpy()          # (r, S1)
-                        if self._portfolio else None)
+                mask = survivor[keep].cpu().numpy()               # (r, S1)
                 ys_np, ids_np = ys[keep].cpu().numpy(), ids[keep].cpu().numpy()
             if sp.recording:
                 sp.attrs["survivors"] = n
         with tr.span("sweep.insert"):
             if not n:
-                return
-            if not self._portfolio:
-                archives[0].insert(ys_np, ids=ids_np)
                 return
             for g, a in enumerate(archives):
                 mg = mask[:, g]
@@ -1007,16 +1050,13 @@ class SweepEngine:
             with tr.span("sweep.chunk"):
                 s = state["next"]
                 with tr.span("sweep.filter"):
-                    filt = np.stack([self._filter_from_archive(a, rows)
-                                     for a in archives])
-                    filt = torch.as_tensor(filt if self._portfolio
-                                           else filt[0], device=self.device)
+                    filt, front = self._filter_and_front(archives, rows)
                 # ids >= stop are masked invalid on device, so a partial
                 # final chunk (or a truncated-range sweep) stays exact
                 with tr.span("sweep.step"):            # enqueues only
                     carry, survivor, ys, ids = self._step(state["carry"], s,
                                                           stop, filt)
-                self._absorb(archives, survivor, ys, ids)
+                self._absorb(archives, survivor, ys, ids, front)
                 # clamp to `stop`: a later resume with a larger stop must
                 # re-visit the ids beyond it
                 state["next"] = min(s + self.chunk_size, stop)

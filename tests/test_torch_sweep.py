@@ -7,6 +7,7 @@ import torch
 from repro.perfmodel import get_evaluator as j_get_evaluator
 from repro.perfmodel.sweep import SweepEngine as JSweepEngine
 from repro_torch.core.pareto import pareto_front
+from repro_torch.kernels.pareto_reduce.bench import absorb_by_insert
 from repro_torch.perfmodel import (RooflineModel, SweepEngine, get_evaluator,
                                    gpt3_layer_prefill)
 from repro_torch.perfmodel.designspace import SPACE
@@ -107,7 +108,9 @@ def _same_result(a, b) -> bool:
 def test_traced_chunks_are_tiled_by_their_phases(monkeypatch):
     """Under torch.profiler each chunk span holds the four phase spans in
     order, without overlap; the survivors they count are the rows the
-    archive received; the result is the untraced run's bit for bit."""
+    filter let through, which the archive counts as seen, and the rows
+    they count as entered are the rows the archive received; the result
+    is the untraced run's bit for bit."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.pareto import ParetoArchive
@@ -116,14 +119,21 @@ def test_traced_chunks_are_tiled_by_their_phases(monkeypatch):
     eng = SweepEngine(get_evaluator("proxy", device="cpu"), chunk_size=ch,
                       stall_topk=8)
     plain = eng.run(0, 3 * ch)
-    received = []
-    insert = ParetoArchive.insert
+    passed, received, seen = [], [], []
+    step, apply = SweepEngine._step, ParetoArchive.apply
 
-    def counted(self, y, *a, **kw):
+    def stepped(self, *a, **kw):
+        out = step(self, *a, **kw)
+        passed.append(int(out[1].sum()))
+        return out
+
+    def counted(self, y, ids, dead, n):
         received.append(len(y))
-        return insert(self, y, *a, **kw)
+        seen.append(n)
+        return apply(self, y, ids, dead, n)
 
-    monkeypatch.setattr(ParetoArchive, "insert", counted)
+    monkeypatch.setattr(SweepEngine, "_step", stepped)
+    monkeypatch.setattr(ParetoArchive, "apply", counted)
     PROCESS_TRACER.drain()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         traced = eng.run(0, 3 * ch)
@@ -139,9 +149,51 @@ def test_traced_chunks_are_tiled_by_their_phases(monkeypatch):
         assert [s.name for s in kids] == leaves
         assert c.t_start <= kids[0].t_start and kids[-1].t_end <= c.t_end
         assert all(a.t_end <= b.t_start for a, b in zip(kids, kids[1:]))
-    survivors = [s.attrs["survivors"] for s in spans
-                 if s.name == "sweep.sync"]
-    assert sum(survivors) == sum(received) > 0
+    syncs = sorted((s for s in spans if s.name == "sweep.sync"),
+                   key=lambda s: s.t_start)
+    assert [s.attrs["survivors"] for s in syncs] == passed == seen
+    assert sum(passed) > 0
+    assert [s.attrs["entered"] for s in syncs] == received
+    assert 0 < sum(received) < sum(passed)
     assert names.count("sweep.reduce") == 1
     profiled = {e.name for e in prof.events()}
     assert set(leaves) | {"sweep.chunk", "sweep.reduce"} <= profiled
+
+
+@pytest.mark.parametrize("case", ["capacity", "workers", "resume"])
+def test_device_reduction_equals_the_host_insert(monkeypatch, tmp_path,
+                                                 case):
+    """The chunk's survivors screened by pareto_reduce and applied give
+    the archive that inserting every survivor gives, bit for bit: the
+    result, each archive's n_seen, truncation and capacity; with crowding
+    pruning engaged, over two workers, and across a resume."""
+    ch, stop = 8_192, 5 * 8_192 - 1_000
+    kw = {"chunk_size": ch, "stall_topk": 4}
+    if case == "capacity":
+        kw["archive_capacity"] = 24
+    seen = {}
+    reduce_states = SweepEngine._reduce_states
+
+    def reduced(self, states, seconds):
+        seen[tag] = [(a.n_seen, a.truncated, a.capacity)
+                     for st in states for a in st["archives"]]
+        return reduce_states(self, states, seconds)
+
+    monkeypatch.setattr(SweepEngine, "_reduce_states", reduced)
+    ev = get_evaluator("proxy", device="cpu")
+    workers = 2 if case == "workers" else 1
+    tag = "device"
+    eng = SweepEngine(ev, **kw)
+    if case == "resume":
+        ck = str(tmp_path / "ck")
+        eng.run(0, 2 * ch, checkpoint_path=ck)
+        got = eng.run(0, stop, resume_from=ck)
+    else:
+        got = eng.run(0, stop, workers=workers)
+    tag = "host"
+    monkeypatch.setattr(SweepEngine, "_absorb", absorb_by_insert)
+    want = SweepEngine(ev, **kw).run(0, stop, workers=workers)
+    assert _same_result(got, want)
+    assert seen["device"] == seen["host"]
+    assert sum(n for n, _, _ in seen["device"]) > len(got.pareto_ids)
+    assert got.archive_truncated == (case == "capacity")
