@@ -2,12 +2,14 @@
 
 A cell names a configuration and a traffic mix; both are data files found
 by name (``configs/<config>.json``, ``traffic/<mix>.json``), and the mix's
-``kind`` names the loop that serves it (``kinds/<kind>.py``).  Each
-per-layer metric is a reader of its own (``metrics/<metric>.py``), found by
-the metric's name; the limits of the comparison that decides ``correct``
-are the cell's file (``limits/<cell>.json``).  Adding a cell, a mix of a
-known kind, a configuration or a metric adds files and entries; no file of
-the harness changes.
+``kind`` names the loop that serves it (``kinds/<kind>.py``).  A model's
+configuration names its family (``"reference"``), whose plain reference
+and FLOP counts are ``reference/<family>.py`` and ``costs/<family>.py``.
+Each per-layer metric is a reader of its own (``metrics/<metric>.py``),
+found by the metric's name; the limits of the comparison that decides
+``correct`` are the cell's file (``limits/<cell>.json``).  Adding a cell, a
+mix of a known kind, a configuration, a model family or a metric adds
+files and entries; no file of the harness changes.
 
 A run: set-up (the program imported, its kernels loaded from the build
 cache, the weights made on the device from the seed, every shape of the

@@ -4,11 +4,12 @@ next one once the program's logits for the last are complete.
 
 The answers checked are a sample of the window's requests (reservoir
 sampling from the seed; ``sample`` of them, their logits kept as the
-program returned them).  After the window the plain reference computes each
-sampled prompt's logits again.  Per position, the gap is the largest over
-the vocabulary between the program's logit and the reference's, in units
-of the reference logits' standard deviation; the numbers compared are its
-median and its maximum over every position.
+program returned them).  After the window the plain reference the
+configuration names computes each sampled prompt's logits again.  Per
+position, the gap is the largest over the vocabulary between the program's
+logit and the reference's, in units of the reference logits' standard
+deviation; the numbers compared are its median and its maximum over every
+position.
 
 In a model with experts, a token whose k-th and (k+1)-th router
 probabilities lie within rounding may be routed either way by a sound
@@ -30,8 +31,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from perfbench import program
-from perfbench.reference import lm
+from perfbench import program, reference
 from perfbench.weights import generator, make_weights, stream_seed
 
 
@@ -70,6 +70,7 @@ class Job:
                  fault=None):
         self.conf, self.mix, self.seed, self.dev = conf, mix, seed, device
         self.fault = fault
+        self.ref = reference.of(conf)
         self.shape = (mix["batch"], mix["seq"])
         self.failed = 0
         self.kept: List[tuple] = []
@@ -100,8 +101,7 @@ class Job:
 
     def setup(self) -> None:
         from repro_torch.launch.steps import make_prefill_step
-        weights = make_weights(self.conf["model"], self.seed, self.dev,
-                               getattr(torch, self.conf["dtype"]))
+        weights = make_weights(self.conf, self.seed, self.dev)
         self.model = program.build(self.conf, weights, self.dev)
         self.prefill = make_prefill_step(self.model)
         if self.conf["model"].get("n_experts"):
@@ -140,11 +140,11 @@ class Job:
                   follow: Optional[List[torch.Tensor]] = None):
         """(logits, routes) of the reference for toks; with `follow` its
         tokens go to those experts (one (B, S, k) tensor a layer)."""
-        routes = ({"own": [], "margins": [], "follow": follow}
+        routes = ({"capacity": self.conf.get("moe_capacity", 1.25),
+                   "own": [], "margins": [], "follow": follow}
                   if self.conf["model"].get("n_experts") else None)
-        with lm.precision(mode):
-            out = lm.logits(weights, toks, self.conf["model"],
-                            self.conf.get("moe_capacity", 1.25), routes)
+        with self.ref.precision(mode):
+            out = self.ref.logits(weights, toks, self.conf["model"], routes)
         return out, routes
 
     def _judge(self, toks, got, chosen, weights):
@@ -162,8 +162,7 @@ class Job:
         """The numbers of the program's kept answers against the reference,
         and with `control` those of the control (the reference in TF32,
         its own routing followed alike) on the same prompts."""
-        weights = make_weights(self.conf["model"], self.seed, self.dev,
-                               getattr(torch, self.conf["dtype"]))
+        weights = make_weights(self.conf, self.seed, self.dev)
         b, s = self.shape
         prog, ctrl = ([], []), ([], [])
         for toks, got, taken in self.kept:

@@ -5,24 +5,23 @@ next token, each step the program's train step (loss, backward, AdamW).
 Set-up builds one train step with its model and optimizer state and drives
 it through its first ``setup_steps`` steps with the window's own call and
 feed; the window then goes on with the same object.  The plain reference
-follows those first steps from the same weights and batches, and then
-takes the loss of the window's first batch.  The numbers compared are each
-of those steps' loss (its relative gap), the window's first step's
-included, the first gradient as the optimizer got it (worked out from the first moment after
-one step), and the parameters' change over the set-up steps, both by the
-worst leaf: the gap between the program's norm of the leaf and the
-reference's, over the larger of the reference's norm of that leaf and of
-the median leaf.  A leaf whose reference gradient is under a thousandth of
-the median leaf's (moved by round-off alone, as the key bias under the
-softmax) is left out of the change."""
+the configuration names follows those first steps from the same weights and
+batches, and then takes the loss of the window's first batch.  The numbers
+compared are each of those steps' loss (its relative gap), the window's
+first step's included, the first gradient as the optimizer got it (worked
+out from the first moment after one step), and the parameters' change over
+the set-up steps, both by the worst leaf: the gap between the program's
+norm of the leaf and the reference's, over the larger of the reference's
+norm of that leaf and of the median leaf.  A leaf whose reference gradient
+is under a thousandth of the median leaf's (moved by round-off alone, as
+the key bias under the softmax) is left out of the change."""
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
 
-from perfbench import program
-from perfbench.reference import lm
+from perfbench import program, reference
 from perfbench.weights import generator, make_weights
 
 SMALL_GRAD = 1e-3      # of the median leaf's gradient norm: round-off only
@@ -49,6 +48,7 @@ class Job:
                  fault=None):
         self.conf, self.mix, self.seed, self.dev = conf, mix, seed, device
         self.fault = fault
+        self.ref = reference.of(conf)
         self.failed = 0
         self.read: Dict[str, object] = {}
 
@@ -59,8 +59,7 @@ class Job:
         return rows[:, :-1].contiguous(), rows[:, 1:].contiguous()
 
     def _weights(self):
-        return make_weights(self.conf["model"], self.seed, self.dev,
-                            getattr(torch, self.conf["dtype"]))
+        return make_weights(self.conf, self.seed, self.dev)
 
     def setup(self) -> None:
         from repro_torch.launch.steps import make_train_step
@@ -115,11 +114,11 @@ class Job:
         window = self.batch(gen)
         w = self._weights()
         o = dict(self.conf["optimizer"])
-        with lm.precision(mode):
-            out = lm.train_steps(w, batches, self.conf["model"], o)
+        with self.ref.precision(mode):
+            out = self.ref.train_steps(w, batches, self.conf["model"], o)
             with torch.no_grad():
-                out["loss"].append(float(lm.loss(w, *window,
-                                                 self.conf["model"])))
+                out["loss"].append(float(self.ref.loss(w, *window,
+                                                       self.conf["model"])))
         p0 = self._weights()
         change = {n: float(torch.linalg.vector_norm((w[n] - p0[n]).double()))
                   for n in w}

@@ -1,7 +1,8 @@
 """The sweep engine's host time waiting for a chunk: the host ms of its
-sweep.sync spans (torch.nonzero over the filter's survivors, where the
-host waits for the card, and the survivors' copies) over the window's
-chunks (sweep.chunk spans of the program's process tracer)."""
+sweep.sync spans (pareto_reduce launched over the filter's survivors, the
+host's one wait for the card, and the copy of the entering rows and the
+dead incumbents' flags) over the window's chunks (sweep.chunk spans of
+the program's process tracer)."""
 from perfbench import spans
 
 

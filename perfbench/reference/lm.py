@@ -14,7 +14,10 @@ comparison's control: on a CUDA tensor the tensor cores' TF32, on a CPU
 tensor each product's inputs rounded to TF32's 10 mantissa bits).
 
 Weights are a dict of tensors keyed as :func:`param_spec` lists them; the
-benchmark makes them from the seed and hands the same dict to the program.
+benchmark makes them from the seed (each leaf scaled by :func:`init_leaf`)
+and hands the same dict to the program.  A configuration names this module
+by ``"reference": "lm"``; :data:`PUBLISHED` and :data:`PUBLISHED_WHEN`
+say which of its published keys set which field of its ``model``.
 """
 from __future__ import annotations
 
@@ -27,6 +30,18 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 Weights = Dict[str, torch.Tensor]
+
+# published config key -> the ``model`` field it sets (all compared)
+PUBLISHED = {"hidden_size": "d_model", "num_attention_heads": "n_heads",
+             "num_key_value_heads": "n_kv_heads", "vocab_size": "vocab",
+             "rms_norm_eps": "norm_eps", "rope_theta": "rope_theta",
+             "num_hidden_layers": "n_layers", "intermediate_size": "d_ff"}
+# compared too where the model sets ``n_experts``: the routed experts and
+# the shared expert, one gated MLP of width ``d_ff``
+PUBLISHED_WHEN = {"n_experts": {
+    "num_experts": "n_experts", "num_experts_per_tok": "top_k",
+    "moe_intermediate_size": "expert_ff",
+    "shared_expert_intermediate_size": "d_ff"}}
 
 
 def param_spec(a: dict) -> List[Tuple[str, Tuple[int, ...]]]:
@@ -62,6 +77,18 @@ def param_spec(a: dict) -> List[Tuple[str, Tuple[int, ...]]]:
 def _mlp_spec(p: str, d: int, f: int) -> List[Tuple[str, Tuple[int, ...]]]:
     return [(p + "w_up", (d, f)), (p + "w_down", (f, d)),
             (p + "w_gate", (d, f))]
+
+
+def init_leaf(name: str, t: torch.Tensor) -> None:
+    """Scale a unit normal leaf in place to its role: norm gains 1 +/- 0.1,
+    biases 0.1, the embedding 1, a matrix 1 / sqrt(fan in), so that every
+    layer's output and the logits stay of order one."""
+    if name.endswith(("ln1", "ln2", "final_norm")):
+        t.mul_(0.1).add_(1.0)
+    elif name.endswith(".b"):
+        t.mul_(0.1)
+    elif name != "embed":
+        t.mul_(1.0 / math.sqrt(t.shape[-2]))
 
 
 # ------------------------------------------------------------- precision
@@ -147,15 +174,15 @@ def gated_mlp(w: Weights, p: str, x: torch.Tensor) -> torch.Tensor:
               w[p + "w_down"])
 
 
-def moe(w: Weights, p: str, x: torch.Tensor, a: dict,
-        capacity_factor: float, routes: Optional[dict] = None
+def moe(w: Weights, p: str, x: torch.Tensor, a: dict, routes: dict
         ) -> torch.Tensor:
     """Top-k MoE of x (B, S, d): softmax router, the k largest
     probabilities renormalised to sum 1, capacity ceil(T k / E x factor)
-    per expert with the earlier (token, k) assignment winning a slot and
-    the overflow dropped, plus the always-on shared gated MLP.
+    per expert (the factor ``routes["capacity"]``) with the earlier
+    (token, k) assignment winning a slot and the overflow dropped, plus
+    the always-on shared gated MLP.
 
-    With `routes` (one layer's entry of :func:`logits`'s) it appends to
+    `routes` is one layer's view of :func:`logits`'s.  It appends to
     ``routes["own"]`` the experts it would choose, (B, S, k), and to
     ``routes["margins"]`` each token's gap between its k-th and (k+1)-th
     router probability over the k-th, (B, S): where that is within
@@ -167,16 +194,15 @@ def moe(w: Weights, p: str, x: torch.Tensor, a: dict,
     xt = x.reshape(t, d)
     probs = torch.softmax(mm(xt, w[p + "moe.router"]), dim=-1)
     gate, idx = torch.topk(probs, k, dim=-1)                    # (T, k)
-    if routes is not None:
-        top = torch.topk(probs, k + 1, dim=-1).values
-        routes["margins"].append(((top[:, k - 1] - top[:, k])
-                                  / top[:, k - 1]).reshape(b, s))
-        routes["own"].append(idx.reshape(b, s, k))
-        if routes.get("follow") is not None:
-            idx = routes["follow"].reshape(t, k).to(x.device)
-            gate = probs.gather(1, idx)
+    top = torch.topk(probs, k + 1, dim=-1).values
+    routes["margins"].append(((top[:, k - 1] - top[:, k])
+                              / top[:, k - 1]).reshape(b, s))
+    routes["own"].append(idx.reshape(b, s, k))
+    if routes["follow"] is not None:
+        idx = routes["follow"].reshape(t, k).to(x.device)
+        gate = probs.gather(1, idx)
     gate = gate / gate.sum(-1, keepdim=True)
-    cap = max(math.ceil(t * k / e * capacity_factor), 1)
+    cap = max(math.ceil(t * k / e * routes["capacity"]), 1)
     flat = idx.reshape(-1)                                      # (T k,)
     slot = torch.cumsum(F.one_hot(flat, e), dim=0).gather(
         1, flat[:, None])[:, 0] - 1
@@ -197,51 +223,51 @@ def moe(w: Weights, p: str, x: torch.Tensor, a: dict,
 
 
 def layer(w: Weights, i: int, h: torch.Tensor, a: dict,
-          capacity_factor: float, routes: Optional[dict] = None
-          ) -> torch.Tensor:
+          routes: Optional[dict] = None) -> torch.Tensor:
     p = f"layers.{i}."
     eps = a["norm_eps"]
     h = h + attention(w, p, rms_norm(w[p + "ln1"], h, eps), a)
     x = rms_norm(w[p + "ln2"], h, eps)
     if a.get("n_experts"):
-        return h + moe(w, p, x, a, capacity_factor, routes)
+        if routes is None:
+            raise ValueError("a model with experts takes `routes` (its "
+                             "capacity factor and the lists to fill)")
+        return h + moe(w, p, x, a, routes)
     return h + gated_mlp(w, p + "mlp.", x)
 
 
 def _layer_routes(routes: Optional[dict], i: int) -> Optional[dict]:
-    """Layer i's view of `routes`: its lists, and its experts to follow."""
+    """Layer i's view of `routes`: its capacity, its lists, and its
+    experts to follow."""
     if routes is None:
         return None
-    follow = routes.get("follow")
-    return {"own": routes["own"], "margins": routes["margins"],
+    follow = routes["follow"]
+    return {"capacity": routes["capacity"], "own": routes["own"],
+            "margins": routes["margins"],
             "follow": None if follow is None else follow[i]}
 
 
-def hidden(w: Weights, tokens: torch.Tensor, a: dict,
-           capacity_factor: float = 1.25, remat: bool = False,
+def hidden(w: Weights, tokens: torch.Tensor, a: dict, remat: bool = False,
            routes: Optional[dict] = None) -> torch.Tensor:
     """The final norm's output (B, S, d) for tokens (B, S).  With `remat`
     each layer is recomputed in the backward (so a gradient fits)."""
     h = w["embed"][tokens]
     for i in range(a["n_layers"]):
         if remat:
-            h = checkpoint(layer, w, i, h, a, capacity_factor,
-                           use_reentrant=False)
+            h = checkpoint(layer, w, i, h, a, use_reentrant=False)
         else:
-            h = layer(w, i, h, a, capacity_factor, _layer_routes(routes, i))
+            h = layer(w, i, h, a, _layer_routes(routes, i))
     return rms_norm(w["final_norm"], h, a["norm_eps"])
 
 
 @torch.no_grad()
 def logits(w: Weights, tokens: torch.Tensor, a: dict,
-           capacity_factor: float = 1.25, routes: Optional[dict] = None
-           ) -> torch.Tensor:
+           routes: Optional[dict] = None) -> torch.Tensor:
     """Logits (B, S, vocab) of a prefill of tokens (B, S).  `routes`, for
-    a model with experts: ``{"own": [], "margins": [], "follow": None or
-    one (B, S, k) tensor of experts a layer}``; :func:`moe` fills the two
-    lists, one entry a layer."""
-    return mm(hidden(w, tokens, a, capacity_factor, routes=routes),
-              w["lm_head.w"])
+    a model with experts: ``{"capacity": the capacity factor, "own": [],
+    "margins": [], "follow": None or one (B, S, k) tensor of experts a
+    layer}``; :func:`moe` fills the two lists, one entry a layer."""
+    return mm(hidden(w, tokens, a, routes=routes), w["lm_head.w"])
 
 
 def loss(w: Weights, tokens: torch.Tensor, labels: torch.Tensor, a: dict

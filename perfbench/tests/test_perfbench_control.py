@@ -7,15 +7,16 @@ own sizes, the control's readings set the limits' upper ends: PERF.md.)"""
 import pytest
 
 from perfbench import bench, calibrate
-from perfbench.tests._small import CELLS
+from perfbench.tests._small import CELLS, small
 
 
-@pytest.mark.parametrize("cell", sorted(CELLS))
+@pytest.mark.parametrize("cell", CELLS)
 @pytest.mark.parametrize("seed", [1, 2, 3])
 def test_control_reads_above_the_program(cell, seed):
-    model, mix = CELLS[cell]
+    s = small(cell)
     r = calibrate.readings(cell, seed, 0.05, True, device="cpu",
-                           model_override=model, traffic_override=mix)
+                           model_override=s["model"],
+                           traffic_override=s["traffic"])
     apart = [n for n in bench.limits(cell)["compare"]
              if r["control"][n] > 0
              and r["control"][n] >= 3 * r["program"][n]]

@@ -1,24 +1,25 @@
 """A run with the timed path broken underneath comes out not correct.
 The look for a card is skipped (a CPU run at a small size); the rest of
-the run is the harness's own."""
+the run is the harness's own.  Each cell gets the faults of its mix's
+kind, and an MoE prefill cell the altered routing too."""
 import time
 
 import pytest
 import torch
 
 from perfbench import bench, faults
-from perfbench.tests._small import CELLS, SMALL_LIMITS
+from perfbench.tests._small import CELLS, cells_of, has_experts, small
 
 
 def run(cell, fault=None, seed=11):
-    model, mix = CELLS[cell]
+    s = small(cell)
     return bench.run(cell, seed, 0.05, False, time.perf_counter(),
-                     device="cpu", model_override=model,
-                     traffic_override=mix, fault=fault,
-                     limits_override=SMALL_LIMITS.get(cell))
+                     device="cpu", model_override=s["model"],
+                     traffic_override=s["traffic"], fault=fault,
+                     limits_override=s["limits"])
 
 
-@pytest.mark.parametrize("cell", sorted(CELLS))
+@pytest.mark.parametrize("cell", CELLS)
 def test_sound_run_is_correct(cell):
     r = run(cell)
     assert r["correct"] is True and r["failed"] == 0
@@ -26,10 +27,11 @@ def test_sound_run_is_correct(cell):
 
 
 @pytest.mark.parametrize("cell,fault", [
-    (cell, fault) for cell in ("qwen2moe.prefill", "qwen25.prefill")
+    (cell, fault) for cell in cells_of("prefill")
     for fault in (faults.answer_altered, faults.answer_shifted,
                   faults.answer_tail_altered)
-] + [("qwen2moe.prefill", faults.route_altered)])
+] + [(cell, faults.route_altered) for cell in cells_of("prefill")
+     if has_experts(cell)])
 def test_prefill_faults(cell, fault):
     r = run(cell, fault)
     assert r["correct"] is False
@@ -50,14 +52,16 @@ def test_route_fault_leaves_the_program_as_it_was():
 @pytest.mark.parametrize("fault", [faults.state_unchanged, faults.half_batch,
                                    faults.token_altered])
 def test_train_faults(fault):
-    assert run("qwen25.train", fault)["correct"] is False
+    for cell in cells_of("train"):
+        assert run(cell, fault)["correct"] is False, cell
 
 
 @pytest.mark.parametrize("fault", [faults.sweep_state_unchanged,
                                    faults.sweep_half_chunk,
                                    faults.sweep_answer_altered])
 def test_sweep_faults(fault):
-    assert run("qwen2moe.dse_sweep", fault)["correct"] is False
+    for cell in cells_of("sweep"):
+        assert run(cell, fault)["correct"] is False, cell
 
 
 @pytest.mark.cuda

@@ -7,8 +7,7 @@ from pathlib import Path
 
 import pytest
 
-from perfbench import bench
-from perfbench.reference.lm import param_spec
+from perfbench import bench, reference
 
 ROOT = Path(__file__).resolve().parents[2]
 B = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -90,22 +89,39 @@ def test_each_cell_finds_its_files_by_name(w):
         assert callable(bench.metric_reader(m["name"]).read)
 
 
+def compared(ref, model: dict) -> dict:
+    """Published key -> model field of every key the reference `ref`
+    compares for `model`: its ``PUBLISHED``, and each ``PUBLISHED_WHEN``
+    mapping whose field the model sets."""
+    keys = dict(ref.PUBLISHED)
+    for field, more in getattr(ref, "PUBLISHED_WHEN", {}).items():
+        if model.get(field):
+            keys.update(more)
+    return keys
+
+
+def check_config(entry: dict, conf: dict) -> None:
+    """A configuration file against its BENCHMARK.json entry: the same
+    source and cut, and every published key its own reference compares
+    (:func:`compared`) equal to the field it sets (smaller where the key
+    is in ``reduced``); a key missing from ``published`` fails."""
+    assert conf["source"] == entry["source"]
+    assert conf["reduced"] == entry["reduced"]
+    ref = reference.of(conf)
+    pub, run = conf["published"], conf["model"]
+    assert ref.PUBLISHED
+    for key, field in compared(ref, run).items():
+        assert key in pub, f"{key} missing from published"
+        if key in conf["reduced"]:
+            assert run[field] < pub[key], key
+        else:
+            assert run[field] == pub[key], key
+    assert ref.param_spec(run)
+
+
 def test_config_files_state_their_cut():
     for c in B["configs"]:
-        conf = json.loads((ROOT / c["file"]).read_text())
-        assert conf["source"] == c["source"]
-        assert conf["reduced"] == c["reduced"]
-        pub, run = conf["published"], conf["model"]
-        same = {"hidden_size": "d_model", "num_attention_heads": "n_heads",
-                "num_key_value_heads": "n_kv_heads", "vocab_size": "vocab",
-                "rms_norm_eps": "norm_eps", "rope_theta": "rope_theta",
-                "num_hidden_layers": "n_layers"}
-        for hf, ours in same.items():
-            if hf in conf["reduced"]:
-                assert run[ours] < pub[hf]
-            else:
-                assert run[ours] == pub[hf], hf
-        assert param_spec(run)
+        check_config(c, json.loads((ROOT / c["file"]).read_text()))
 
 
 def test_files_under_paths_are_named_from_name_characters():

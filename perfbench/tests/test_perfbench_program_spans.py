@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from perfbench import bench, spans
-from perfbench.tests._small import CELLS
+from perfbench.tests._small import small
 from repro_torch.obs import PROCESS_TRACER, Span
 
 SWEEP = ("sweep.enqueue_ms", "sweep.wait_ms", "sweep.archive_ms",
@@ -84,8 +84,9 @@ def _window(cell, seconds=0.05):
     """The small cell's job warmed, then its closed loop under the CPU
     profiler: the process tracer's spans of the window."""
     from torch.profiler import ProfilerActivity, profile
-    model, mix = CELLS[cell]
-    _, _, conf, mix, dev = bench.load_cell(cell, "cpu", model, mix)
+    s = small(cell)
+    _, _, conf, mix, dev = bench.load_cell(cell, "cpu", s["model"],
+                                           s["traffic"])
     job = bench.kind_module(mix["kind"]).Job(conf, mix, 3, dev)
     job.setup()
     PROCESS_TRACER.drain()
@@ -111,7 +112,7 @@ def test_sweep_readers_on_a_small_window():
 def test_moe_readers_on_a_small_window():
     job, win = _window("qwen2moe.prefill")
     try:
-        model = CELLS["qwen2moe.prefill"][0]
+        model = small("qwen2moe.prefill")["model"]
         blocks = spans.named("moe.dispatch")
         assert len(blocks) == win["units"] * model["n_layers"]
         fill = bench.metric_reader("moe.slot_fill.prefill").read(CTX)

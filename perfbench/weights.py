@@ -4,9 +4,10 @@ Every random draw of a run comes from a generator seeded by
 :func:`stream_seed` (the run's seed and the purpose of the draw), so the
 same seed gives the same weights and the same traffic whatever else the run
 did.  The weights are one flat buffer filled by one normal draw on the
-device, in the type they are served in, and cut into views by the
-reference's :func:`~perfbench.reference.lm.param_spec`; the program and the
-reference are handed the same dict.
+device, in the type they are served in, cut into views by the
+``param_spec`` of the reference the configuration names, and each view
+scaled by that reference's ``init_leaf``; the program and the reference
+are handed the same dict.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Dict
 
 import torch
 
-from perfbench.reference.lm import param_spec
+from perfbench import reference
 
 
 def stream_seed(seed: int, purpose: str) -> int:
@@ -30,31 +31,21 @@ def generator(seed: int, purpose: str, device) -> torch.Generator:
                                                                   purpose))
 
 
-def _init_leaf(name: str, t: torch.Tensor) -> None:
-    """Scale a unit normal leaf in place to its role: norm gains 1 +/- 0.1,
-    biases 0.1, the embedding 1, a matrix 1 / sqrt(fan in), so that every
-    layer's output and the logits stay of order one."""
-    if name.endswith(("ln1", "ln2", "final_norm")):
-        t.mul_(0.1).add_(1.0)
-    elif name.endswith(".b"):
-        t.mul_(0.1)
-    elif name != "embed":
-        t.mul_(1.0 / math.sqrt(t.shape[-2]))
-
-
 @torch.no_grad()
-def make_weights(model: dict, seed: int, device, dtype=torch.float32
-                 ) -> Dict[str, torch.Tensor]:
-    """The model's weights for `seed` on `device`: views of one buffer
-    drawn in one call."""
-    spec = param_spec(model)
+def make_weights(conf: dict, seed: int, device) -> Dict[str, torch.Tensor]:
+    """The weights of the configuration `conf` (its ``model``, in its
+    ``dtype``) for `seed` on `device`: views of one buffer drawn in one
+    call."""
+    ref = reference.of(conf)
+    spec = ref.param_spec(conf["model"])
     total = sum(math.prod(shape) for _, shape in spec)
-    out = torch.empty(total, dtype=dtype, device=device)
+    out = torch.empty(total, dtype=getattr(torch, conf["dtype"]),
+                      device=device)
     out.normal_(generator=generator(seed, "weights", device))
     weights, at = {}, 0
     for name, shape in spec:
         n = math.prod(shape)
         weights[name] = out[at:at + n].view(shape)
-        _init_leaf(name, weights[name])
+        ref.init_leaf(name, weights[name])
         at += n
     return weights
