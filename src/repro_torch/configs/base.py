@@ -52,10 +52,31 @@ class ArchConfig:
     # which shapes this arch supports (see DESIGN.md §Shape-applicability)
     skip_shapes: Tuple[str, ...] = ()
 
+    # Port-only fields (the reference's ArchConfig has none of them).
+    # RWKV6 "Finch"'s published layer (arXiv:2404.05892, models/ssm.py):
+    # the rank of the LoRA behind its five data-dependent token-shift
+    # mixes and of its decay LoRA.  Both 0 (every entry of ARCHS) is the
+    # repository's RWKV layer; both set is Finch's, LayerNorms with a bias
+    # and ``ln0`` included.
+    rwkv_mix_lora: int = 0
+    rwkv_decay_lora: int = 0
+
+    def __post_init__(self):
+        if bool(self.rwkv_mix_lora) != bool(self.rwkv_decay_lora):
+            raise ValueError(
+                f"{self.name}: rwkv_mix_lora and rwkv_decay_lora select "
+                f"Finch's layer together (got {self.rwkv_mix_lora}, "
+                f"{self.rwkv_decay_lora})")
+
     # ------------------------------------------------------------------
     @property
     def attn_free(self) -> bool:
         return self.family == "ssm"
+
+    @property
+    def rwkv_finch(self) -> bool:
+        """Whether an ssm-family model has Finch's published layer."""
+        return self.rwkv_mix_lora > 0
 
     def smoke(self) -> "ArchConfig":
         """Reduced same-family config for CPU smoke tests."""

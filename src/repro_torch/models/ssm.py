@@ -11,6 +11,12 @@ scan's counted op (``ssm_scan_counted``, ``rwkv6_scan_counted``: the
 plain version as one op forward and one backward); in decode (a carried
 state) :func:`_selective_scan` and :func:`wkv6_scan` run them in torch
 ops, since the kernels start from a zero state and return none.
+
+The RWKV layer has two layouts (:class:`RWKV`): the repository's, which
+the reference defines, and Finch's published one (data-dependent token
+shift and decay through LoRAs, GroupNorm with a bias, a receptance-gated
+channel mix), which the config's ``rwkv_mix_lora`` / ``rwkv_decay_lora``
+select.  Both run the same scans.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from repro_torch.models.dtensor import (channel_kernel, chunk_last,
                                         pinned, rwkv_kernel, split_heads,
                                         ssm_kernel)
 from repro_torch.models.layers import Linear, empty_param, linear, upcast
+from repro_torch.obs.trace import PROCESS_TRACER as _TRACER
 
 
 # =====================================================================
@@ -166,28 +173,67 @@ def mamba_init_state(b: int, d_model: int, d_state: int, d_conv: int,
 # =====================================================================
 
 class RWKV(nn.Module):
-    """One RWKV6 layer's time-mix and channel-mix parameters, under the
-    reference's names (``init_rwkv``)."""
+    """One RWKV6 layer's time-mix and channel-mix parameters.  By default
+    the repository's layer, under the reference's names (``init_rwkv``);
+    with `mix_lora` and `decay_lora` (both set) Finch's published layer
+    (``RWKV_Tmix_x060`` / ``RWKV_CMix_x060``, :func:`init_finch`):
+
+    - ``maa_x``, ``maa_w``, ``maa_k``, ``maa_v``, ``maa_r``, ``maa_g``
+      (d,): the token-shift interpolations, ``maa_w1`` (d, 5 R) and
+      ``maa_w2`` (5, R, d) the LoRA that makes the last five data
+      dependent (slots in the order w, k, v, r, g);
+    - ``w_bias`` (d,), ``decay_w1`` (d, D) and ``decay_w2`` (D, d): the
+      decay ``exp(-exp(w_bias + tanh(xw @ decay_w1) @ decay_w2))``;
+    - ``u`` (H, hd) the bonus; ``ln_x_w``, ``ln_x_b`` (d,) the GroupNorm
+      over the heads after the scan;
+    - ``cm_maa_k``, ``cm_maa_r`` (d,), ``cm_k``, ``cm_v`` and ``cm_r``: the
+      channel mix with its receptance gate.
+
+    Both layouts share ``r``, ``k``, ``v``, ``g``, ``out``, ``cm_k`` and
+    ``cm_v`` (no bias)."""
 
     def __init__(self, d_model: int, head_size: int, d_ff: int, *,
+                 mix_lora: int = 0, decay_lora: int = 0,
                  dtype=torch.float32, device=None):
         super().__init__()
         h = d_model // head_size
         kw = dict(dtype=dtype, device=device)
         f32 = dict(dtype=torch.float32, device=device)
-        for name in ("mix_r", "mix_k", "mix_v", "mix_w", "mix_g",
-                     "cm_mix_k"):
-            setattr(self, name, empty_param((d_model,), **kw))
-        for name in ("r", "k", "v", "g", "w_proj", "out"):
+        self.finch = mix_lora > 0
+        if not self.finch:
+            for name in ("mix_r", "mix_k", "mix_v", "mix_w", "mix_g",
+                         "cm_mix_k"):
+                setattr(self, name, empty_param((d_model,), **kw))
+        linears = (("r", "k", "v", "g", "out") if self.finch
+                   else ("r", "k", "v", "g", "w_proj", "out"))
+        for name in linears:
             setattr(self, name, Linear(d_model, d_model, **kw))
         self.w_bias = empty_param((d_model,), **f32)
         self.u = empty_param((h, head_size), **f32)
         self.ln_x_w = empty_param((d_model,), **f32)
         self.cm_k = Linear(d_model, d_ff, **kw)
         self.cm_v = Linear(d_ff, d_model, **kw)
+        if self.finch:
+            for name in FINCH_MIXES:
+                setattr(self, name, empty_param((d_model,), **kw))
+            self.maa_w1 = empty_param((d_model, 5 * mix_lora), **kw)
+            self.maa_w2 = empty_param((5, mix_lora, d_model), **kw)
+            self.decay_w1 = empty_param((d_model, decay_lora), **kw)
+            self.decay_w2 = empty_param((decay_lora, d_model), **kw)
+            self.ln_x_b = empty_param((d_model,), **f32)
+            self.cm_r = Linear(d_model, d_model, **kw)
 
     def init_weights(self, gen: torch.Generator) -> None:
-        init_rwkv(self, gen)
+        (init_finch if self.finch else init_rwkv)(self, gen)
+
+
+# Finch's token-shift interpolations (x + (shift(x) - x) * maa), the first
+# of the time mix's and the two of its channel mix
+FINCH_MIXES = ("maa_x", "maa_w", "maa_k", "maa_v", "maa_r", "maa_g",
+               "cm_maa_k", "cm_maa_r")
+# Finch's GroupNorm after the scan: eps 1e-5 x head_size_divisor^2, the
+# divisor 8 (upstream divides y by it before a norm at eps 1e-5)
+FINCH_GROUP_NORM_EPS = 1e-5 * 8 ** 2
 
 
 def init_rwkv(p: RWKV, gen: torch.Generator) -> None:
@@ -198,6 +244,25 @@ def init_rwkv(p: RWKV, gen: torch.Generator) -> None:
     p.w_bias.fill_(-6.0)
     p.u.normal_(0.0, 0.1, generator=gen)
     p.ln_x_w.fill_(1.0)
+
+
+def init_finch(p: RWKV, gen: torch.Generator) -> None:
+    """Finch's layer after upstream's regime, simplified: the mixes 0.5,
+    both LoRAs' inner ends zero and outer ends uniform in +-0.01 (the
+    mixes and the decay start static), a decay ramp from -6 to -1 over
+    the channels, the bonus 0.5, the GroupNorm's weight 1 and bias 0."""
+    for name in FINCH_MIXES:
+        getattr(p, name).fill_(0.5)
+    for name in ("r", "k", "v", "g", "out", "cm_k", "cm_v", "cm_r"):
+        getattr(p, name).init_weights(gen)
+    for w1, w2 in ((p.maa_w1, p.maa_w2), (p.decay_w1, p.decay_w2)):
+        w1.zero_()
+        w2.uniform_(-0.01, 0.01, generator=gen)
+    d = p.w_bias.shape[0]
+    p.w_bias.copy_(torch.linspace(-6.0, -1.0, d, device=p.w_bias.device))
+    p.u.fill_(0.5)
+    p.ln_x_w.fill_(1.0)
+    p.ln_x_b.zero_()
 
 
 def wkv6_scan(r, k, v, w, u, s0=None):
@@ -229,37 +294,80 @@ def rwkv_time_mix(p: RWKV, x: torch.Tensor, head_size: int,
                   ) -> Tuple[torch.Tensor, Dict]:
     """Returns (out, {"wkv", "shift"}).  Without a carried state the scan
     is the ``rwkv6_scan`` kernel, which returns no state: ``wkv`` is then
-    None."""
+    None.
+
+    While the process tracer records, the whole is the device span
+    ``rwkv.time_mix`` and, in Finch's layout, the token shift, the mixes'
+    LoRA, the five interpolations and the decay LoRA the device span
+    ``rwkv.lora`` inside it; both carry the ``tokens`` and ``heads`` they
+    cover."""
     b, L, d = x.shape
     h = d // head_size
-    xs = _token_shift(x, state)
-    new_shift = x[:, -1:, :]
+    with _TRACER.span("rwkv.time_mix", device=x.device, tokens=b * L,
+                      heads=h):
+        if p.finch:
+            with _TRACER.span("rwkv.lora", device=x.device, tokens=b * L,
+                              heads=h):
+                xr, xk, xv, xg, w_ = _finch_mixes(p, x,
+                                                  _token_shift(x, state))
+        else:
+            xs = _token_shift(x, state)
 
-    def mix(m):
-        return x * m + xs * (1 - m)
+            def mix(m):
+                return x * m + xs * (1 - m)
+            xr, xk, xv, xg = (mix(m) for m in (p.mix_r, p.mix_k, p.mix_v,
+                                                p.mix_g))
+            # data-dependent decay (the Finch contribution)
+            w_ = torch.exp(-torch.exp(upcast(linear(p.w_proj, mix(p.mix_w)))
+                                      + p.w_bias))
+        r = split_heads(linear(p.r, xr), h, head_size)
+        k = split_heads(linear(p.k, xk), h, head_size)
+        v = split_heads(linear(p.v, xv), h, head_size)
+        g = linear(p.g, xg)
+        w = split_heads(w_, h, head_size)
 
-    r = split_heads(linear(p.r, mix(p.mix_r)), h, head_size)
-    k = split_heads(linear(p.k, mix(p.mix_k)), h, head_size)
-    v = split_heads(linear(p.v, mix(p.mix_v)), h, head_size)
-    g = linear(p.g, mix(p.mix_g))
-    # data-dependent decay (the Finch contribution)
-    w_ = upcast(linear(p.w_proj, mix(p.mix_w)))
-    w = split_heads(torch.exp(-torch.exp(w_ + p.w_bias)), h, head_size)
+        if state is None:
+            # fp32 in, fp32 out, as the reference's scan casts its inputs
+            args = (upcast(r), upcast(k), upcast(v), w, p.u)
+            y = (rwkv_kernel(_rwkv_local, *args) if is_dtensor(w)
+                 else _rwkv_local(*args))
+            s = None
+        else:
+            y, s = wkv6_scan(r, k, v, w, p.u, state["wkv"])
+        if p.finch:
+            # GroupNorm over each head, with its weight and bias
+            mu = torch.mean(y, dim=-1, keepdim=True)
+            var = torch.var(y, dim=-1, unbiased=False, keepdim=True)
+            yf = (y - mu) * torch.rsqrt(var + FINCH_GROUP_NORM_EPS)
+            y = (yf.reshape(b, L, d) * p.ln_x_w + p.ln_x_b).to(x.dtype)
+        else:
+            # group norm over heads (approximated by rms over head groups)
+            yf = y * torch.rsqrt(torch.mean(y * y, dim=-1, keepdim=True)
+                                 + 1e-5)
+            y = (yf.reshape(b, L, d) * p.ln_x_w).to(x.dtype)
+        y = y * F.silu(upcast(g)).to(x.dtype)
+        out = linear(p.out, y)
+    return out, {"wkv": s, "shift": x[:, -1:, :]}
 
-    if state is None:
-        # fp32 in, fp32 out, as the reference's scan casts its inputs
-        args = (upcast(r), upcast(k), upcast(v), w, p.u)
-        y = (rwkv_kernel(_rwkv_local, *args) if is_dtensor(w)
-             else _rwkv_local(*args))
-        s = None
-    else:
-        y, s = wkv6_scan(r, k, v, w, p.u, state["wkv"])
-    # group norm over heads (approximated by rms over head groups)
-    yf = y * torch.rsqrt(torch.mean(y * y, dim=-1, keepdim=True) + 1e-5)
-    y = (yf.reshape(b, L, d) * p.ln_x_w).to(x.dtype)
-    y = y * F.silu(upcast(g)).to(x.dtype)
-    out = linear(p.out, y)
-    return out, {"wkv": s, "shift": new_shift}
+
+def _finch_mixes(p: RWKV, x: torch.Tensor, xs: torch.Tensor):
+    """Finch's data-dependent token shift of x (B, L, d) and its shifted
+    copy xs: (xr, xk, xv, xg, w), w the decay in (0, 1), fp32."""
+    b, L, d = x.shape
+    xx = xs - x
+    xxx = x + xx * p.maa_x
+    rank = p.maa_w2.shape[1]
+    m = torch.tanh(torch.matmul(xxx, p.maa_w1))              # (B, L, 5R)
+    m = torch.bmm(m.reshape(b * L, 5, rank).transpose(0, 1), p.maa_w2)
+    mw, mk, mv, mr, mg = m.reshape(5, b, L, d).unbind(0)
+    xw = x + xx * (p.maa_w + mw)
+    xk = x + xx * (p.maa_k + mk)
+    xv = x + xx * (p.maa_v + mv)
+    xr = x + xx * (p.maa_r + mr)
+    xg = x + xx * (p.maa_g + mg)
+    ww = torch.matmul(torch.tanh(torch.matmul(xw, p.decay_w1)), p.decay_w2)
+    w = torch.exp(-torch.exp(upcast(ww) + p.w_bias))
+    return xr, xk, xv, xg, w
 
 
 def _rwkv_local(r, k, v, w, u):
@@ -272,12 +380,21 @@ def _rwkv_local(r, k, v, w, u):
 def rwkv_channel_mix(p: RWKV, x: torch.Tensor,
                      state: Optional[Dict] = None
                      ) -> Tuple[torch.Tensor, Dict]:
+    """The squared-ReLU FFN of the token-shifted x; in Finch's layout
+    gated by the sigmoid of its receptance."""
     xs = _token_shift(x, state)
-    m = p.cm_mix_k
-    xk = x * m + xs * (1 - m)
+    if p.finch:
+        xx = xs - x
+        xk = x + xx * p.cm_maa_k
+    else:
+        m = p.cm_mix_k
+        xk = x * m + xs * (1 - m)
     hdn = linear(p.cm_k, xk)
     hdn = torch.square(torch.relu(upcast(hdn))).to(x.dtype)
     out = linear(p.cm_v, hdn)
+    if p.finch:
+        rr = linear(p.cm_r, x + xx * p.cm_maa_r)
+        out = torch.sigmoid(upcast(rr)).to(x.dtype) * out
     return out, {"shift": x[:, -1:, :]}
 
 

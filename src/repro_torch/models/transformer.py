@@ -1,6 +1,7 @@
 """Model assembly for every architecture family: ``dense``, ``moe``
 (shared experts; Arctic's dense residual), ``vlm`` (precomputed input
-embeddings), ``audio`` (Whisper's encoder-decoder), ``ssm`` (RWKV6) and
+embeddings), ``audio`` (Whisper's encoder-decoder), ``ssm`` (RWKV6, in the
+repository's layout or Finch's published one: ``models.ssm``) and
 ``hybrid`` (Jamba).
 
 The port's counterpart of ``repro.models.transformer``.  :func:`build_model`
@@ -48,8 +49,8 @@ from repro_torch.models.dtensor import (gather_rows, gather_seq, is_dtensor,
                                         plain_as_replicated, replicated_call,
                                         to_placements, vocab_parallel_nll,
                                         vocab_split_dims)
-from repro_torch.models.layers import (MLP, Linear, empty_param, linear, mlp,
-                                       rms_norm)
+from repro_torch.models.layers import (MLP, Linear, empty_param, layer_norm,
+                                       linear, mlp, rms_norm)
 
 FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 
@@ -114,17 +115,30 @@ class EncoderLayer(nn.Module):
 
 
 class RWKVLayer(nn.Module):
+    """``ln1`` / the time mix and ``ln2`` / the channel mix; in Finch's
+    layout (``cfg.rwkv_finch``) the norms are LayerNorms with the biases
+    ``ln1_b`` and ``ln2_b``."""
+
     def __init__(self, cfg: ArchConfig, dtype, device):
         super().__init__()
         d = cfg.d_model
         self.ln1 = empty_param((d,), torch.float32, device)
         self.ln2 = empty_param((d,), torch.float32, device)
-        self.rwkv = S.RWKV(d, cfg.rwkv_head_size, cfg.d_ff, dtype=dtype,
+        self.ln1_b = self.ln2_b = None
+        if cfg.rwkv_finch:
+            self.ln1_b = empty_param((d,), torch.float32, device)
+            self.ln2_b = empty_param((d,), torch.float32, device)
+        self.rwkv = S.RWKV(d, cfg.rwkv_head_size, cfg.d_ff,
+                           mix_lora=cfg.rwkv_mix_lora,
+                           decay_lora=cfg.rwkv_decay_lora, dtype=dtype,
                            device=device)
 
     def init_weights(self, gen: torch.Generator) -> None:
         self.ln1.fill_(1.0)
         self.ln2.fill_(1.0)
+        for b in (self.ln1_b, self.ln2_b):
+            if b is not None:
+                b.zero_()
         self.rwkv.init_weights(gen)
 
 
@@ -203,6 +217,13 @@ class Model(nn.Module):
         dev = self.device
         self.embed = empty_param((cfg.vocab, cfg.d_model), dtype, dev)
         self.final_norm = empty_param((cfg.d_model,), torch.float32, dev)
+        # Finch's LayerNorm biases, and its ln0 on the embedding
+        self.final_norm_b = self.ln0 = self.ln0_b = None
+        if cfg.family == "ssm" and cfg.rwkv_finch:
+            self.final_norm_b = empty_param((cfg.d_model,), torch.float32,
+                                            dev)
+            self.ln0 = empty_param((cfg.d_model,), torch.float32, dev)
+            self.ln0_b = empty_param((cfg.d_model,), torch.float32, dev)
         self.lm_head = (None if cfg.tie_embeddings
                         else Linear(cfg.d_model, cfg.vocab, dtype=dtype,
                                     device=dev))
@@ -224,6 +245,10 @@ class Model(nn.Module):
         device), in a fixed order."""
         self.embed.normal_(0.0, 0.02, generator=gen)
         self.final_norm.fill_(1.0)
+        if self.ln0 is not None:
+            self.ln0.fill_(1.0)
+            self.final_norm_b.zero_()
+            self.ln0_b.zero_()
         if self.lm_head is not None:
             self.lm_head.init_weights(gen)
         for lyr in self.layers:
@@ -254,14 +279,14 @@ class Model(nn.Module):
             x = self._embed(batch["tokens"])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "ssm":
-            x = self._rwkv_stack(x)
+            x = self._rwkv_stack(self._ln0(x))
         elif cfg.family == "hybrid":
             x, aux = self._jamba_stack(x)
         else:
             enc = (self.encode(batch["frames"]) if cfg.family == "audio"
                    else None)
             x, aux = self._decoder_stack(x, enc)
-        x = rms_norm(self.final_norm, x, cfg.norm_eps)
+        x = self._norm(self.final_norm, self.final_norm_b, x)
         # the sequence gathered before the column-parallel head, as before
         # every block's (a product on the sequence-split stream would fold
         # the model split into its rows)
@@ -315,6 +340,19 @@ class Model(nn.Module):
             return x.redistribute(mesh, to_placements(mesh, self.hidden_pspec,
                                                       x.dim()))
         return x
+
+    def _norm(self, w: torch.Tensor, b: Optional[torch.Tensor],
+              x: torch.Tensor) -> torch.Tensor:
+        """RMSNorm of x with gain w, or, given a bias b (Finch's layout),
+        LayerNorm."""
+        if b is None:
+            return rms_norm(w, x, self.cfg.norm_eps)
+        return layer_norm(w, b, x, self.cfg.norm_eps)
+
+    def _ln0(self, x: torch.Tensor) -> torch.Tensor:
+        """Finch's LayerNorm of the embedding before layer 0 (none in
+        other layouts)."""
+        return x if self.ln0 is None else self._norm(self.ln0, self.ln0_b, x)
 
     def _add(self, h: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
         """The residual add h + f, f (a block's row-parallel output: a
@@ -489,11 +527,11 @@ class Model(nn.Module):
         kernel; with one (decode) it is ``wkv6_scan``."""
         cfg = self.cfg
         lp = self.layers[i]
-        t, tm = S.rwkv_time_mix(lp.rwkv, rms_norm(lp.ln1, h, cfg.norm_eps),
+        t, tm = S.rwkv_time_mix(lp.rwkv, self._norm(lp.ln1, lp.ln1_b, h),
                                 cfg.rwkv_head_size,
                                 state=None if state is None else state["tm"])
         h = h + t
-        c, cm = S.rwkv_channel_mix(lp.rwkv, rms_norm(lp.ln2, h, cfg.norm_eps),
+        c, cm = S.rwkv_channel_mix(lp.rwkv, self._norm(lp.ln2, lp.ln2_b, h),
                                    state=None if state is None else state["cm"])
         return h + c, {"tm": tm, "cm": cm}
 
@@ -543,12 +581,12 @@ class Model(nn.Module):
         cfg = self.cfg
         x = self._embed(tokens)[:, None, :]               # (B, 1, d)
         if cfg.family == "ssm":
-            x, cache = self._rwkv_decode(cache, x)
+            x, cache = self._rwkv_decode(cache, self._ln0(x))
         elif cfg.family == "hybrid":
             x, cache = self._jamba_decode(cache, x)
         else:
             x, cache = self._decoder_decode(cache, x)
-        x = rms_norm(self.final_norm, x, cfg.norm_eps)
+        x = self._norm(self.final_norm, self.final_norm_b, x)
         return self._logits(x)[:, 0], cache
 
     def _decoder_decode(self, cache: Dict, h: torch.Tensor):
